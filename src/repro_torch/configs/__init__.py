@@ -1,0 +1,32 @@
+"""Model configs the port serves; ``get_config(id)`` / ``get_reduced(id)``.
+
+Same ids, widths and reduced test widths as ``repro/configs``.
+"""
+import importlib
+from typing import List
+
+from repro_torch.models.common import ModelConfig
+
+_MODULES = {
+    "qwen3-4b": "qwen3_4b",
+    "smollm-135m": "smollm_135m",
+}
+
+
+def list_archs() -> List[str]:
+    return sorted(_MODULES)
+
+
+def _mod(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; the port serves "
+                       f"{list_archs()}")
+    return importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _mod(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _mod(name).reduced()

@@ -1,0 +1,113 @@
+"""Anchor-format model storage + elastic conversion (paper §3.5).
+
+Counterpart of ``repro/core/anchor.py``:
+  1. quantize the trained master weights once to the anchor format
+     (MXINT8 / MXFP8) -> ``AnchorModel`` (MXTensor leaves + raw leaves),
+  2. derive any lower-precision format by Slice-and-Scale, without the
+     full-precision weights,
+  3. serve the packed codes through the dequant-GEMM kernels, or
+     ``materialize`` a dense tree.
+
+Leaves are keyed by JAX ``keystr`` paths (``core/tree.py``). Stacked leaves
+(G, K, N) are quantized and converted one layer slice at a time: the result
+is identical (blocks run along K, inside a slice) and the temporaries of a
+full-width model stay one layer in size.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.core.formats import MXFormat
+from repro_torch.core.mx import MXTensor, dequantize, quantize
+from repro_torch.core.qat import QATConfig, pytree_block_axis
+from repro_torch.core.slice_scale import slice_and_scale
+from repro_torch.core.tree import flatten_paths, unflatten_paths
+from repro_torch.devices import resolve_device
+
+
+@dataclasses.dataclass
+class AnchorModel:
+    """quantized: dict path -> MXTensor; raw: dict path -> float leaf."""
+
+    quantized: Dict[str, MXTensor]
+    raw: Dict[str, torch.Tensor]
+    fmt_name: str
+
+
+def per_layer(fn: Callable, t: MXTensor):
+    """Apply a per-block MX transform (returning a dataclass container such
+    as an MXTensor) one leading slice at a time for stacked leaves, and
+    restack the slices into what ``fn(t)`` would return for the whole leaf.
+    """
+    if t.codes.ndim < 3:
+        return fn(t)
+    parts = [fn(MXTensor(codes=t.codes[g], scale_exp=t.scale_exp[g],
+                         fmt=t.fmt, block_axis=t.block_axis - 1))
+             for g in range(t.codes.shape[0])]
+    first = parts[0]
+    upd = {f.name: torch.stack([getattr(p, f.name) for p in parts])
+           for f in dataclasses.fields(first)
+           if isinstance(getattr(first, f.name), torch.Tensor)}
+    upd["block_axis"] = t.block_axis
+    if "shape" in {f.name for f in dataclasses.fields(first)}:
+        upd["shape"] = (len(parts),) + tuple(first.shape)
+    return dataclasses.replace(first, **upd)
+
+
+def _quantize_stacked(w: torch.Tensor, fmt: MXFormat, axis: int) -> MXTensor:
+    """``quantize(w, fmt, axis)``, one leading slice at a time if stacked."""
+    if w.ndim < 3:
+        return quantize(w, fmt, axis=axis)
+    parts = [quantize(w[g], fmt, axis=axis - 1) for g in range(w.shape[0])]
+    return MXTensor(codes=torch.stack([p.codes for p in parts]),
+                    scale_exp=torch.stack([p.scale_exp for p in parts]),
+                    fmt=fmt, block_axis=axis)
+
+
+def make_anchor(params, cfg: QATConfig, anchor: MXFormat | None = None, *,
+                device="cuda") -> AnchorModel:
+    """One-time quantization of master weights to the anchor format."""
+    dev = resolve_device(device)
+    fmt = anchor or cfg.anchor_obj()
+    if fmt is None:
+        raise ValueError("anchor format required")
+    q, raw = {}, {}
+    for path, w in flatten_paths(params):
+        w = w.to(dev)
+        ax = pytree_block_axis(w)
+        if (w.ndim >= 2 and cfg.is_quantized_path(path)
+                and w.shape[ax] % fmt.block_size == 0):
+            q[path] = _quantize_stacked(w, fmt, ax)
+        else:
+            raw[path] = w
+    return AnchorModel(quantized=q, raw=raw, fmt_name=fmt.name)
+
+
+def convert(model: AnchorModel, target: MXFormat) -> AnchorModel:
+    """Slice-and-Scale the whole model to a lower-precision format."""
+    return AnchorModel(
+        quantized={k: per_layer(lambda s: slice_and_scale(s, target), t)
+                   for k, t in model.quantized.items()},
+        raw=model.raw,
+        fmt_name=target.name,
+    )
+
+
+def materialize(model: AnchorModel, dtype=torch.bfloat16):
+    """Rebuild a dense param tree (for the dense reference contracts)."""
+    out = {}
+    for path, t in model.quantized.items():
+        out[path] = dequantize(t, dtype=dtype)
+    for path, w in model.raw.items():
+        out[path] = w.to(dtype) if w.is_floating_point() else w
+    return unflatten_paths(out)
+
+
+def storage_bytes(model: AnchorModel) -> int:
+    """True packed checkpoint size (elements at fmt.bits + E8M0 scales)."""
+    total = sum(t.nbytes_logical for t in model.quantized.values())
+    return total + sum(w.numel() * w.element_size()
+                       for w in model.raw.values())

@@ -1,0 +1,162 @@
+"""Packed-MX serving parameters: packed leaves all the way to the GEMM.
+
+Counterpart of ``repro/serve/packed_params.py`` (serving subset). The serving
+tree keeps every quantized projection packed — ``MXTensor`` leaves (int8 /
+uint8 codes + E8M0 scales) for >= 5-bit formats, split-N ``PackedInt4Leaf``
+for MXINT4 — so a decode step streams only codes and scales. Layout rules:
+stacked leaves are (G, K, N) with the contraction at ndim-2, scales are in
+the moved-last (G, N, K/bs) layout, and a leaf sliced to one layer keeps its
+stale ``block_axis`` (consumers re-derive the axis as ndim-2).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.anchor import AnchorModel, per_layer
+from repro_torch.core.formats import get_format
+from repro_torch.core.mx import MXTensor, dequantize
+from repro_torch.core.packed import (pack_int4, pack_int4_splitn, unpack_int4,
+                                     unpack_int4_splitn)
+from repro_torch.core.slice_scale import slice_and_scale
+from repro_torch.core.tree import flatten_paths, unflatten_paths
+
+
+@dataclasses.dataclass
+class PackedInt4Leaf:
+    packed: torch.Tensor         # uint8 nibble pairs, codes.numel() / 2
+    scale_exp: torch.Tensor
+    shape: tuple                 # original codes shape
+    block_axis: int
+    fmt_name: str
+    # "splitn": codes shape with the last (output) axis halved; byte col j =
+    #   output cols (j, j + N/2) — the int4 GEMM kernel's layout.
+    # "splitk": legacy — block axis moved last, adjacent nibble pairs along
+    #   it; densify-only (no kernel reads it).
+    layout: str = "splitn"
+
+
+def is_packed_leaf(w) -> bool:
+    return isinstance(w, (MXTensor, PackedInt4Leaf))
+
+
+def pack_leaf_int4(t: MXTensor, layout: str = "splitn") -> PackedInt4Leaf:
+    assert t.fmt.kind == "int" and t.fmt.bits == 4
+    if layout == "splitn" and (
+            t.block_axis % t.codes.ndim == t.codes.ndim - 1
+            or t.codes.shape[-1] % 2 != 0):
+        layout = "splitk"
+    if layout == "splitn":
+        packed = pack_int4_splitn(t.codes)
+    else:
+        packed = pack_int4(torch.movedim(t.codes, t.block_axis, -1))
+    return PackedInt4Leaf(packed=packed.contiguous(), scale_exp=t.scale_exp,
+                          shape=tuple(t.codes.shape),
+                          block_axis=t.block_axis, fmt_name=t.fmt.name,
+                          layout=layout)
+
+
+def layer_slice(leaf, g: int):
+    """Leaf ``g`` of a stacked (G, ...) leaf: views, no copies. Packed
+    containers keep their (now stale) metadata, like a scan-sliced leaf."""
+    if isinstance(leaf, MXTensor):
+        return MXTensor(codes=leaf.codes[g], scale_exp=leaf.scale_exp[g],
+                        fmt=leaf.fmt, block_axis=leaf.block_axis)
+    if isinstance(leaf, PackedInt4Leaf):
+        return dataclasses.replace(leaf, packed=leaf.packed[g],
+                                   scale_exp=leaf.scale_exp[g])
+    return leaf[g]
+
+
+def leaf_block_size(p: PackedInt4Leaf) -> int:
+    """The block size the leaf was packed at, from its own shapes (never the
+    registry default: anchors quantize at arbitrary block sizes)."""
+    k = p.packed.shape[-2] if p.layout == "splitn" \
+        else p.packed.shape[-1] * 2
+    return k // p.scale_exp.shape[-1]
+
+
+def leaf_as_mx(p: PackedInt4Leaf, block_size: Optional[int] = None,
+               block_axis: Optional[int] = None) -> MXTensor:
+    """Unpack a PackedInt4Leaf back to an MXTensor view (int8 codes)."""
+    ax = p.block_axis if block_axis is None else block_axis
+    bs = leaf_block_size(p) if block_size is None else block_size
+    if p.layout == "splitn":
+        codes = unpack_int4_splitn(p.packed)
+    else:
+        codes = torch.movedim(unpack_int4(p.packed), -1, ax)
+    return MXTensor(codes=codes, scale_exp=p.scale_exp,
+                    fmt=get_format(p.fmt_name, bs), block_axis=ax)
+
+
+def densify_leaf(leaf, block_size: Optional[int], dtype,
+                 serving_axis: bool = False) -> torch.Tensor:
+    """One packed container -> dense weight; other leaves pass through.
+
+    ``serving_axis=True`` re-derives the contraction axis as ndim-2 (leaves
+    sliced per layer keep stale ``block_axis``); ``block_size=None`` derives
+    the int4 block size from the leaf's shapes.
+    """
+    if isinstance(leaf, MXTensor):
+        ax = max(leaf.codes.ndim - 2, 0) if serving_axis else leaf.block_axis
+        return dequantize(dataclasses.replace(leaf, block_axis=ax),
+                          dtype=dtype)
+    if isinstance(leaf, PackedInt4Leaf):
+        ax = max(leaf.packed.ndim - 2, 0) if serving_axis else None
+        return dequantize(leaf_as_mx(leaf, block_size, block_axis=ax),
+                          dtype=dtype)
+    return leaf
+
+
+def anchor_block_size(anchor: AnchorModel) -> int:
+    """The block size the anchor was actually quantized at."""
+    for t in anchor.quantized.values():
+        return t.fmt.block_size
+    return get_format(anchor.fmt_name).block_size
+
+
+def make_packed_params(anchor: AnchorModel, *, target_fmt: str | None = None,
+                       dtype=torch.bfloat16):
+    """Param tree whose quantized leaves are packed MX containers.
+
+    ``target_fmt`` (default: the anchor's own) names a same-kind format at
+    or below the anchor's precision: the anchor is Slice-and-Scaled to it in
+    the packed domain and kept as MXTensor leaves, except 4-bit MXINT, which
+    is nibble-packed into split-N ``PackedInt4Leaf``s. Float leaves are cast
+    to ``dtype``.
+    """
+    fmt_t = get_format(target_fmt or anchor.fmt_name,
+                       anchor_block_size(anchor))
+    pack4 = fmt_t.kind == "int" and fmt_t.bits == 4
+    out = {}
+    for k, t in anchor.quantized.items():
+        # One layer slice at a time: a whole converted model's temporaries
+        # never exist at once.
+        out[k] = per_layer(_to_target(fmt_t, pack4), t)
+    for k, w in anchor.raw.items():
+        out[k] = w.to(dtype) if w.is_floating_point() else w
+    return unflatten_paths(out)
+
+
+def _to_target(fmt_t, pack4: bool):
+    def one(t: MXTensor):
+        t = slice_and_scale(t, fmt_t)
+        return pack_leaf_int4(t) if pack4 else t
+    return one
+
+
+def weight_stream_bytes(params) -> int:
+    """Device bytes one decode step streams for the weight tree: codes and
+    scales at their stored width for packed leaves, plus every float leaf."""
+    total = 0
+    for _, leaf in flatten_paths(params):
+        if isinstance(leaf, MXTensor):
+            parts = (leaf.codes, leaf.scale_exp)
+        elif isinstance(leaf, PackedInt4Leaf):
+            parts = (leaf.packed, leaf.scale_exp)
+        else:
+            parts = (leaf,)
+        total += sum(p.numel() * p.element_size() for p in parts)
+    return total

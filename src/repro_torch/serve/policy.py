@@ -1,0 +1,85 @@
+"""Runtime precision-selection policy for elastic inference.
+
+Counterpart of ``repro/serve/policy.py`` without the cost model: load
+(queue depth plus queued prompt tokens over ``prefill_token_unit``) maps to
+a format ladder — deeper queues pick lower-precision formats, an idle
+server the anchor — with hysteresis against thrashing. ``escalate`` walks
+one rung toward the anchor and ``quarantine`` bars a misbehaving rung from
+``pick``; the anchor is exempt from both.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Set, Tuple
+
+
+@dataclasses.dataclass
+class FormatPolicy:
+    anchor: str = "mxint8"
+    # (queue_depth threshold, format) — checked top-down, first match wins
+    ladder: Tuple[Tuple[int, str], ...] = (
+        (32, "mxint4"),
+        (8, "mxint6"),
+        (0, "mxint8"),
+    )
+    hysteresis: int = 2
+    # One queued request "counts double" per this many pending prompt tokens
+    # — the ladder thresholds stay in queue-depth units.
+    prefill_token_unit: int = 64
+    _last: str = dataclasses.field(default="", init=False)
+    _stable: int = dataclasses.field(default=0, init=False)
+    history: List[str] = dataclasses.field(default_factory=list, init=False)
+    quarantined: Set[str] = dataclasses.field(default_factory=set,
+                                              init=False)
+
+    def escalate(self, fmt: str) -> Optional[str]:
+        """One rung toward the anchor on the degradation ladder, or None
+        when ``fmt`` is already the anchor / unknown to the ladder (there
+        is nowhere safer to go). The ladder is ordered
+        deepest-queue (lowest precision) first, so "up" is the next entry.
+        """
+        if fmt == self.anchor:
+            return None
+        fmts = [f for _, f in self.ladder]
+        try:
+            i = fmts.index(fmt)
+        except ValueError:
+            return None
+        return fmts[i + 1] if i + 1 < len(fmts) else None
+
+    def quarantine(self, fmt: str) -> None:
+        """Bar ``fmt`` from future ``pick``s. The anchor is exempt: it is the
+        checkpoint's native precision and the ladder's terminal rung."""
+        if fmt != self.anchor:
+            self.quarantined.add(fmt)
+
+    def pick(self, queue_depth: int, prefill_tokens: int = 0, *,
+             override: Optional[str] = None) -> str:
+        """Choose the next batch wave's pinned format.
+
+        ``override`` is operator intent (``generate(fmt_override=...)``):
+        it wins over load, quarantine and hysteresis, and leaves the
+        hysteresis state untouched.
+        """
+        if override is not None:
+            self.history.append(override)
+            return override
+        load = queue_depth + prefill_tokens // self.prefill_token_unit
+        target = self.anchor
+        for thresh, fmt in self.ladder:
+            if load >= thresh:
+                target = fmt
+                break
+        while target in self.quarantined:
+            target = self.escalate(target) or self.anchor
+        if self._last and target != self._last:
+            self._stable += 1
+            if self._stable < self.hysteresis:
+                target = self._last
+            else:
+                self._stable = 0
+        else:
+            self._stable = 0
+        self._last = target
+        self.history.append(target)
+        return target
