@@ -6,21 +6,37 @@
 Phases (any failure exits non-zero before the result line):
   1. the card: name, power limit, device count; TF32 off for matmuls and
      cuDNN;
-  2. build the two MX dequant-GEMM kernels (src/repro_torch/csrc/) with nvcc
-     for sm_90a, and print the ptxas register / shared-memory lines;
-  3. kernels: at every qwen3-4b projection shape, at M = 4 (decode) and
-     M = 64 (a prefill bucket), hold mx_matmul (mxint8, mxfp8) and
-     mx_matmul_int4 (mxint4) against their plain PyTorch versions on the
-     same card tensors (rtol 1e-4, atol 1e-4 * max|plain|: both accumulate
-     in f32, only the summation order differs), and time the kernel, the
-     plain version and torch.matmul of x by the pre-densified bf16 weight
-     (the nearest library call; it streams 2x / 4x the weight bytes);
-  4. serving: qwen3-4b at full width (random weights from a seeded
+  2. build every CUDA source of the port (src/repro_torch/csrc/*.cu) with
+     nvcc for sm_90a into one library, one nvcc per source started
+     together, and print the ptxas register / shared-memory / spill lines;
+  3. dequant-GEMM kernels: at every qwen3-4b projection shape, at M = 4
+     (decode) and M = 64 (a prefill bucket), hold mx_matmul (mxint8, mxfp8)
+     and mx_matmul_int4 (mxint4) against their plain PyTorch versions on
+     the same card tensors (rtol 1e-4, atol 1e-4 * max|plain|: both
+     accumulate in f32, only the summation order differs), and time the
+     kernel, the plain version and torch.matmul of x by the pre-densified
+     bf16 weight (the nearest library call; it streams 2x / 4x the weight
+     bytes);
+  4. paged-attention kernels at qwen3-4b attention shapes (H 32, Hkv 8,
+     D 128, page 16, bf16 pools of 129 pages, 4 slots, random page
+     permutations): paged_attention (B3) at decode lengths, ragged lengths,
+     a window and a zero-length row, paged_attention_mq (B4) at a mixed
+     tick; each held against its plain version (same tolerance), NaN in
+     every dead page leaving the output bit-identical, B4 at q_len 1
+     agreeing with B3; timed beside the plain version, the HBM bound and
+     scaled_dot_product_attention on a contiguous copy of the live K/V
+     (timing only, not called by the port);
+  5. dense serving: qwen3-4b at full width (random weights from a seeded
      generator) -> MXINT8 anchor -> save_anchor / load_anchor ->
      ElasticEngine(batch_slots=4, max_len=512) serves 8 greedy requests at
      mxint8 and at mxint4 through the kernels, with launch counts read off
      the kernel wrappers, and the same requests through the densify
-     contract as the reference.
+     contract as the reference;
+  6. paged serving, always at all 36 layers: ElasticEngine(kv_layout=
+     "paged", kv_page_size=16, prefill_chunk=64) — the mixed scheduler,
+     every attention read through B3/B4 — serves the same 8 requests at
+     mxint8 and mxint4; launch counts, one executable per tick, balanced
+     pages, and the first mixed tick's logits against the gather contract.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -47,9 +63,18 @@ TPU_KERNEL = {
     "mx_matmul": "src/repro/kernels/mx_matmul.py:54 mx_matmul_pallas",
     "mx_matmul_int4": "src/repro/kernels/mx_matmul.py:108 "
                       "mx_matmul_int4_pallas",
+    "paged_attention": "src/repro/kernels/paged_attention.py:204 "
+                       "paged_attention_pallas",
+    "paged_attention_mq": "src/repro/kernels/paged_attention.py:339 "
+                          "paged_attention_pallas_mq",
 }
 FUSED_TOL = 0.05   # max|fused - densify| <= 5% of max|densify| (bf16 rounds
-#                    each projection's output at different places)
+#                    each projection's output at different places); also
+#                    max|paged_kernel - gather| on the first mixed tick
+# qwen3-4b attention at the serving settings of the paged phase.
+ATTN_H, ATTN_HKV, ATTN_D, PAGE, POOL_PAGES, SLOTS, MAX_LEN = \
+    32, 8, 128, 16, 129, 4, 512
+N_REQ, MAX_NEW, CHUNK = 8, 16, 64
 
 
 def log(msg: str) -> None:
@@ -105,11 +130,12 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import build, mx_matmul, paged_attention
     mx_matmul.build()
-    info = mx_matmul.build_info
-    log(f"build: {info['seconds']:.1f} s{' (already built)' if info['cached'] else ''}"
-        f" -> {info['path']}")
+    paged_attention.build()
+    info = build.build_info
+    log(f"build: {', '.join(info['sources'])} in {info['seconds']:.1f} s"
+        f"{' (already built)' if info['cached'] else ''} -> {info['path']}")
     for line in info["ptxas"]:
         log(f"  {line.strip()}")
 
@@ -197,34 +223,189 @@ def phase_kernels(seed: int):
     return agg
 
 
+def _paged_inputs(gen, spans, c: int):
+    """q (4, c, H, D), bf16 pools (129, 16, Hkv, D) and a block table of
+    random pages covering spans[i] tokens per row (page 0 is scratch)."""
+    import torch
+    dev = torch.device("cuda")
+    mp = MAX_LEN // PAGE
+    q = torch.randn((len(spans), c, ATTN_H, ATTN_D), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    kp, vp = (torch.randn((POOL_PAGES, PAGE, ATTN_HKV, ATTN_D), generator=gen,
+                          device=dev).to(torch.bfloat16) for _ in range(2))
+    perm = torch.randperm(POOL_PAGES - 1, generator=gen, device=dev) + 1
+    bt = torch.zeros((len(spans), mp), dtype=torch.int32, device=dev)
+    for i, n in enumerate(spans):
+        k = -(-n // PAGE)
+        bt[i, :k] = perm[i * mp:i * mp + k].to(torch.int32)
+    return q, kp, vp, bt
+
+
+def _poison_dead(kp, vp, bt, spans):
+    """NaN in every page no row maps (page 0 included) and past each row's
+    frontier inside its last page."""
+    kp, vp = kp.clone(), vp.clone()
+    table = bt.cpu().numpy()
+    used = set(table.flatten().tolist()) - {0}
+    dead = [pg for pg in range(kp.shape[0]) if pg not in used]
+    kp[dead] = float("nan")
+    vp[dead] = float("nan")
+    for i, n in enumerate(spans):
+        pg, off = n // PAGE, n % PAGE
+        if off:
+            kp[int(table[i, pg]), off:] = float("nan")
+            vp[int(table[i, pg]), off:] = float("nan")
+    return kp, vp
+
+
+def _sdpa_ms(q, length: int):
+    """scaled_dot_product_attention on contiguous K/V of ``length`` tokens
+    per row (timing only, not called by the port)."""
+    import torch
+    import torch.nn.functional as F
+    b, _, _, d = q.shape
+    k, v = (torch.randn((b, ATTN_HKV, length, d), device=q.device,
+                        dtype=q.dtype) for _ in range(2))
+    qt = q.transpose(1, 2).contiguous()
+    return cuda_time_ms(lambda i: F.scaled_dot_product_attention(
+        qt, k, v, enable_gqa=True), 50)
+
+
+def phase_paged_kernels(seed: int):
+    """B3/B4 checks and times at qwen3-4b attention shapes; returns the
+    record of the decode case (B3) and the mixed-tick case (B4)."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    kv_token = 2 * ATTN_HKV * ATTN_D * 2          # K + V bytes, bf16
+    out = {}
+    log("paged-attention phase: H 32, Hkv 8, D 128, page 16, bf16 pools of "
+        "129 pages, 4 slots; device ms per call (CUDA graph, CUDA events)")
+    log(f"{'kernel':20s}{'case':26s}{'max_err':>10s}{'ms':>9s}{'plain':>9s}"
+        f"{'sdpa':>9s}{'bound':>9s} by")
+
+    def record(name, case, got, want, ms, plain_ms, lib_ms, nbytes, flops):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+            fail(f"{name} [{case}]: max abs err {err:.3g} vs max|plain| "
+                 f"{scale:.3g}")
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOP_PER_S * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"{name:20s}{case:26s}{err:10.3g}{ms:9.4f}{plain_ms:9.4f}"
+            f"{lib_ms:9.4f}{max(t_bytes, t_ops):9.4f} {by}")
+        return dict(max_abs_err=err, max_err=err / scale, ms=ms,
+                    plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=max(t_bytes, t_ops), bound_by=by,
+                    timed_as=f"{case}, qwen3-4b attention, one layer")
+
+    # ---- B3: decode lengths, ragged lengths, a window, a zero-length row
+    for case, spans, window in (("cache_len 200 x4", [200] * 4, None),
+                                ("ragged 1/16/17/511", [1, 16, 17, 511],
+                                 None),
+                                ("window 100, len 200", [200] * 4, 100),
+                                ("with cache_len 0", [0, 200, 37, 511],
+                                 None)):
+        q, kp, vp, bt = _paged_inputs(gen, spans, 1)
+        q = q[:, 0].contiguous()
+        cl = torch.tensor(spans, dtype=torch.int32, device="cuda")
+        got = pa.paged_attention(q, kp, vp, bt, cl, window)
+        want = ref.ref_paged_attention(q, kp, vp, bt, cl, window)
+        kp_p, vp_p = _poison_dead(kp, vp, bt, spans)
+        dirty = pa.paged_attention(q, kp_p, vp_p, bt, cl, window)
+        torch.cuda.synchronize()
+        if not torch.equal(got, dirty):
+            fail(f"paged_attention [{case}]: NaN in dead pages changed the "
+                 "output")
+        if 0 in spans and not (got[spans.index(0)] == 0).all():
+            fail("paged_attention: a cache_len 0 row is not exact zeros")
+        live = sum(min(n, window or n) for n in spans)
+        ms = cuda_time_ms(lambda i: pa.paged_attention(q, kp, vp, bt, cl,
+                                                       window), 50)
+        plain_ms = cuda_time_ms(lambda i: ref.ref_paged_attention(
+            q, kp, vp, bt, cl, window), 5)
+        lib_ms = _sdpa_ms(q[:, None], max(spans))
+        rec = record("paged_attention", case, got, want, ms, plain_ms,
+                     lib_ms, live * kv_token + q.numel() * 2 + got.numel() * 4,
+                     4 * ATTN_H * ATTN_D * live)
+        out.setdefault("paged_attention", rec)
+
+    # ---- B4: a mixed tick — 3 decode rows and a 64-token chunk at 128
+    rows = [(200, 1), (150, 1), (17, 1), (128, CHUNK)]
+    spans = [o + n for o, n in rows]
+    q, kp, vp, bt = _paged_inputs(gen, spans, CHUNK)
+    qo = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
+    ql = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    got = pa.paged_attention_mq(q, kp, vp, bt, qo, ql)
+    want = ref.ref_paged_attention_mq(q, kp, vp, bt, qo, ql)
+    kp_p, vp_p = _poison_dead(kp, vp, bt, spans)
+    dirty = pa.paged_attention_mq(q, kp_p, vp_p, bt, qo, ql)
+    ones = torch.ones_like(ql)
+    collapse = pa.paged_attention_mq(q, kp, vp, bt, qo, ones)[:, 0]
+    single = pa.paged_attention(q[:, 0].contiguous(), kp, vp, bt, qo + 1)
+    torch.cuda.synchronize()
+    if not torch.equal(got, dirty):
+        fail("paged_attention_mq: NaN in dead pages changed the output")
+    if any(not (got[i, n:] == 0).all() for i, (_, n) in enumerate(rows)):
+        fail("paged_attention_mq: a dead lane is not exact zeros")
+    c_scale = float(single.abs().max())
+    if not torch.allclose(collapse, single, rtol=1e-4, atol=1e-4 * c_scale):
+        fail("paged_attention_mq at q_len 1 disagrees with paged_attention: "
+             f"{float((collapse - single).abs().max()):.3g}")
+    log(f"paged_attention_mq at q_len 1 vs paged_attention: max abs diff "
+        f"{float((collapse - single).abs().max()):.3g}")
+    live_q = sum(n for _, n in rows)
+    pairs = sum(o + i + 1 for o, n in rows for i in range(n))
+    ms = cuda_time_ms(lambda i: pa.paged_attention_mq(q, kp, vp, bt, qo, ql),
+                      50)
+    plain_ms = cuda_time_ms(lambda i: ref.ref_paged_attention_mq(
+        q, kp, vp, bt, qo, ql), 5)
+    lib_ms = _sdpa_ms(q, max(spans))
+    out["paged_attention_mq"] = record(
+        "paged_attention_mq", "mixed tick 3x1 + 64 at 128", got, want, ms,
+        plain_ms, lib_ms,
+        sum(spans) * kv_token + live_q * ATTN_H * ATTN_D * 2
+        + got.numel() * 4, 4 * ATTN_H * ATTN_D * pairs)
+    del kp, vp, kp_p, vp_p
+    torch.cuda.empty_cache()
+    return out
+
+
 def _requests(vocab: int, seed: int):
     import numpy as np
     from repro_torch.serve.engine import Request
     rng = np.random.default_rng(seed)
     return [Request(rid=i, prompt=rng.integers(
         0, vocab, size=int(rng.integers(16, 201))).astype(np.int32),
-        max_new=16) for i in range(8)]
+        max_new=MAX_NEW) for i in range(N_REQ)]
 
 
-def phase_serving(n_layers: int, seed: int):
+def qwen3_4b(n_layers: int):
     import dataclasses
 
-    import torch
-    from repro_torch.checkpoint.anchor_ckpt import load_anchor, save_anchor
     from repro_torch.configs import get_config
-    from repro_torch.core.anchor import make_anchor
-    from repro_torch.core.qat import QATConfig
-    from repro_torch.kernels import mx_matmul
-    from repro_torch.kernels.dispatch import make_qmm
-    from repro_torch.models.transformer import init_params, make_model
-    from repro_torch.serve.engine import ElasticEngine
-
     cfg = get_config("qwen3-4b")
     if n_layers != cfg.n_layers:
-        log(f"DEPTH CUT: serving {n_layers} of {cfg.n_layers} layers "
-            "(widths unchanged)")
+        log(f"DEPTH CUT: the dense serving phase runs {n_layers} of "
+            f"{cfg.n_layers} layers (widths unchanged); the paged phase "
+            "runs all of them")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    log(f"serving phase: {cfg.name} d_model={cfg.d_model} "
+    return cfg
+
+
+def build_anchor(cfg, seed: int):
+    """Random weights from a seeded generator -> MXINT8 anchor ->
+    save_anchor / load_anchor, on the card."""
+    import torch
+    from repro_torch.checkpoint.anchor_ckpt import load_anchor, save_anchor
+    from repro_torch.core.anchor import make_anchor
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.models.transformer import init_params
+
+    log(f"model: {cfg.name} d_model={cfg.d_model} "
         f"layers={cfg.n_layers} heads={cfg.n_heads}/{cfg.n_kv_heads} "
         f"head_dim={cfg.hd} d_ff={cfg.d_ff} vocab={cfg.vocab}")
     t0 = time.perf_counter()
@@ -246,13 +427,25 @@ def phase_serving(n_layers: int, seed: int):
         t_load = time.perf_counter() - t0
     log(f"anchor checkpoint: {nbytes / 1e9:.3f} GB, save {t_save:.1f} s, "
         f"load {t_load:.1f} s")
+    return anchor
 
+
+def phase_serving(cfg, anchor, seed: int):
+    """Dense KV layout, monolithic admission; returns the B1/B2 launch
+    counts and each format's greedy streams."""
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels.dispatch import make_qmm
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+
+    log(f"dense serving phase: {cfg.n_layers} layers")
     api = make_model(cfg)
-    fused = ElasticEngine(api, anchor, batch_slots=4, max_len=512,
+    fused = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
                           device="cuda")
-    dense = ElasticEngine(api, anchor, batch_slots=4, max_len=512,
+    dense = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
                           fused=False, device="cuda")
-    launches = {}
+    launches, streams = {}, {}
     for fmt, kernel in (("mxint8", "mx_matmul"),
                         ("mxint4", "mx_matmul_int4")):
         weights = fused.weights_for(fmt)           # build outside the timing
@@ -350,7 +543,153 @@ def phase_serving(n_layers: int, seed: int):
             f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} "
             f"GB; greedy tokens equal to the densify contract: "
             f"{same}/{total} ({100 * same / total:.1f}%)")
-    return launches
+        streams[fmt] = [r.out_tokens for r in reqs]
+    return launches, streams
+
+
+def _first_mixed_tick(api, weights, vocab: int, seed: int):
+    """From one cache state — three slots decoding after their prompts, the
+    fourth holding its first 64-token chunk — the first mixed tick's logits
+    under attn_impl "paged_kernel" (B3/B4) and "gather"."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.dispatch import make_qmm
+
+    dev = torch.device("cuda")
+    kapi = api.with_serving(make_qmm("kernel"), "paged_kernel")
+    gapi = api.with_serving(make_qmm("kernel"), "gather")
+    rng = np.random.default_rng(seed + 2)
+    lens = [40, 64, 17, 150]
+    prompts = [rng.integers(0, vocab, size=n).astype(np.int32) for n in lens]
+    cache = kapi.init_cache(SLOTS, MAX_LEN, device=dev, kv_layout="paged",
+                            page_size=PAGE)
+    per_row = 12                                  # 192 positions per slot
+    perm = rng.permutation(np.arange(1, POOL_PAGES))
+    bt = np.zeros(tuple(cache["block_table"].shape), np.int32)
+    for i in range(SLOTS):
+        bt[i, :per_row] = perm[i * per_row:(i + 1) * per_row]
+    cache["block_table"].copy_(torch.from_numpy(bt))
+    tokens = torch.zeros(SLOTS, dtype=torch.int32, device=dev)
+    for i in range(3):
+        batch = {"tokens": torch.as_tensor(prompts[i][None], device=dev)}
+        lg, cache, _ = kapi.prefill_slot(weights, batch, cache, i)
+        tokens[i] = torch.argmax(lg)
+    batch = {"tokens": torch.as_tensor(prompts[3][None, :CHUNK], device=dev),
+             "lengths": torch.tensor([lens[3]], dtype=torch.int32,
+                                     device=dev)}
+    kapi.prefill_chunk_slot(weights, batch, cache, 3, 0)
+    cache_len = torch.tensor(lens[:3] + [CHUNK], dtype=torch.int32,
+                             device=dev)
+    tok2d = torch.zeros((SLOTS, CHUNK), dtype=torch.int32, device=dev)
+    tok2d[:, 0] = tokens
+    tok2d[3] = torch.as_tensor(prompts[3][CHUNK:2 * CHUNK], device=dev)
+    mixed = {"tokens": tok2d, "q_len": torch.tensor(
+        [1, 1, 1, CHUNK], dtype=torch.int32, device=dev)}
+    twin = {"blocks": [{k: t.clone() for k, t in c.items()}
+                       for c in cache["blocks"]],
+            "block_table": cache["block_table"].clone()}
+    got, _ = kapi.mixed_step(weights, mixed, cache, cache_len)
+    want, _ = gapi.mixed_step(weights, mixed, twin, cache_len)
+    return got.float(), want.float()
+
+
+def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
+    """The paged layout under chunked admission and the mixed scheduler,
+    every attention read through B3/B4; returns their launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+
+    n_layers = cfg.n_layers
+    log(f"paged serving phase: {n_layers} layers, ElasticEngine("
+        f"batch_slots={SLOTS}, max_len={MAX_LEN}, kv_layout='paged', "
+        f"kv_page_size={PAGE}, prefill_chunk={CHUNK})")
+    api = make_model(cfg)
+    eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                        kv_layout="paged", kv_page_size=PAGE,
+                        prefill_chunk=CHUNK, device="cuda")
+    if (eng.scheduler, eng.attn_impl) != ("mixed", "paged_kernel"):
+        fail(f"paged engine resolved to {eng.scheduler}/{eng.attn_impl}")
+    totals = {k: 0 for k in pa.launches}
+    for fmt, kernel in (("mxint8", "mx_matmul"),
+                        ("mxint4", "mx_matmul_int4")):
+        weights = eng.weights_for(fmt)             # build outside the timing
+        got, want = _first_mixed_tick(api, weights, cfg.vocab, seed)
+        diff = float((got - want).abs().max())
+        ref_max = float(want.abs().max())
+        same = int((got.argmax(-1) == want.argmax(-1)).sum())
+        log(f"{fmt} first mixed tick: max|paged_kernel - gather| = "
+            f"{diff:.4g}, max|gather| = {ref_max:.4g}, argmax equal in "
+            f"{same}/{SLOTS} rows")
+        if not (torch.isfinite(got).all() and diff <= FUSED_TOL * ref_max):
+            fail(f"{fmt}: paged_kernel logits differ from gather by "
+                 f"{diff:.4g} > {FUSED_TOL} * {ref_max:.4g}")
+
+        reqs = _requests(cfg.vocab, seed)
+        before = eng.stats()
+        mx_matmul.reset_launches()
+        pa.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate(reqs, fmt_override=fmt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mm, at = dict(mx_matmul.launches), dict(pa.launches)
+        st = eng.stats()
+        trace = eng.tick_trace
+        pure = [t for t in trace if t["decode"] and not t["prefill_chunks"]]
+        mixed = [t for t in trace if t["decode"] and t["prefill_chunks"]]
+        alone = [t for t in trace if not t["decode"] and t["execs"]]
+        execs = sum(t["execs"] for t in trace)
+        other = "mx_matmul_int4" if kernel == "mx_matmul" else "mx_matmul"
+        log(f"{fmt}: {len(trace)} ticks = {len(pure)} pure decode + "
+            f"{len(mixed)} mixed + {len(alone)} chunks alone; launches "
+            f"{at} (want {n_layers} x pure, {n_layers} x mixed), {kernel} "
+            f"{mm[kernel]} (want {PROJ_PER_LAYER} x {n_layers} x {execs} "
+            f"executables)")
+        if max(t["execs"] for t in trace) > 1:
+            fail(f"{fmt}: a tick ran more than one executable")
+        if at["paged_attention"] != n_layers * len(pure) or \
+                at["paged_attention_mq"] != n_layers * len(mixed) or \
+                not (pure and mixed):
+            fail(f"{fmt}: paged-attention launches {at} for {len(pure)} "
+                 f"pure and {len(mixed)} mixed ticks")
+        if mm[kernel] != PROJ_PER_LAYER * n_layers * execs or mm[other]:
+            fail(f"{fmt}: {kernel} launched {mm[kernel]} times, want "
+                 f"{PROJ_PER_LAYER * n_layers * execs}; {other} {mm[other]}")
+        bad = [r.rid for r in reqs if r.status.value != "completed"
+               or len(r.out_tokens) != MAX_NEW]
+        if bad or st["nonfinite_logit_rows"] != before["nonfinite_logit_rows"]:
+            fail(f"{fmt}: requests {bad} incomplete or non-finite logits")
+        if st["kv_pages_alloc"] != st["kv_pages_freed"]:
+            fail(f"{fmt}: pages alloc {st['kv_pages_alloc']} != freed "
+                 f"{st['kv_pages_freed']} at drain")
+        for k in totals:
+            totals[k] += at[k]
+        total = sum(len(r.out_tokens) for r in reqs)
+        if dense_streams is not None:
+            eq = sum(x == y for r, d in zip(reqs, dense_streams[fmt])
+                     for x, y in zip(r.out_tokens, d))
+            share = f"{eq}/{total} ({100 * eq / total:.1f}%)"
+        else:
+            share = "not compared (dense phase at another depth)"
+        ms = lambda ts: 1e3 * float(np.mean([t["wall_s"] for t in ts]))
+        log(f"{fmt} paged: {N_REQ} requests x {MAX_NEW} tokens in "
+            f"{wall:.2f} s = {total / wall:.1f} tok/s; pure decode tick "
+            f"{ms(pure):.2f} ms, mixed tick {ms(mixed):.2f} ms, chunk alone "
+            f"{ms(alone) if alone else float('nan'):.2f} ms (host wall, "
+            f"{SLOTS} slots); TTFT s "
+            f"{[round(r.ttft_s, 3) for r in reqs]}; kv_cache_bytes "
+            f"{st['kv_cache_bytes']}, kv_pages_hwm {st['kv_pages_hwm']} of "
+            f"{st['kv_total_pages'] - 1}, attn_read_bytes "
+            f"{st['attn_read_bytes'] - before['attn_read_bytes']}; peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
+            f"greedy tokens equal to the dense layout: {share}")
+    return totals
 
 
 def main() -> int:
@@ -371,18 +710,29 @@ def main() -> int:
     phase_card()
     phase_build()
     agg = phase_kernels(args.seed)
-    launches = phase_serving(args.layers, args.seed)
-    from repro_torch.kernels import mx_matmul
-    from repro_torch.kernels.mx_matmul import SOURCE
-    source = os.path.relpath(SOURCE, os.path.dirname(os.path.abspath(
-        __file__)))
+    paged_rec = phase_paged_kernels(args.seed)
+    cfg = qwen3_4b(36)
+    anchor = build_anchor(cfg, args.seed)
+    if args.layers != cfg.n_layers:
+        dense_cfg = qwen3_4b(args.layers)
+        launches, _ = phase_serving(dense_cfg, build_anchor(dense_cfg,
+                                                            args.seed),
+                                    args.seed)
+        streams = None
+    else:
+        launches, streams = phase_serving(cfg, anchor, args.seed)
+    torch.cuda.empty_cache()
+    launches.update(phase_paged_serving(cfg, anchor, args.seed, streams))
+    from repro_torch.kernels import mx_matmul, paged_attention
+    root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for (name, fname), a in agg.items():
         if fname == "mxfp8":
             continue              # the serving path runs mx_matmul at mxint8
         kernels.append({
             "name": name, "format": fname, "route": "cuda",
-            "source": source, "replaces": TPU_KERNEL[name],
+            "source": os.path.relpath(mx_matmul.SOURCE, root),
+            "replaces": TPU_KERNEL[name],
             "launches": launches[name],
             "max_abs_err": a["max_abs_err"], "max_err": a["max_err"],
             "ms": a["ms"], "plain_ms": a["plain_ms"],
@@ -393,9 +743,16 @@ def main() -> int:
             "timed_as": f"one layer's {PROJ_PER_LAYER} qwen3-4b projections "
                         "at M=4",
         })
-    if set(mx_matmul.launches) != {k["name"] for k in kernels}:
+    for name, a in paged_rec.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(paged_attention.SOURCE, root),
+            "replaces": TPU_KERNEL[name], "launches": launches[name],
+            **a})
+    wrappers = set(mx_matmul.launches) | set(paged_attention.launches)
+    if wrappers != {k["name"] for k in kernels}:
         fail(f"kernel record {[k['name'] for k in kernels]} does not cover "
-             f"every wrapper {sorted(mx_matmul.launches)}")
+             f"every wrapper {sorted(wrappers)}")
     log(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

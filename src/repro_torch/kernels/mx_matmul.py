@@ -2,10 +2,9 @@
 
 Replaces ``repro/kernels/mx_matmul.py`` (``mx_matmul_pallas`` and
 ``mx_matmul_int4_pallas``) with the CUDA C++ kernels in
-``csrc/mx_matmul.cu``, compiled with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``. The build runs
-at the first launch, into ``build/repro_torch/`` at the repository root
-(named by a hash of the source and flags, so an edited source rebuilds).
+``csrc/mx_matmul.cu``, compiled with ``nvcc`` for ``sm_90a`` into the
+port's one kernel library (``kernels/build.py``) and loaded with
+``ctypes``. The build runs at the first launch of any kernel of the port.
 
 The wrappers take a weight in its serving layout — codes (K, N) int8/uint8
 or split-N packed (K, N/2) uint8, scales (N, K/bs) int8 — and copy nothing
@@ -18,29 +17,20 @@ kernel or raises; on a CPU tensor it computes the plain version from
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-import time
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core.formats import MXFormat
+from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref
 
-SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "mx_matmul.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = _build.CSRC / "mx_matmul.cu"
 
 # Kernel launches per wrapper (B1 = mx_matmul, B2 = mx_matmul_int4).
 launches: Dict[str, int] = {"mx_matmul": 0, "mx_matmul_int4": 0}
 
 _lib: Optional[ctypes.CDLL] = None
-build_info: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
@@ -48,41 +38,12 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) \
-        / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the MX "
-                       "dequant-GEMM kernels cannot be built")
-
-
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernel library."""
+    """Build (once) the port's kernel library and bind B1/B2."""
     global _lib
     if _lib is not None:
         return _lib
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libmx_matmul_{tag}.so"
-    log_path = out.with_suffix(".log")
-    t0 = time.perf_counter()
-    cached = out.exists()
-    if not cached:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(SOURCE)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        log_path.write_text(log)
-        os.replace(tmp, out)
-    log = log_path.read_text() if log_path.exists() else ""
-    lib = ctypes.CDLL(str(out))
+    lib = _build.library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mx_matmul_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32,
                                      i32, i32, i32, i32, i32, i32, i32, i32,
@@ -91,11 +52,6 @@ def build() -> ctypes.CDLL:
     lib.mx_matmul_int4_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32,
                                           i32, i32, i32, ptr]
     lib.mx_matmul_int4_launch.restype = i32
-    build_info.update(path=str(out), seconds=time.perf_counter() - t0,
-                      cached=cached,
-                      ptxas=[ln for ln in log.splitlines()
-                             if "registers" in ln or "smem" in ln
-                             or "spill" in ln or "Compiling entry" in ln])
     _lib = lib
     return lib
 

@@ -19,9 +19,9 @@ from repro_torch.serve.packed_params import densify_leaf, is_packed_leaf
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture hyper-parameters of the dense decoder-only family as the
-    port serves it (SwiGLU MLP, no biases, full attention): the fields of
+    port serves it (SwiGLU MLP, no biases): the fields of
     ``repro/models/common.py::ModelConfig`` that qwen3-4b and smollm-135m
-    set."""
+    set, and ``sliding_window`` (None for both: full attention)."""
 
     name: str
     family: str                     # the port serves "dense"
@@ -34,6 +34,7 @@ class ModelConfig:
     head_dim: int = 0               # 0 -> d_model // n_heads
     rope_theta: float = 10000.0
     qk_norm: bool = False
+    sliding_window: Optional[int] = None    # attention sees the last W
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     compute_dtype: Any = torch.bfloat16
@@ -65,3 +66,10 @@ class QuantCtx:
                 w = densify_leaf(w, None, x.dtype, serving_axis=True)
             y = torch.matmul(x, w.to(x.dtype))
         return y
+
+
+def is_paged_cache(cache) -> bool:
+    """True for the paged KV layout (shared page pools + per-slot block
+    table): its pool leaves have no batch axis, so slot surgery goes
+    through the block table instead."""
+    return isinstance(cache, dict) and "block_table" in cache

@@ -1,17 +1,23 @@
 """Transformer building blocks for serving: norms, RoPE, attention, MLP.
 
-Counterpart of ``repro/models/layers.py`` on the dense KV layout. Attention
-is plain PyTorch in float32 (the JAX package computes it in jnp, not in a
-TPU kernel): causal prefill attention over the prompt, and single-token
-decode attention over the dense cache (B, Smax, Hkv, D) masked by each
-slot's own ``cache_len``. Decode writes each slot's new K/V at its own
-position in place (the JAX version returns an updated copy).
+Counterpart of ``repro/models/layers.py`` for the dense and the paged KV
+layouts. Attention the JAX package computes in jnp is plain PyTorch in
+float32 here: causal prefill attention (over the prompt, or a chunk's
+queries over the cache view at the chunk's cursor), single-token decode
+attention and ragged mixed-tick attention over a dense cache masked by each
+slot's own lengths. On the paged layout the decode and mixed ticks read the
+page pools through B3/B4 (``kernels/paged_attention.py``). Every KV write
+lands in the cache in place (the JAX versions return updated copies).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                 paged_mixed_attention)
 from repro_torch.models.common import ModelConfig, QuantCtx
 
 
@@ -37,27 +43,40 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def prefill_attention(q: torch.Tensor, k: torch.Tensor,
-                      v: torch.Tensor) -> torch.Tensor:
-    """Causal attention of a prompt over itself, f32 softmax, GQA.
-    q (B,S,H,D), k/v (B,S,Hkv,D) -> (B,S,H,D)."""
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_offset: int = 0,
+                      window: Optional[int] = None) -> torch.Tensor:
+    """Causal attention, f32 softmax, GQA: q (B,S,H,D) at positions
+    ``q_offset + i`` over k/v (B,Skv,Hkv,D) at positions ``0 .. Skv-1``
+    -> (B,S,H,D). A prompt attends over itself (``q_offset = 0``); a prompt
+    chunk at cursor ``q_offset`` attends over the cache view that already
+    holds every earlier chunk and this one. V rows past the last query's
+    position are selected to zero, so whatever a view holds there (stale
+    or recycled KV) never reaches the output."""
     b, s, h, d = q.shape
-    hkv = k.shape[2]
+    skv, hkv = k.shape[1], k.shape[2]
     qg = q.reshape(b, s, hkv, h // hkv, d).to(torch.float32)
     sc = torch.einsum("bqkgd,btkd->bkgqt", qg,
                       k.to(torch.float32)) * (1.0 / d ** 0.5)
-    pos = torch.arange(s, device=q.device)
-    sc = sc.masked_fill(pos[None, :] > pos[:, None], float("-inf"))
+    qpos = q_offset + torch.arange(s, device=q.device)
+    kpos = torch.arange(skv, device=q.device)
+    dead = kpos[None, :] > qpos[:, None]
+    if window is not None:
+        dead |= qpos[:, None] - kpos[None, :] >= window
+    sc = sc.masked_fill(dead, float("-inf"))
     p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.to(torch.float32))
+    v32 = v.to(torch.float32)
+    if skv > q_offset + s:
+        v32 = torch.where((kpos < q_offset + s)[:, None, None], v32, 0.0)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v32)
     return out.reshape(b, s, h, d).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor,
-                     cache_len: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, cache_len: torch.Tensor,
+                     window: Optional[int] = None) -> torch.Tensor:
     """Single-token attention: q (B,1,H,D) over cache (B,Skv,Hkv,D), where
-    row b sees positions < cache_len[b]."""
+    row b sees positions < cache_len[b] (and >= cache_len[b] - window)."""
     b, _, h, d = q.shape
     skv, hkv = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, hkv, h // hkv, d).to(torch.float32)
@@ -65,22 +84,161 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                       k_cache.to(torch.float32)) / (d ** 0.5)
     pos = torch.arange(skv, device=q.device)
     valid = pos[None, :] < cache_len[:, None]
+    if window is not None:
+        valid &= pos[None, :] >= cache_len[:, None] - window
     sc = sc.masked_fill(~valid[:, None, None, :], float("-inf"))
     p = torch.softmax(sc, dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", p, v_cache.to(torch.float32))
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
+def mixed_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, q_offset: torch.Tensor,
+                    q_len: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Ragged multi-query attention: q (B,C,H,D) over cache (B,Skv,Hkv,D).
+
+    Query ``i`` of row ``b`` sits at position ``q_offset[b] + i``; lanes
+    with ``i < q_len[b]`` attend causally (self-inclusive) over positions
+    below the row's frontier ``q_offset + q_len``, within the window; dead
+    pad lanes give exact zeros. The same op sequence as
+    ``decode_attention`` with one extra query axis, as in the JAX
+    package."""
+    b, c, h, d = q.shape
+    skv, hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, c, hkv, h // hkv, d).to(torch.float32)
+    sc = torch.einsum("bikgd,btkd->bkgit", qg,
+                      k_cache.to(torch.float32)) / (d ** 0.5)
+    pos = torch.arange(skv, device=q.device)
+    lane = torch.arange(c, device=q.device)
+    qpos = q_offset[:, None] + lane[None]                         # (B, C)
+    live = lane[None] < q_len[:, None]                            # (B, C)
+    valid = pos[None, None, :] <= qpos[:, :, None]
+    valid &= pos[None, None, :] < (q_offset + q_len)[:, None, None]
+    valid &= live[..., None]
+    if window is not None:
+        valid &= (qpos[:, :, None] - pos[None, None, :]) < window
+    sc = sc.masked_fill(~valid[:, None, None], float("-inf"))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.exp(sc - m)
+    den = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bkgit,btkd->bikgd", p / den,
+                       v_cache.to(torch.float32))
+    # dead lanes divide 0/0 -> NaN: force exact zeros
+    out = torch.where(live[..., None, None, None], out, 0.0)
+    return out.reshape(b, c, h, d).to(q.dtype)
+
+
+# =============================================================================
+# KV cache writes (in place)
+# =============================================================================
+# Paged layout: each layer owns a page pool (P, ps, Hkv, D); a slot's KV
+# lives in the physical pages its block-table row names, in logical order —
+# position p maps to page row[p // ps], offset p % ps. Page 0 is reserved
+# scratch: unmapped entries point at it, so free slots and pad lanes write
+# there, and every read of it is masked. The JAX package returns updated
+# copies; these write into the pool in place.
+def paged_prefill_update(pool: torch.Tensor, kv_new: torch.Tensor,
+                         block_table: torch.Tensor,
+                         start_pos: int = 0) -> None:
+    """Scatter prompt K/V (B, S, Hkv, D) into the pages each row maps,
+    starting at the page-aligned position ``start_pos``; S is zero-padded
+    to whole pages."""
+    b, s, hkv, d = kv_new.shape
+    ps = pool.shape[1]
+    n_p = -(-s // ps)
+    vals = kv_new.to(pool.dtype)
+    if n_p * ps != s:
+        vals = F.pad(vals, (0, 0, 0, 0, 0, n_p * ps - s))
+    first = start_pos // ps
+    ids = block_table[:, first:first + n_p].reshape(-1).long()
+    pool[ids] = vals.reshape(b * n_p, ps, hkv, d)
+
+
+def paged_decode_append(pool: torch.Tensor, kv_tok: torch.Tensor,
+                        block_table: torch.Tensor,
+                        cache_len: torch.Tensor) -> None:
+    """Write one token's K/V (B, 1, Hkv, D) at each slot's cache_len; the
+    engine maps the page before the tick, free slots land on page 0."""
+    ps = pool.shape[1]
+    cl = cache_len.long()
+    phys = block_table.long().gather(1, (cl // ps)[:, None])[:, 0]
+    pool[phys, cl % ps] = kv_tok[:, 0].to(pool.dtype)
+
+
+def mixed_cache_update(cache: torch.Tensor, kv_new: torch.Tensor,
+                       cache_len: torch.Tensor, q_len: torch.Tensor) -> None:
+    """Ragged multi-token append into a dense cache (B, Smax, Hkv, D): row
+    b's token i lands at ``cache_len[b] + i`` when ``i < q_len[b]``; pad
+    lanes and positions past the cache are dropped."""
+    c = kv_new.shape[1]
+    lane = torch.arange(c, device=kv_new.device)
+    pos = cache_len.long()[:, None] + lane[None]
+    keep = (lane[None] < q_len[:, None]) & (pos < cache.shape[1])
+    rows, lanes = keep.nonzero(as_tuple=True)
+    cache[rows, pos[rows, lanes]] = kv_new[rows, lanes].to(cache.dtype)
+
+
+def paged_mixed_update(pool: torch.Tensor, kv_new: torch.Tensor,
+                       block_table: torch.Tensor, cache_len: torch.Tensor,
+                       q_len: torch.Tensor) -> None:
+    """Ragged multi-token append through the block table: position
+    ``cache_len[b] + i`` (``i < q_len[b]``) maps to page
+    ``block_table[b, pos // ps]``; pad lanes and positions past the table
+    write zeros to scratch page 0."""
+    ps = pool.shape[1]
+    mp = block_table.shape[1]
+    c = kv_new.shape[1]
+    lane = torch.arange(c, device=kv_new.device)
+    pos = cache_len.long()[:, None] + lane[None]                 # (B, C)
+    valid = (lane[None] < q_len[:, None]) & (pos // ps < mp)
+    phys = block_table.long().gather(1, (pos // ps).clamp(0, mp - 1))
+    phys = torch.where(valid, phys, 0)
+    vals = torch.where(valid[..., None, None], kv_new.to(pool.dtype), 0)
+    pool[phys, pos % ps] = vals
+
+
+def paged_gather(pool: torch.Tensor, block_table: torch.Tensor
+                 ) -> torch.Tensor:
+    """Each slot's logical KV view (B, max_pages*ps, Hkv, D): the read of
+    the ``attn_impl="gather"`` contract and of chunked prefill."""
+    b, mp = block_table.shape
+    pages = pool[block_table.long()]                 # (B, MP, ps, Hkv, D)
+    return pages.reshape(b, mp * pool.shape[1], *pool.shape[2:])
+
+
+# =============================================================================
+# Attention block
+# =============================================================================
 def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
-                    positions: torch.Tensor, name: str,
-                    kv_cache=None, cache_len=None):
-    """Self-attention. Without ``kv_cache`` (prefill) returns
-    ``(out, (k, v))`` for the caller to store; with ``kv_cache = (kc, vc)``
-    (decode, S == 1) writes this token's K/V at each slot's ``cache_len`` in
-    place, attends over ``cache_len + 1`` positions and returns
-    ``(out, (kc, vc))``."""
+                    positions: torch.Tensor, name: str, kv_cache=None,
+                    cache_len=None, block_table=None,
+                    chunk_start: Optional[int] = None, q_len=None,
+                    attn_impl: str = "gather"):
+    """Self-attention; K/V land in ``kv_cache`` in place.
+
+      no ``kv_cache``   monolithic prefill: causal attention over the prompt;
+                        returns ``(out, (k, v))`` for the caller to store.
+      ``chunk_start``   chunked prefill: ``x`` is one prompt chunk at that
+                        cursor; its K/V are written there (through the block
+                        table when paged) and its queries attend over the
+                        cache view, which holds every earlier chunk.
+      ``q_len``         the mixed tick: row b's first ``q_len[b]`` tokens sit
+                        at ``cache_len[b] + i``; each row writes them at its
+                        own cursor and the ragged queries attend — B4
+                        (``paged_mixed_attention``) when paged under
+                        ``attn_impl="paged_kernel"``, ``mixed_attention``
+                        otherwise.
+      otherwise         decode (S == 1): this token's K/V land at each
+                        slot's ``cache_len``, attention over ``cache_len + 1``
+                        positions — B3 (``paged_decode_attention``) when
+                        paged under ``"paged_kernel"``.
+
+    ``block_table`` selects the paged layout: ``kv_cache`` then holds one
+    layer's pools (P, ps, Hkv, D)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    window = cfg.sliding_window
     q = ctx.dense(x, p["wq"], name + ".wq").reshape(b, s, h, hd)
     k = ctx.dense(x, p["wk"], name + ".wk").reshape(b, s, hkv, hd)
     v = ctx.dense(x, p["wv"], name + ".wv").reshape(b, s, hkv, hd)
@@ -89,16 +247,48 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    mode = "kernel" if attn_impl == "paged_kernel" else "gather"
     if kv_cache is None:
-        out = prefill_attention(q, k, v)
+        out = prefill_attention(q, k, v, window=window)
         new_kv = (k, v)
     else:
         kc, vc = kv_cache
-        rows = torch.arange(b, device=x.device)
-        kc[rows, cache_len.long()] = k[:, 0].to(kc.dtype)
-        vc[rows, cache_len.long()] = v[:, 0].to(vc.dtype)
-        out = decode_attention(q, kc, vc, cache_len + 1)
-        new_kv = (kc, vc)
+        new_kv = kv_cache
+        if chunk_start is not None:
+            if block_table is not None:
+                paged_prefill_update(kc, k, block_table, chunk_start)
+                paged_prefill_update(vc, v, block_table, chunk_start)
+                k_view = paged_gather(kc, block_table)
+                v_view = paged_gather(vc, block_table)
+            else:
+                kc[:, chunk_start:chunk_start + s] = k.to(kc.dtype)
+                vc[:, chunk_start:chunk_start + s] = v.to(vc.dtype)
+                k_view, v_view = kc, vc
+            out = prefill_attention(q, k_view, v_view, q_offset=chunk_start,
+                                    window=window)
+        elif q_len is not None:
+            if block_table is not None:
+                paged_mixed_update(kc, k, block_table, cache_len, q_len)
+                paged_mixed_update(vc, v, block_table, cache_len, q_len)
+                out = paged_mixed_attention(q, kc, vc, block_table,
+                                            cache_len, q_len, window=window,
+                                            mode=mode)
+            else:
+                mixed_cache_update(kc, k, cache_len, q_len)
+                mixed_cache_update(vc, v, cache_len, q_len)
+                out = mixed_attention(q, kc, vc, cache_len, q_len,
+                                      window=window)
+        elif block_table is not None:
+            paged_decode_append(kc, k, block_table, cache_len)
+            paged_decode_append(vc, v, block_table, cache_len)
+            out = paged_decode_attention(q, kc, vc, block_table,
+                                         cache_len + 1, window=window,
+                                         mode=mode)
+        else:
+            rows = torch.arange(b, device=x.device)
+            kc[rows, cache_len.long()] = k[:, 0].to(kc.dtype)
+            vc[rows, cache_len.long()] = v[:, 0].to(vc.dtype)
+            out = decode_attention(q, kc, vc, cache_len + 1, window=window)
     out = ctx.dense(out.reshape(b, s, h * hd), p["wo"], name + ".wo")
     return out, new_kv
 

@@ -1,14 +1,18 @@
-"""Dense decoder-only LM: init, dense KV cache, prefill and decode step.
+"""Dense decoder-only LM: init, KV cache, prefill, chunks, decode, mixed.
 
 Counterpart of the dense family of ``repro/models/transformer.py``. The
 parameter tree keeps the JAX layout — ``{"embed", "blocks": [group], ...}``
 with every block leaf stacked over layer groups (G, ...) — so anchor
 checkpoints map 1:1; the JAX ``lax.scan`` over groups becomes a Python loop
-over ``leaf[g]`` views. The dense KV cache is updated in place.
+over ``leaf[g]`` views. The KV cache, dense (G, B, S, Hkv, D) or paged
+(pools (G, P, ps, Hkv, D) and a block table), is updated in place.
 
 Entry points (``ModelApi``): ``prefill``, ``prefill_slot`` (one request into
-one slot of the batched cache), ``serve_step`` (one token for every slot),
-``with_qmm`` (the same entry points with a dequant-GEMM hook).
+one slot of the batched cache), ``prefill_chunk`` / ``prefill_chunk_slot``
+(one prompt chunk at a cursor), ``serve_step`` (one token for every slot),
+``mixed_step`` (decode rows and one prompt chunk in one step),
+``with_serving`` / ``with_qmm`` (the same entry points with a dequant-GEMM
+hook and a paged read path, ``attn_impl``).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.common import ModelConfig, QuantCtx
+from repro_torch.models.common import ModelConfig, QuantCtx, is_paged_cache
 from repro_torch.serve.packed_params import is_packed_leaf, layer_slice
 
 
@@ -85,24 +89,36 @@ def _group_params(tree, g: int):
 
 
 def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
-                   cache, cache_len, prefill: bool):
-    """Run the block stack over x (B, S, d).
+                   cache, cache_len, prefill: bool,
+                   chunk_start: Optional[int] = None, q_len=None,
+                   attn_impl: str = "gather"):
+    """Run the block stack over x (B, S, d); the cache is updated in place.
 
-    Prefill writes each layer's K/V at positions [0, S) of ``cache`` (any
-    batch-row view of the dense cache); decode writes one token per slot at
-    ``cache_len`` and attends over the cache. Returns the final-norm hidden
-    states (B, S, d); the cache is updated in place.
+    Monolithic prefill (``prefill`` without ``chunk_start``) writes each
+    layer's K/V at positions [0, S) — of a batch-row view of the dense cache,
+    or through ``cache["block_table"]`` when paged. Chunked prefill
+    (``chunk_start``), the mixed tick (``q_len``) and decode read and write
+    the cache inside ``attention_block``. Returns the final-norm hidden
+    states (B, S, d).
     """
+    block_table = cache.get("block_table")
     for g in range(cfg.n_groups):
         for j in range(cfg.scan_group):
             p = _group_params(params["blocks"][j], g)
-            kc = cache["blocks"][j]["k"][g]
-            vc = cache["blocks"][j]["v"][g]
+            c = cache["blocks"][j]
+            kc, vc = (c["k_pages"][g], c["v_pages"][g]) \
+                if block_table is not None else (c["k"][g], c["v"][g])
+            monolithic = prefill and chunk_start is None
             h = L.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
             out, (k_new, v_new) = L.attention_block(
                 ctx, h, p["attn"], cfg, positions, f"blk{j}.attn",
-                kv_cache=None if prefill else (kc, vc), cache_len=cache_len)
-            if prefill:
+                kv_cache=None if monolithic else (kc, vc),
+                cache_len=cache_len, block_table=block_table,
+                chunk_start=chunk_start, q_len=q_len, attn_impl=attn_impl)
+            if monolithic and block_table is not None:
+                L.paged_prefill_update(kc, k_new, block_table)
+                L.paged_prefill_update(vc, v_new, block_table)
+            elif monolithic:
                 s = k_new.shape[1]
                 kc[:, :s] = k_new.to(kc.dtype)
                 vc[:, :s] = v_new.to(vc.dtype)
@@ -127,31 +143,82 @@ def _head_logits(ctx: QuantCtx, params, cfg: ModelConfig, h_last):
     return torch.matmul(h_last.to(torch.float32), w.to(torch.float32))
 
 
+def _last_hidden(hidden, lengths):
+    """hidden (B, S, d) -> (B, d) at each row's own last real position."""
+    rows = torch.arange(hidden.shape[0], device=hidden.device)
+    return hidden[rows, lengths.long() - 1]
+
+
+def _slot_view(cache, slot: int):
+    """The cache as one slot sees it: on the paged layout the pools and the
+    slot's block-table row (its pages are its isolation), on the dense
+    layout a batch-row view of every K/V buffer."""
+    if is_paged_cache(cache):
+        return dict(cache, block_table=cache["block_table"][slot:slot + 1])
+    return {"blocks": [{k: c[k][:, slot:slot + 1] for k in c}
+                       for c in cache["blocks"]]}
+
+
 @dataclasses.dataclass
 class ModelApi:
     cfg: ModelConfig
     init_params: Callable         # (seed, device=) -> params
-    init_cache: Callable          # (batch, s_max, dtype=None, device=) -> cache
+    init_cache: Callable          # (batch, s_max, dtype=None, device=,
+    #                               kv_layout=, page_size=, num_pages=)
     prefill: Callable             # (params, batch, cache) -> (logits, cache, len)
     serve_step: Callable          # (params, batch, cache, len) -> (logits, cache)
     prefill_slot: Callable        # (params, batch(1,S), cache, slot)
     #                               -> (logits (V,), cache, len scalar)
+    prefill_chunk: Callable       # (params, batch(B,C), cache, start_pos)
+    #                               -> (logits, cache, len): one prompt chunk
+    prefill_chunk_slot: Callable  # (params, batch(1,C), cache, slot,
+    #                               start_pos) -> (logits (V,), cache, len)
+    mixed_step: Callable          # (params, batch{tokens (B,C), q_len (B,)},
+    #                               cache, cache_len) -> (logits (B,V), cache)
     with_qmm: Callable            # (qmm) -> ModelApi routing packed leaves
-    #                               through the dequant-GEMM hook
+    #                               through the dequant-GEMM hook, keeping
+    #                               this api's attn_impl
+    with_serving: Callable        # (qmm=None, attn_impl="gather") -> ModelApi
+    #                               with both serving knobs baked in
+    attn_impl: str = "gather"     # paged read path: "gather" | "paged_kernel"
 
 
-def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None) -> ModelApi:
+def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
+               attn_impl: str = "gather") -> ModelApi:
+    if attn_impl not in ("gather", "paged_kernel"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}; one of "
+                         "('gather', 'paged_kernel')")
     ctx = QuantCtx(qmm=qmm)
 
-    def init_cache(b, s_max, dtype=None, *, device="cuda"):
-        """Dense KV cache: per stacked group, K and V (G, B, s_max, Hkv, D)."""
+    def init_cache(b, s_max, dtype=None, *, device="cuda",
+                   kv_layout="dense", page_size=16, num_pages=None):
+        """KV cache. ``"dense"``: per stacked group, K and V
+        (G, B, s_max, Hkv, D). ``"paged"``: per stacked group, page pools
+        (G, P, ps, Hkv, D) for K and V plus a ``block_table``
+        (B, ceil(s_max/ps)) int32 of physical page ids; page 0 is scratch,
+        and ``num_pages=None`` gives every slot room for ``s_max`` tokens
+        (P = B * pages_per_slot + 1)."""
         dev = resolve_device(device)
-        shape = (cfg.n_groups, b, s_max, cfg.n_kv_heads, cfg.hd)
         dtype = dtype or cfg.compute_dtype
+        if kv_layout == "dense":
+            shape = (cfg.n_groups, b, s_max, cfg.n_kv_heads, cfg.hd)
+            return {"blocks": [
+                {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                for _ in range(cfg.scan_group)]}
+        if kv_layout != "paged":
+            raise ValueError(f"unknown kv_layout {kv_layout!r}; one of "
+                             "('dense', 'paged')")
+        pages_per_slot = -(-s_max // page_size)
+        if num_pages is None:
+            num_pages = b * pages_per_slot + 1
+        shape = (cfg.n_groups, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
         return {"blocks": [
-            {"k": torch.zeros(shape, dtype=dtype, device=dev),
-             "v": torch.zeros(shape, dtype=dtype, device=dev)}
-            for _ in range(cfg.scan_group)]}
+            {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
+             "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}
+            for _ in range(cfg.scan_group)],
+            "block_table": torch.zeros((b, pages_per_slot),
+                                       dtype=torch.int32, device=dev)}
 
     @torch.no_grad()
     def prefill(params, batch, cache):
@@ -171,21 +238,50 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None) -> ModelApi:
                                    device=x.device)
         else:
             cache_len = lengths.to(device=x.device, dtype=torch.int32)
-        h_last = hidden[torch.arange(b, device=x.device),
-                        cache_len.long() - 1]
+        h_last = _last_hidden(hidden, cache_len)
         return _head_logits(ctx, params, cfg, h_last), cache, cache_len
 
     def prefill_slot(params, batch, cache, slot: int):
-        """One request (tokens (1, S)) into slot ``slot`` of the batched
-        cache; other slots are untouched. The slot's rows are zeroed first,
-        so positions past the prompt read as zeros, as in the JAX
-        scratch-then-insert version."""
-        view = {"blocks": [{k: c[k][:, slot:slot + 1] for k in c}
-                           for c in cache["blocks"]]}
-        for c in view["blocks"]:
-            for t in c.values():
-                t.zero_()
+        """One request (tokens (1, S)) into slot ``slot``; other slots are
+        untouched. Dense: the slot's rows are zeroed first, so positions
+        past the prompt read as zeros, as in the JAX scratch-then-insert
+        version. Paged: the prompt lands in the pages the slot's row maps."""
+        view = _slot_view(cache, slot)
+        if not is_paged_cache(cache):
+            for c in view["blocks"]:
+                for t in c.values():
+                    t.zero_()
         logits, _, clen = prefill(params, batch, view)
+        return logits[0], cache, clen[0]
+
+    @torch.no_grad()
+    def prefill_chunk(params, batch, cache, start_pos: int):
+        """One prompt chunk at cursor ``start_pos``: ``batch["tokens"]``
+        (B, C) is the prompt slice [start_pos, start_pos + C) (the final
+        chunk may be right-padded), ``batch["lengths"]`` (B,) the true total
+        prompt length. K/V land at the cursor and the chunk's queries attend
+        over everything written so far. Returns ``(logits, cache,
+        new_len)``, ``new_len = min(lengths, start_pos + C)``; the logits
+        are read at the last real token (meaningful on the final chunk)."""
+        tokens = batch["tokens"]
+        b, c = tokens.shape
+        x = _embed(params, cfg, tokens)
+        positions = (start_pos + torch.arange(c, device=x.device)).expand(b, c)
+        hidden = forward_hidden(ctx, params, cfg, x, positions, cache, None,
+                                prefill=True, chunk_start=start_pos)
+        new_len = torch.clamp(batch["lengths"].to(device=x.device,
+                                                  dtype=torch.int32),
+                              max=start_pos + c)
+        h_last = _last_hidden(hidden, new_len - start_pos)
+        return _head_logits(ctx, params, cfg, h_last), cache, new_len
+
+    def prefill_chunk_slot(params, batch, cache, slot: int, start_pos: int):
+        """``prefill_chunk`` of one request (tokens (1, C)) in slot
+        ``slot``: through the slot's block-table row when paged, on a view
+        of the slot's rows (not zeroed: chunk N sees chunks 0..N-1) when
+        dense."""
+        logits, _, clen = prefill_chunk(params, batch, _slot_view(cache, slot),
+                                        start_pos)
         return logits[0], cache, clen[0]
 
     @torch.no_grad()
@@ -193,8 +289,30 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None) -> ModelApi:
         """One decode step: batch["tokens"] (B, 1) against the cache."""
         x = _embed(params, cfg, batch["tokens"])
         hidden = forward_hidden(ctx, params, cfg, x, cache_len[:, None],
-                                cache, cache_len, prefill=False)
+                                cache, cache_len, prefill=False,
+                                attn_impl=attn_impl)
         return _head_logits(ctx, params, cfg, hidden[:, -1]), cache
+
+    @torch.no_grad()
+    def mixed_step(params, batch, cache, cache_len):
+        """One mixed prefill+decode tick: ``batch["tokens"]`` (B, C) holds
+        each row's new tokens left-aligned, ``batch["q_len"]`` (B,) how many
+        are real (decode rows 1, the mid-prefill row its chunk); row b's
+        token i sits at ``cache_len[b] + i``. Logits come back at each
+        row's last real token."""
+        tokens = batch["tokens"]
+        q_len = batch["q_len"].to(torch.int32)
+        b, c = tokens.shape
+        x = _embed(params, cfg, tokens)
+        positions = cache_len[:, None] + torch.arange(c, device=x.device)
+        hidden = forward_hidden(ctx, params, cfg, x, positions, cache,
+                                cache_len, prefill=False, q_len=q_len,
+                                attn_impl=attn_impl)
+        return _head_logits(ctx, params, cfg,
+                            _last_hidden(hidden, q_len)), cache
+
+    def with_serving(qmm=None, attn_impl="gather"):
+        return make_model(cfg, qmm, attn_impl)
 
     return ModelApi(
         cfg=cfg,
@@ -203,5 +321,11 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None) -> ModelApi:
         prefill=prefill,
         serve_step=serve_step,
         prefill_slot=prefill_slot,
-        with_qmm=lambda q: make_model(cfg, q),
+        prefill_chunk=prefill_chunk,
+        prefill_chunk_slot=prefill_chunk_slot,
+        mixed_step=mixed_step,
+        # the derived api keeps this one's attn_impl: chaining composes
+        with_qmm=lambda q: make_model(cfg, q, attn_impl),
+        with_serving=with_serving,
+        attn_impl=attn_impl,
     )

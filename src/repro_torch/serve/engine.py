@@ -11,23 +11,36 @@ use. Every projection of every step runs through ``kernels/dispatch.py``:
   densify          ``fused=False``: each leaf is dequantized at its point of
                    use and multiplied by ``torch.matmul`` (the reference).
 
-Slot lifecycle on the dense KV layout, greedy decoding:
+Slot lifecycle, greedy decoding:
 
-  admit   — every free slot takes the next queued request, prefilled alone
-            into that slot (``ModelApi.prefill_slot``); prompts are
-            right-padded to power-of-two buckets with exact masking.
+  admit   — a free slot takes the next queued request. Monolithic admission
+            prefills the whole prompt alone into that slot
+            (``ModelApi.prefill_slot``; prompts right-padded to power-of-two
+            buckets with exact masking). Chunked admission
+            (``prefill_chunk``) streams it one chunk per tick, cursor on the
+            host: under the mixed scheduler the chunk rides the decode batch
+            (``ModelApi.mixed_step``, one executable per tick).
   decode  — one ``serve_step`` advances every slot per tick; free slots are
             masked (their cache_len does not advance, their tokens drop).
   retire  — a slot frees when its request reaches ``max_new`` or the cache
             capacity, and is re-admitted on the next tick.
 
+KV layouts: dense (slots x max_len per layer) or paged — shared page pools
+with a host-side free list (page 0 is scratch), pages allocated at
+admission (per chunk when chunked), at each decode page boundary before the
+step, and freed at retire. Exhaustion is contained: an unservable prompt
+ends FAILED_CAPACITY, an admission that finds no free page is requeued
+until a retire frees one, and when decode starves the largest page-holder
+retires FAILED_CAPACITY. On the paged layout, ``attn_impl="paged_kernel"``
+reads the pools through B3/B4 (``kernels/paged_attention.py``).
+
 The format is batch-pinned: the policy picks when the engine goes from
 drained to busy, and every request admitted while a slot is live inherits
 it. The pseudo-format ``"bf16"`` serves dense anchor-precision weights.
 
-Left out of this slice (each refused with a clear error): paged KV, chunked
-and mixed admission, speculative decoding, sampling, the logit guard,
-snapshots, SLO tiers and tensor parallelism.
+Left out of this slice (each refused with a clear error): speculative
+decoding, sampling, the logit guard, fault injection, snapshots, SLO tiers
+and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -42,8 +55,9 @@ import torch
 from repro_torch.core.anchor import AnchorModel, convert, materialize
 from repro_torch.core.formats import get_format
 from repro_torch.devices import resolve_device
-from repro_torch.kernels import mx_matmul
+from repro_torch.kernels import mx_matmul, paged_attention
 from repro_torch.kernels.dispatch import make_qmm
+from repro_torch.kernels.paged_attention import pages_read, pages_read_mq
 from repro_torch.models.transformer import ModelApi
 from repro_torch.serve.packed_params import (anchor_block_size,
                                              make_packed_params,
@@ -85,9 +99,6 @@ class Request:
 
 
 _UNSUPPORTED = {
-    "kv_layout": ("dense", "paged KV is the next slice of the port"),
-    "prefill_chunk": (None, "chunked admission is not ported yet"),
-    "scheduler": (None, "the mixed scheduler is not ported yet"),
     "speculative": (None, "speculative decoding is not ported yet"),
     "mesh": (None, "tensor-parallel serving is not ported yet"),
     "logit_guard": (False, "the logit guard is not ported yet"),
@@ -102,12 +113,28 @@ class ElasticEngine:
     kernels; False selects the densify reference contract. ``packed=False``
     serves every format from densified weights instead. ``device`` holds
     the weights and caches ("cuda" unless the caller asks for "cpu").
+
+    ``kv_layout``: ``"dense"`` preallocates (slots, max_len) per layer;
+    ``"paged"`` serves from shared page pools of ``kv_page_size``-token
+    pages (``kv_num_pages``, None = dense capacity + the scratch page 0)
+    and a per-slot block table, with the free list on the host. ``attn_impl``
+    picks the paged read path: ``"paged_kernel"`` (B3/B4, the default when
+    paged) or ``"gather"`` (materialise each row's view first; the only
+    choice on the dense layout). ``prefill_chunk`` (int, or ``"auto"`` =
+    one page when paged, else 64) streams each prompt in chunks of that
+    many tokens, at most one chunk per tick; ``scheduler`` ``"mixed"`` (the
+    default with chunks) runs that chunk inside the decode batch as one
+    ``mixed_step``, ``"sequential"`` as its own executable before the
+    decode step.
     """
 
     def __init__(self, api: ModelApi, anchor: AnchorModel, *,
                  batch_slots: int = 4, max_len: int = 256,
                  policy: Optional[FormatPolicy] = None, packed: bool = True,
-                 fused: Optional[bool] = None, device="cuda",
+                 fused: Optional[bool] = None, kv_layout: str = "dense",
+                 kv_page_size: int = 16, kv_num_pages: Optional[int] = None,
+                 attn_impl: Optional[str] = None, prefill_chunk=None,
+                 scheduler: Optional[str] = None, device="cuda",
                  **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
@@ -124,18 +151,85 @@ class ElasticEngine:
         self.fused = fused is None or fused
         self.api = api
         self._block_size = anchor_block_size(anchor)
-        self._packed_api = api.with_qmm(
-            make_qmm(mode="kernel" if self.fused else "densify"))
+        cfg = api.cfg
+
+        if kv_layout not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_layout {kv_layout!r}; "
+                             "one of ('dense', 'paged')")
+        self.kv_layout = kv_layout
+        self.kv_page_size = kv_page_size
+        self.kv_num_pages = kv_num_pages
+        if attn_impl is None:
+            attn_impl = "paged_kernel" if kv_layout == "paged" else "gather"
+        if attn_impl not in ("gather", "paged_kernel"):
+            raise ValueError(f"unknown attn_impl {attn_impl!r}; one of "
+                             "('gather', 'paged_kernel')")
+        if attn_impl == "paged_kernel" and kv_layout != "paged":
+            raise ValueError(
+                "attn_impl='paged_kernel' requires kv_layout='paged' — the "
+                "dense layout has no block table for the kernel to consume")
+        self.attn_impl = attn_impl
+        if prefill_chunk == "auto":
+            prefill_chunk = kv_page_size if kv_layout == "paged" else 64
+        if prefill_chunk is not None:
+            if prefill_chunk < MIN_PREFILL_BUCKET:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) must be >= the "
+                    f"minimum prefill bucket ({MIN_PREFILL_BUCKET})")
+            if kv_layout == "paged" and prefill_chunk % kv_page_size:
+                raise ValueError(
+                    f"prefill_chunk ({prefill_chunk}) must be a multiple of "
+                    f"kv_page_size ({kv_page_size}) so chunk boundaries "
+                    "fall on page boundaries")
+        self.prefill_chunk = prefill_chunk
+        if scheduler in (None, "auto"):
+            scheduler = "mixed" if prefill_chunk is not None else "sequential"
+        if scheduler not in ("sequential", "mixed"):
+            raise ValueError(f"unknown scheduler {scheduler!r}; one of "
+                             "('sequential', 'mixed')")
+        if scheduler == "mixed" and prefill_chunk is None:
+            raise ValueError(
+                "scheduler='mixed' coalesces the prefill chunk into the "
+                "decode batch; set prefill_chunk (or 'auto')")
+        self.scheduler = scheduler
+
+        # The serving entry points with both knobs baked in: the packed
+        # contract's GEMM hook, and the paged read path.
+        self._packed_api = api.with_serving(
+            make_qmm(mode="kernel" if self.fused else "densify"), attn_impl)
+        self._plain_api = api.with_serving(None, attn_impl)
         self._weights: Dict[str, object] = {}
         self.current_fmt: Optional[str] = None
         self._fmt_swaps = 0
-        self._ticks = 0
-        self._prefills = 0
+        self._ticks = 0                 # decode-carrying ticks
+        self._prefills = 0              # prefill executables (whole prompts
+        #                                 or chunks that ran alone)
         self._tokens_out = 0
-        self._prefill_s = 0.0           # host wall time in admissions
-        self._decode_s = 0.0            # host wall time in decode steps
+        self._prefill_s = 0.0           # host wall time in prefill executables
+        self._decode_s = 0.0            # host wall time in decode/mixed steps
         self._nonfinite_rows = 0        # consumed logit rows with NaN/Inf
         self._status_counts: Dict[str, int] = {}
+        self._admission_requeues = 0
+        self._kv_pages_alloc = 0
+        self._kv_pages_freed = 0
+        self._kv_pages_hwm = 0
+        self._attn_tokens_read = 0
+        self.tick_trace: List[Dict[str, float]] = []   # reset per generate
+
+        itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
+        kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * itemsize
+        if kv_layout == "paged":
+            max_pages = -(-max_len // kv_page_size)
+            self._kv_total_pages = kv_num_pages if kv_num_pages is not None \
+                else batch_slots * max_pages + 1
+            self._kv_cache_bytes = kv_token * self._kv_total_pages \
+                * kv_page_size + 4 * batch_slots * max_pages
+            self._attn_read_span = max_pages * kv_page_size
+        else:
+            self._kv_total_pages = 0
+            self._kv_cache_bytes = kv_token * batch_slots * max_len
+            self._attn_read_span = max_len
+        self._attn_token_bytes = kv_token   # K+V bytes of one token, all layers
 
     # ---- weights ----------------------------------------------------------
     def _serves_packed(self, fmt_name: str) -> bool:
@@ -169,7 +263,57 @@ class ElasticEngine:
         return self.weights_for(fmt_name)
 
     def _api_for(self, fmt_name: str) -> ModelApi:
-        return self._packed_api if self._serves_packed(fmt_name) else self.api
+        return self._packed_api if self._serves_packed(fmt_name) \
+            else self._plain_api
+
+    # ---- KV cache ---------------------------------------------------------
+    def _init_cache(self, b: int):
+        if self.kv_layout == "paged":
+            return self.api.init_cache(
+                b, self.max_len, device=self.device, kv_layout="paged",
+                page_size=self.kv_page_size, num_pages=self.kv_num_pages)
+        return self.api.init_cache(b, self.max_len, device=self.device)
+
+    def _alloc_pages(self, free: List[int], n: int, why: str) -> List[int]:
+        """Pop ``n`` physical pages off the free list, or raise
+        ``RuntimeError``; ``generate`` contains the exhaustion (requeue an
+        admission, or retire the largest page-holder)."""
+        if len(free) < n:
+            raise RuntimeError(
+                f"KV page pool exhausted at {why}: need {n} page(s), "
+                f"{len(free)} free (pool = {self._kv_total_pages} pages x "
+                f"{self.kv_page_size} tokens, {self.slots} slots, "
+                f"{self._kv_pages_hwm} pages high-water). Increase "
+                "kv_num_pages, shrink batch_slots/max_len, or admit less.")
+        got = [free.pop() for _ in range(n)]
+        self._kv_pages_alloc += n
+        in_use = self._kv_total_pages - 1 - len(free)
+        self._kv_pages_hwm = max(self._kv_pages_hwm, in_use)
+        return got
+
+    def _free_slot_pages(self, free: List[int], bt: np.ndarray,
+                         slot: int) -> None:
+        """Return a slot's pages to the free list and point its block-table
+        row at scratch page 0, so any further masked write from the
+        still-batched slot lands there, never on a recycled page."""
+        used = bt[slot][bt[slot] != 0]
+        free.extend(int(p) for p in used)
+        self._kv_pages_freed += used.size
+        bt[slot, :] = 0
+
+    @staticmethod
+    def _capacity_victim(active: List[Optional[Request]],
+                         bt: np.ndarray) -> Optional[int]:
+        """Slot to retire when decode starves the pool with no admission to
+        roll back: the largest page-holder (ties -> lowest slot)."""
+        best, best_pages = None, 0
+        for j, r in enumerate(active):
+            if r is None:
+                continue
+            held = int((bt[j] != 0).sum())
+            if held > best_pages:
+                best, best_pages = j, held
+        return best
 
     # ---- admission --------------------------------------------------------
     @property
@@ -192,17 +336,45 @@ class ElasticEngine:
         self._status_counts[status.value] = \
             self._status_counts.get(status.value, 0) + 1
 
+    def _max_pages_needed(self, plen: int) -> int:
+        """Peak page count one request's admission holds: the pages of the
+        (bucket-padded) prompt plus the first decode write; under chunked
+        admission the peak is at the final chunk."""
+        ps = self.kv_page_size
+        chunk = self.prefill_chunk
+        if chunk is None:
+            blen = _bucket_len(plen, self.prompt_capacity)
+            return max(-(-blen // ps), plen // ps + 1)
+        start = ((plen - 1) // chunk) * chunk        # final chunk's cursor
+        end = min(start + _bucket_len(plen - start, chunk), self.max_len)
+        return max(-(-end // ps), plen // ps + 1)
+
+    def _admission_reject(self, r: Request) -> Optional[str]:
+        """Why this request can never be served (None = admissible): a
+        prompt past cache capacity, or (paged) a page demand beyond the
+        whole pool even when empty."""
+        plen = int(np.asarray(r.prompt).size)
+        if plen > self.prompt_capacity:
+            return (f"prompt ({plen} tokens) exceeds capacity "
+                    f"({self.prompt_capacity} = max_len - 1)")
+        if self.kv_layout == "paged":
+            need = self._max_pages_needed(plen)
+            allocatable = self._kv_total_pages - 1    # page 0 is scratch
+            if need > allocatable:
+                return (f"prompt ({plen} tokens) needs {need} KV page(s) "
+                        f"at its admission peak; the pool has only "
+                        f"{allocatable} allocatable")
+        return None
+
     def _pop_admissible(self, pending: List[Request]) -> Optional[Request]:
-        """Next servable request (FIFO); prompts past the cache capacity end
+        """Next servable request (FIFO); unservable ones end
         FAILED_CAPACITY right here."""
         while pending:
             r = pending.pop(0)
-            plen = int(np.asarray(r.prompt).size)
-            if plen <= self.prompt_capacity:
+            reason = self._admission_reject(r)
+            if reason is None:
                 return r
-            self._finish(r, RequestStatus.FAILED_CAPACITY,
-                         f"prompt ({plen} tokens) exceeds capacity "
-                         f"({self.prompt_capacity} = max_len - 1)")
+            self._finish(r, RequestStatus.FAILED_CAPACITY, reason)
         return None
 
     # ---- serving loop -----------------------------------------------------
@@ -210,21 +382,85 @@ class ElasticEngine:
     def generate(self, requests: List[Request], greedy: bool = True,
                  fmt_override: Optional[str] = None) -> List[Request]:
         """Serve requests to completion with slot-level continuous
-        batching, greedy decoding."""
+        batching, greedy decoding.
+
+        Slot lifecycle: free -> prefilling (one whole prompt, or chunk by
+        chunk with the cursor on the host) -> decoding -> retired. With
+        ``prefill_chunk`` at most one slot is mid-prefill and each tick runs
+        at most one chunk: under ``"mixed"`` inside the decode batch (one
+        executable per tick; a chunk with no slot decoding runs alone and
+        ends the tick), under ``"sequential"`` before it. On the paged
+        layout the pages of a prompt (of a chunk) are allocated at its
+        admission, a decoding slot's next page just before the tick that
+        writes into it, and all of a slot's pages return at retire.
+        ``tick_trace`` records each tick's work.
+        """
         if not greedy:
             raise NotImplementedError("sampled decoding is not ported yet; "
                                       "the port decodes greedily")
         b = self.slots
+        paged = self.kv_layout == "paged"
+        chunk = self.prefill_chunk
+        ps = self.kv_page_size
+        window = self.api.cfg.sliding_window
+        dev = self.device
         pending = list(requests)
         active: List[Optional[Request]] = [None] * b
         slot_len = [0] * b              # host mirror of cache_len
-        cache = self.api.init_cache(b, self.max_len, device=self.device)
-        cache_len = torch.zeros(b, dtype=torch.int32, device=self.device)
-        tokens = torch.zeros((b, 1), dtype=torch.int32, device=self.device)
+        cache = self._init_cache(b)
+        cache_len = torch.zeros(b, dtype=torch.int32, device=dev)
+        tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
         pinned: Optional[str] = None    # format for this batch's lifetime
+        filling: Optional[Request] = None   # the (single) mid-prefill request
+        fill_slot, fill_cursor = -1, 0
+        wait_pages = False  # a requeued admission waits for a retire
+        if paged:
+            # page 0 is reserved scratch; allocatable pages 1..P-1
+            free_pages = list(range(self._kv_total_pages - 1, 0, -1))
+            bt = np.zeros(tuple(cache["block_table"].shape), np.int32)
+        else:
+            free_pages, bt = [], None
         t0 = time.perf_counter()
+        self.tick_trace = []
 
-        while pending or any(a is not None for a in active):
+        def sync_table() -> None:
+            cache["block_table"].copy_(torch.from_numpy(bt))
+
+        def release_slot(i: int) -> None:
+            nonlocal wait_pages
+            if paged:
+                self._free_slot_pages(free_pages, bt, i)
+                sync_table()
+            wait_pages = False     # freed pages: admission may retry
+
+        def complete_admission(i: int, r: Request, logits) -> None:
+            """prefilling -> decoding (or straight to retired): the first
+            token from the prefill logits, TTFT stamped."""
+            nonlocal tokens
+            first = int(torch.argmax(logits, -1))
+            self._nonfinite_rows += int(not torch.isfinite(logits).all())
+            tokens[i, 0] = first
+            r.fmt_used = pinned
+            r.out_tokens.append(first)
+            r.ttft_s = time.perf_counter() - t0
+            self._tokens_out += 1
+            if len(r.out_tokens) >= r.max_new:
+                self._finish(r, RequestStatus.COMPLETED)
+                release_slot(i)
+            else:
+                r.status = RequestStatus.RUNNING
+                active[i] = r
+
+        def run_prefill(fn, *args):
+            t_pf = time.perf_counter()
+            out = fn(*args)
+            self._prefill_s += time.perf_counter() - t_pf
+            self._prefills += 1
+            return out
+
+        while pending or filling is not None \
+                or any(a is not None for a in active):
+            t_tick = time.perf_counter()
             if pinned is None:          # engine drained: re-pick format
                 pinned = self.policy.pick(
                     queue_depth=len(pending),
@@ -233,46 +469,217 @@ class ElasticEngine:
                     override=fmt_override)
             weights = self.set_format(pinned)
             api = self._api_for(pinned)
+            tick = dict(prefill_tokens=0, prefill_chunks=0, execs=0, rows=0)
+            chunk_tok = None            # staged chunk for the mixed tick
+            chunk_ran_alone = False
 
-            # ---- admission: one whole prompt per free slot
-            for i in range(b):
-                if active[i] is not None:
-                    continue
-                r = self._pop_admissible(pending)
-                if r is None:
-                    break
-                r.status = RequestStatus.RUNNING
-                prompt = np.asarray(r.prompt, np.int32)
-                t_pf = time.perf_counter()
-                logits, cache, new_len = api.prefill_slot(
-                    weights, self._prefill_batch(prompt), cache, i)
-                cache_len[i] = new_len
-                slot_len[i] = prompt.size
-                first = int(torch.argmax(logits, -1))
-                self._nonfinite_rows += int(not torch.isfinite(logits).all())
-                self._prefill_s += time.perf_counter() - t_pf
-                self._prefills += 1
-                tokens[i, 0] = first
-                r.fmt_used = pinned
-                r.out_tokens.append(first)
-                r.ttft_s = time.perf_counter() - t0
-                self._tokens_out += 1
-                if len(r.out_tokens) >= r.max_new:
-                    self._finish(r, RequestStatus.COMPLETED)
-                else:
-                    active[i] = r
+            if chunk is None:
+                # ---- monolithic admission: one whole prompt per free slot
+                for i in range(b):
+                    if active[i] is not None or wait_pages:
+                        continue
+                    r = self._pop_admissible(pending)
+                    if r is None:
+                        break
+                    r.status = RequestStatus.RUNNING
+                    prompt = np.asarray(r.prompt, np.int32)
+                    pbatch = self._prefill_batch(prompt)
+                    blen = pbatch["tokens"].shape[1]
+                    if paged:
+                        # the bucket-padded prompt and the first decode write
+                        need = max(-(-blen // ps), prompt.size // ps + 1)
+                        try:
+                            got = self._alloc_pages(
+                                free_pages, need, f"admission of rid={r.rid}")
+                        except RuntimeError:
+                            # admission never outranks running work: requeue
+                            # and wait for a retire (the whole-pool check in
+                            # _pop_admissible guarantees the wait ends); with
+                            # nothing running the free list leaked — raise
+                            r.status = RequestStatus.QUEUED
+                            pending.insert(0, r)
+                            self._admission_requeues += 1
+                            if not any(a is not None for a in active):
+                                raise
+                            wait_pages = True
+                            break
+                        bt[i, :need] = got
+                        sync_table()
+                    logits, cache, new_len = run_prefill(
+                        api.prefill_slot, weights, pbatch, cache, i)
+                    tick["prefill_tokens"] += blen
+                    tick["prefill_chunks"] += 1
+                    tick["execs"] += 1
+                    tick["rows"] += 1
+                    cache_len[i] = new_len
+                    slot_len[i] = prompt.size
+                    complete_admission(i, r, logits)
+            else:
+                # ---- chunked admission: claim the (single) mid-prefill
+                # request and allocate this chunk's pages
+                if filling is None and not wait_pages and None in active:
+                    cand = self._pop_admissible(pending)
+                    if cand is not None:
+                        fill_slot = active.index(None)
+                        filling, fill_cursor = cand, 0
+                        filling.status = RequestStatus.RUNNING
+                        # the mixed tick reads the fill row's cursor from
+                        # cache_len: drop the previous occupant's value
+                        cache_len[fill_slot] = 0
+                if filling is not None:
+                    r, i = filling, fill_slot
+                    prompt = np.asarray(r.prompt, np.int32)
+                    plen = prompt.size
+                    start = fill_cursor
+                    take = min(chunk, plen - start)
+                    final = start + take >= plen
+                    padded = _bucket_len(take, chunk) if final else chunk
+                    padded = min(padded, self.max_len - start)
+                    ok = True
+                    if paged:
+                        # this chunk's pages only; the first decode write's
+                        # page is the decode tick's job
+                        first_pg = start // ps
+                        last_pg = -(-(start + padded) // ps)
+                        try:
+                            got = self._alloc_pages(
+                                free_pages, last_pg - first_pg,
+                                f"prefill chunk at {start} of rid={r.rid}")
+                            bt[i, first_pg:last_pg] = got
+                        except RuntimeError:
+                            # a partial admission must not starve the pool:
+                            # release what it holds, requeue, retry after a
+                            # retire; with nothing running, raise
+                            self._free_slot_pages(free_pages, bt, i)
+                            r.status = RequestStatus.QUEUED
+                            pending.insert(0, r)
+                            filling = None
+                            self._admission_requeues += 1
+                            ok = False
+                            if not any(a is not None for a in active):
+                                raise
+                            wait_pages = True
+                        sync_table()
+                    if ok:
+                        ctoks = np.zeros(padded, np.int32)
+                        ctoks[:take] = prompt[start:start + take]
+                        chunk_tok = (start, take, padded, final)
 
-            if all(a is None for a in active):
-                pinned = None           # drained; the next wave re-picks
+                # The staged chunk runs as its own executable under the
+                # sequential scheduler, and when no slot is decoding.
+                if chunk_tok is not None and (
+                        self.scheduler == "sequential"
+                        or not any(a is not None for a in active)):
+                    chunk_ran_alone = True
+                    start, take, padded, final = chunk_tok
+                    pbatch = {"tokens": torch.as_tensor(ctoks[None],
+                                                        device=dev),
+                              "lengths": torch.tensor([plen],
+                                                      dtype=torch.int32,
+                                                      device=dev)}
+                    logits, cache, new_len = run_prefill(
+                        api.prefill_chunk_slot, weights, pbatch, cache, i,
+                        start)
+                    tick["prefill_tokens"] += padded
+                    tick["prefill_chunks"] += 1
+                    tick["execs"] += 1
+                    tick["rows"] += 1
+                    cache_len[i] = new_len
+                    fill_cursor = start + take
+                    if final:
+                        slot_len[i] = plen
+                        complete_admission(i, r, logits)
+                        filling = None
+                    chunk_tok = None
+
+            all_free = all(a is None for a in active)
+            if all_free or (chunk_ran_alone and self.scheduler == "mixed"):
+                # No decode this tick. Under the mixed scheduler a chunk that
+                # ran alone ends the tick: the new slot's first decode is
+                # next tick's (one) executable.
+                self._record_tick(tick, 0, t_tick, decode_rows=0)
+                if all_free and filling is None:
+                    pinned = None       # drained; the next wave re-picks
                 continue
 
-            # ---- decode: every slot steps; free slots are masked
+            # ---- decode tick: map the page each decoding slot writes into
+            # before the step runs (where exhaustion surfaces mid-stream)
+            if paged:
+                dirty = False
+                for i in range(b):
+                    r = active[i]
+                    if r is None:
+                        continue
+                    pg = slot_len[i] // ps
+                    while active[i] is not None and bt[i, pg] == 0:
+                        dirty = True
+                        try:
+                            bt[i, pg] = self._alloc_pages(
+                                free_pages, 1, f"decode tick for rid={r.rid}")[0]
+                        except RuntimeError as e:
+                            if filling is not None:
+                                # a decoding slot outranks a partial
+                                # admission: release it, requeue, retry
+                                self._free_slot_pages(free_pages, bt,
+                                                      fill_slot)
+                                filling.status = RequestStatus.QUEUED
+                                pending.insert(0, filling)
+                                filling = None
+                                chunk_tok = None
+                                self._admission_requeues += 1
+                                wait_pages = True
+                                continue
+                            # nothing to roll back: the largest page-holder
+                            # retires FAILED_CAPACITY, the rest keep serving
+                            victim = self._capacity_victim(active, bt)
+                            if victim is None:
+                                raise       # free-list invariant breach
+                            vr = active[victim]
+                            held = int((bt[victim] != 0).sum())
+                            active[victim] = None
+                            self._free_slot_pages(free_pages, bt, victim)
+                            wait_pages = False
+                            self._finish(
+                                vr, RequestStatus.FAILED_CAPACITY,
+                                f"KV pool exhausted at decode; retired as "
+                                f"largest page-holder ({held} page(s)) "
+                                f"after {len(vr.out_tokens)} token(s): {e}")
+                if dirty:
+                    sync_table()
+            if chunk_tok is None and all(a is None for a in active):
+                # victim retirement emptied the batch
+                self._record_tick(tick, 0, t_tick, decode_rows=0)
+                if filling is None:
+                    pinned = None
+                continue
+
             live = [a is not None for a in active]
-            mask = torch.tensor(live, dtype=torch.int32, device=self.device)
+            mask = np.asarray(live, np.int32)
             t_dec = time.perf_counter()
-            logits, cache = api.serve_step(weights, {"tokens": tokens},
-                                           cache, cache_len)
-            cache_len = cache_len + mask
+            if chunk_tok is not None:
+                # ---- mixed tick: decode rows carry their token in column
+                # 0, the fill row its chunk at its cursor; one executable
+                start, take, padded, final = chunk_tok
+                tok2d = torch.zeros((b, padded), dtype=torch.int32, device=dev)
+                tok2d[:, 0] = tokens[:, 0]
+                tok2d[fill_slot] = torch.as_tensor(ctoks, device=dev)
+                q_len = np.ones(b, np.int32)
+                q_len[fill_slot] = take
+                logits, cache = api.mixed_step(
+                    weights, {"tokens": tok2d,
+                              "q_len": torch.as_tensor(q_len, device=dev)},
+                    cache, cache_len)
+                adv = mask.copy()
+                adv[fill_slot] = take
+                tick["prefill_tokens"] += padded
+                tick["prefill_chunks"] += 1
+            else:
+                logits, cache = api.serve_step(weights, {"tokens": tokens},
+                                               cache, cache_len)
+                adv = mask
+            tick["execs"] += 1
+            tick["rows"] += b
+            cache_len = cache_len + torch.as_tensor(adv, device=dev)
             nxt = torch.argmax(logits, -1)
             tokens = nxt[:, None].to(torch.int32)
             finite = torch.isfinite(logits).all(-1)
@@ -283,6 +690,28 @@ class ElasticEngine:
             self._ticks += 1
             self._nonfinite_rows += int(sum(
                 1 for i in range(b) if live[i] and not finite[i]))
+
+            # Attention-read accounting for the tick that just ran. The
+            # gather path (and the dense layout) reads every row's whole
+            # view; the kernels walk pages_read / pages_read_mq pages of
+            # each row with mapped pages, and a free row's walk stays on
+            # scratch page 0 (counted once).
+            for i in range(b):
+                if not (paged and self.attn_impl == "paged_kernel"):
+                    self._attn_tokens_read += self._attn_read_span
+                elif active[i] is not None:
+                    self._attn_tokens_read += \
+                        pages_read(slot_len[i] + 1, ps, window) * ps
+                elif chunk_tok is not None and i == fill_slot:
+                    self._attn_tokens_read += \
+                        pages_read_mq(start, take, ps, window) * ps
+                elif filling is not None and i == fill_slot:
+                    self._attn_tokens_read += \
+                        pages_read(fill_cursor + 1, ps, window) * ps
+                else:
+                    self._attn_tokens_read += ps
+
+            # ---- retire
             for i, r in enumerate(active):
                 if r is None:
                     continue
@@ -293,9 +722,32 @@ class ElasticEngine:
                         slot_len[i] >= self.prompt_capacity:
                     self._finish(r, RequestStatus.COMPLETED)
                     active[i] = None    # slot re-admissible next tick
-            if all(a is None for a in active):
+                    release_slot(i)
+            if chunk_tok is not None:
+                # mixed-tick chunk epilogue: advance the cursor; the final
+                # chunk's row logits give the request its first token
+                fill_cursor = start + take
+                if final:
+                    slot_len[fill_slot] = plen
+                    complete_admission(fill_slot, filling, logits[fill_slot])
+                    filling = None
+            self._record_tick(tick, 1, t_tick, decode_rows=int(mask.sum()))
+            if all(a is None for a in active) and filling is None:
                 pinned = None
         return requests
+
+    def _record_tick(self, tick: Dict[str, int], decode: int, t_tick: float,
+                     decode_rows: int) -> None:
+        """One scheduler-tick trace entry: padded prompt tokens and chunks
+        prefilled, whether a decode (or mixed) step ran, the executables
+        dispatched (the mixed scheduler's invariant: at most one), the batch
+        rows they processed, the live decoding rows, and the host wall
+        time."""
+        self.tick_trace.append({
+            "prefill_tokens": tick["prefill_tokens"],
+            "prefill_chunks": tick["prefill_chunks"], "decode": decode,
+            "wall_s": time.perf_counter() - t_tick, "execs": tick["execs"],
+            "rows": tick["rows"], "decode_rows": decode_rows})
 
     # ---- introspection ----------------------------------------------------
     def stats(self) -> Dict[str, object]:
@@ -303,7 +755,8 @@ class ElasticEngine:
             "formats_cached": sorted(self._weights),
             "weight_bytes": {f: weight_stream_bytes(t)
                              for f, t in self._weights.items()},
-            "kernel_launches": dict(mx_matmul.launches),
+            "kernel_launches": {**mx_matmul.launches,
+                                **paged_attention.launches},
             "fmt_swaps": self._fmt_swaps,
             "ticks": self._ticks,
             "prefills": self._prefills,
@@ -315,4 +768,18 @@ class ElasticEngine:
             "fused": self.fused,
             "device": str(self.device),
             "request_statuses": dict(self._status_counts),
+            "prefill_chunk": self.prefill_chunk,
+            "admission_requeues": self._admission_requeues,
+            "kv_layout": self.kv_layout,
+            "kv_cache_bytes": self._kv_cache_bytes,
+            "kv_bytes_per_slot": self._kv_cache_bytes // self.slots,
+            "kv_page_size": self.kv_page_size,
+            "kv_total_pages": self._kv_total_pages,
+            "kv_pages_alloc": self._kv_pages_alloc,
+            "kv_pages_freed": self._kv_pages_freed,
+            "kv_pages_hwm": self._kv_pages_hwm,
+            "attn_impl": self.attn_impl,
+            "attn_tokens_read": self._attn_tokens_read,
+            "attn_read_bytes": self._attn_tokens_read
+            * self._attn_token_bytes,
         }
