@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's training and serving paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py [--layers N] [--seed S]
 
@@ -26,13 +27,35 @@ Phases (any failure exits non-zero before the result line):
      agreeing with B3; timed beside the plain version, the HBM bound and
      scaled_dot_product_attention on a contiguous copy of the live K/V
      (timing only, not called by the port);
-  5. dense serving: qwen3-4b at full width (random weights from a seeded
-     generator) -> MXINT8 anchor -> save_anchor / load_anchor ->
+  5. quantize / fake-quant / Slice-and-Scale kernels: mx_quantize (B6) to
+     mxint8 and mxfp8 and fake_quant (B7) at every qwen3-4b projection
+     weight shape, B7 at the stacked smollm-135m leaves, ss_convert (B5)
+     mxint8 -> mxint6 / 4 / 2 and mxfp8 -> mxfp6 / 4; each bit-identical
+     with its plain version on data with an all-zero, a subnormal and a
+     scale-clipping block; timed beside the plain version and the HBM
+     bound (no single PyTorch call does MX block quantization);
+  6. training: smollm-135m at full width and depth from random weights,
+     seq 512 x batch 8 (one cycled pool of 8 synthetic examples, as the
+     paper cycles a small QAT set), run_training through the
+     sequential MXINT schedule (8 steps, B7) and the anchored mxint8
+     variant (4 interleaved steps, B6 + B5), then qwen3-4b at full width
+     and depth 4 (2 direct steps, B7 at its large leaves); per-step CUDA
+     event times, losses, grad norms, peak memory and launch counts equal
+     to what the structure predicts; for smollm-135m and qwen3-4b, one
+     step split into its parts (CUDA events) and profiled by kernel
+     (torch.profiler);
+  7. the pipeline: run B's trained weights -> make_anchor (B6) ->
+     save_anchor / load_anchor -> ElasticEngine at mxint8 and mxint4 (B5
+     builds it), first-token logits at mxint4 within 5% of max|logit| of
+     the trained model's anchored fake-quant forward, 4 greedy requests
+     served at each format (B1 / B2);
+  8. dense serving: qwen3-4b at full width (random weights from a seeded
+     generator) -> MXINT8 anchor (B6) -> save_anchor / load_anchor ->
      ElasticEngine(batch_slots=4, max_len=512) serves 8 greedy requests at
-     mxint8 and at mxint4 through the kernels, with launch counts read off
-     the kernel wrappers, and the same requests through the densify
-     contract as the reference;
-  6. paged serving, always at all 36 layers: ElasticEngine(kv_layout=
+     mxint8 and at mxint4 (B5 builds it) through the kernels, with launch
+     counts read off the kernel wrappers, and the same requests through
+     the densify contract as the reference;
+  9. paged serving, always at all 36 layers: ElasticEngine(kv_layout=
      "paged", kv_page_size=16, prefill_chunk=64) — the mixed scheduler,
      every attention read through B3/B4 — serves the same 8 requests at
      mxint8 and mxint4; launch counts, one executable per tick, balanced
@@ -53,6 +76,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOP_PER_S = 989e12         # H100 SXM dense bf16 tensor cores
+F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 # qwen3-4b projections (K, N) and how many of each one layer runs.
 PROJ_SHAPES = {(2560, 4096): 1, (2560, 1024): 2, (4096, 2560): 1,
                (2560, 9728): 2, (9728, 2560): 1}
@@ -67,7 +91,19 @@ TPU_KERNEL = {
                        "paged_attention_pallas",
     "paged_attention_mq": "src/repro/kernels/paged_attention.py:339 "
                           "paged_attention_pallas_mq",
+    "ss_convert": "src/repro/kernels/ss_convert.py:49 ss_convert_pallas",
+    "mx_quantize": "src/repro/kernels/mx_quantize.py:26 mx_quantize_pallas",
+    "fake_quant": "src/repro/kernels/fake_quant.py:25 fake_quant_pallas",
 }
+# Slice-and-Scale conversions the kernel phase holds B5 to (anchor -> lower)
+SS_CASES = (("mxint8", "mxint6"), ("mxint8", "mxint4"), ("mxint8", "mxint2"),
+            ("mxfp8", "mxfp6"), ("mxfp8", "mxfp4"))
+# smollm-135m's stacked (30, K, N) projection leaves, as training reads them
+SMOLLM_LEAVES = ((576, 576), (576, 192), (576, 192), (576, 576),
+                 (576, 1536), (576, 1536), (1536, 576))
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_LR = 512, 8, 1e-3
+PIPE_TOL = 0.05    # served mxint4 first-token logits vs the trained model's
+#                    anchored fake-quant forward at mxint4: 5% of max|logit|
 FUSED_TOL = 0.05   # max|fused - densify| <= 5% of max|densify| (bf16 rounds
 #                    each projection's output at different places); also
 #                    max|paged_kernel - gather| on the first mixed tick
@@ -130,9 +166,12 @@ def phase_card():
 
 
 def phase_build():
-    from repro_torch.kernels import build, mx_matmul, paged_attention
-    mx_matmul.build()
-    paged_attention.build()
+    from repro_torch.kernels import (build, fake_quant, mx_matmul,
+                                     mx_quantize, paged_attention,
+                                     ss_convert)
+    for mod in (mx_matmul, paged_attention, mx_quantize, fake_quant,
+                ss_convert):
+        mod.build()
     info = build.build_info
     log(f"build: {', '.join(info['sources'])} in {info['seconds']:.1f} s"
         f"{' (already built)' if info['cached'] else ''} -> {info['path']}")
@@ -372,6 +411,506 @@ def phase_paged_kernels(seed: int):
     del kp, vp, kp_p, vp_p
     torch.cuda.empty_cache()
     return out
+
+
+def _plant_edge_blocks(v, bs: int = 32):
+    """Plant three edge blocks, blocked along K, twice in v (..., K, N): in
+    the first K-block of the first slice (columns 0-2) and in the last
+    K-block of the last slice (columns N-3..N-1), so that a stacked leaf's
+    outer offset and scale index meet them too. Of each three: all zeros,
+    subnormal, and a block with max in [2^-126, 2^-120) (its scale clips to
+    -127 at 8 bits)."""
+    import torch
+    gen = torch.Generator(device=v.device).manual_seed(7)
+    k, n = v.shape[-2:]
+    for lead, rows, c0 in (((0,) * (v.ndim - 2), slice(0, bs), 0),
+                           ((-1,) * (v.ndim - 2), slice(k - bs, k), n - 3)):
+        v[lead + (rows, c0)] = 0.0
+        v[lead + (rows, c0 + 1)] = torch.randn(
+            bs, generator=gen, device=v.device) * 1e-40
+        v[lead + (rows, c0 + 2)] = (torch.rand(
+            bs, generator=gen, device=v.device) * 2 - 1) * 2.0 ** -123
+        v[lead + (rows.start, c0 + 2)] = 2.0 ** -121
+    return v
+
+
+def _bits(t):
+    import torch
+    return t.view({torch.bfloat16: torch.int16, torch.float32: torch.int32,
+                   torch.int8: torch.int8, torch.uint8: torch.uint8}[t.dtype])
+
+
+def phase_quant_kernels(seed: int):
+    """B6 / B7 / B5 at every qwen3-4b projection weight shape, and at the
+    stacked leaves the main path gives them in one launch each (every
+    smollm-135m leaf, one qwen3-4b leaf): bit identity with the plain
+    versions on the same card tensors (edge blocks planted), device ms
+    beside the HBM bound.
+    Returns each kernel's record, summed over one qwen3-4b layer's seven
+    projection weights at the main path's settings: B6 f32 -> mxint8 (the
+    anchor export), B7 f32 -> bf16 mxint4 with the straight-through epilogue
+    (the direct-QAT forward), B5 mxint8 -> mxint4 (the served format)."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.mx import quantize
+    from repro_torch.core.slice_scale import slice_and_scale
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    log("quantize / fake-quant / Slice-and-Scale phase: bit identity with "
+        "the plain versions; device ms per call (CUDA graph, CUDA events), "
+        "rotating over copies > 128 MB")
+    log(f"{'kernel':12s}{'case':26s}{'shape':>18s}{'ms':>9s}{'plain':>9s}"
+        f"{'bound':>9s}  GB/s")
+    agg = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
+                   t_ops=0.0, max_abs_err=0.0)
+           for k in ("mx_quantize", "fake_quant", "ss_convert")}
+
+    def check_time(name, case, shape, got, want, kern, plain, nbytes,
+                   n_elem, layer_mult):
+        same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+        if not same:
+            fail(f"{name} [{case}] {shape}: not bit-identical with its plain "
+                 "version")
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(got, want))
+        agg[name]["max_abs_err"] = max(agg[name]["max_abs_err"], err)
+        ms = cuda_time_ms(kern, 50)
+        plain_ms = cuda_time_ms(plain, 3)
+        # a few dozen f32 operations per element (32 reckoned) over the
+        # f32 CUDA-core peak, against the bytes over HBM: bytes bound
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 32 * n_elem / F32_FLOP_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        log(f"{name:12s}{case:26s}{str(tuple(shape)):>18s}{ms:9.4f}"
+            f"{plain_ms:9.4f}{bound:9.4f}  {nbytes / ms / 1e6:.0f}")
+        if layer_mult:
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("bound_ms", bound), ("t_bytes", t_bytes),
+                             ("t_ops", t_ops)):
+                agg[name][key] += layer_mult * val
+
+    def copies_of(t, nbytes):
+        n = max(1, min(16, math.ceil(128e6 / nbytes)))
+        return [t.clone() for _ in range(n)]
+
+    for k, n in PROJ_SHAPES:
+        mult = PROJ_SHAPES[(k, n)]
+        w = _plant_edge_blocks(torch.randn((k, n), generator=gen,
+                                           device=dev) * 0.02)
+        ws = copies_of(w, 4 * k * n)
+        nel, nsc = k * n, k * n // 32
+        for fname in ("mxint8", "mxfp8"):
+            fmt = get_format(fname, 32)
+            got, want = ops.mx_quantize(w, fmt, 0), quantize(w, fmt, 0)
+            check_time("mx_quantize", f"f32 -> {fname}", (k, n),
+                       (got.codes, got.scale_exp),
+                       (want.codes, want.scale_exp),
+                       lambda i: ops.mx_quantize(ws[i % len(ws)], fmt, 0),
+                       lambda i: quantize(w, fmt, 0), 4 * nel + nel + nsc,
+                       nel, mult if fname == "mxint8" else 0)
+            anchor = got
+            for high, low in SS_CASES:
+                if high != fname:
+                    continue
+                lo = get_format(low, 32)
+                cs = copies_of(anchor.codes, nel)
+                ts = [type(anchor)(codes=c, scale_exp=anchor.scale_exp,
+                                   fmt=fmt, block_axis=0) for c in cs]
+                got_s = ops.ss_convert(anchor, lo)
+                want_s = slice_and_scale(anchor, lo)
+                check_time("ss_convert", f"{high} -> {low}", (k, n),
+                           (got_s.codes, got_s.scale_exp),
+                           (want_s.codes, want_s.scale_exp),
+                           lambda i: ops.ss_convert(ts[i % len(ts)], lo),
+                           lambda i: slice_and_scale(anchor, lo),
+                           2 * (nel + nsc), nel,
+                           mult if low == "mxint4" else 0)
+        for fname, out_dtype in (("mxint4", torch.bfloat16),
+                                 ("mxfp4", torch.bfloat16),
+                                 ("mxint8", torch.float32)):
+            fmt = get_format(fname, 32)
+            kw = dict(out_dtype=out_dtype, ste=True)
+            obytes = 2 if out_dtype == torch.bfloat16 else 4
+            check_time("fake_quant", f"f32 -> {fname} "
+                       f"{'bf16' if obytes == 2 else 'f32'} STE", (k, n),
+                       (ops.fake_quant(w, fmt, 0, **kw),),
+                       (ops.fake_quant_plain(w, fmt, 0, **kw),),
+                       lambda i: ops.fake_quant(ws[i % len(ws)], fmt, 0, **kw),
+                       lambda i: ops.fake_quant_plain(w, fmt, 0, **kw),
+                       (4 + obytes) * nel, nel,
+                       mult if fname == "mxint4" else 0)
+        del w, ws
+        torch.cuda.empty_cache()
+    # B7 as the training step runs it: one launch per stacked leaf
+    fmt = get_format("mxint4", 32)
+    for k, n in sorted(set(SMOLLM_LEAVES)):
+        w = _plant_edge_blocks(torch.randn((30, k, n), generator=gen,
+                                           device=dev) * 0.02)
+        kw = dict(out_dtype=torch.bfloat16, ste=True)
+        check_time("fake_quant", "smollm stacked, mxint4 STE", w.shape,
+                   (ops.fake_quant(w, fmt, 1, **kw),),
+                   (ops.fake_quant_plain(w, fmt, 1, **kw),),
+                   lambda i: ops.fake_quant(w, fmt, 1, **kw),
+                   lambda i: ops.fake_quant_plain(w, fmt, 1, **kw),
+                   6 * w.numel(), w.numel(), 0)
+    # B6 and B5 as make_anchor, convert and run B's anchored fake-quant run
+    # them: the whole stacked leaf in one launch, blocked along axis 1
+    anc, low = get_format("mxint8", 32), get_format("mxint4", 32)
+    stacked = [(30, k, n) for k, n in sorted(set(SMOLLM_LEAVES))] \
+        + [(36, 2560, 1024)]
+    for shape in stacked:
+        w = _plant_edge_blocks(torch.randn(shape, generator=gen, device=dev)
+                               * 0.02)
+        ws = copies_of(w, 4 * w.numel())
+        nel, nsc = w.numel(), w.numel() // 32
+        got, want = ops.mx_quantize(w, anc, 1), quantize(w, anc, 1)
+        check_time("mx_quantize", "stacked, f32 -> mxint8", shape,
+                   (got.codes, got.scale_exp), (want.codes, want.scale_exp),
+                   lambda i: ops.mx_quantize(ws[i % len(ws)], anc, 1),
+                   lambda i: quantize(w, anc, 1), 5 * nel + nsc, nel, 0)
+        got_s, want_s = ops.ss_convert(got, low), slice_and_scale(got, low)
+        check_time("ss_convert", "stacked, mxint8 -> mxint4", shape,
+                   (got_s.codes, got_s.scale_exp),
+                   (want_s.codes, want_s.scale_exp),
+                   lambda i: ops.ss_convert(got, low),
+                   lambda i: slice_and_scale(got, low), 2 * (nel + nsc), nel,
+                   0)
+        del w, ws, got, want, got_s, want_s
+    torch.cuda.empty_cache()
+    for name, a in agg.items():
+        log(f"one qwen3-4b layer's {PROJ_PER_LAYER} projection weights, "
+            f"{name}: {a['ms']:.4f} ms (bound {a['bound_ms']:.4f} ms, "
+            f"{100 * a['bound_ms'] / a['ms']:.1f}% of it; plain "
+            f"{a['plain_ms']:.4f} ms)")
+    return agg
+
+
+def _quant_launches():
+    from repro_torch.kernels import fake_quant, mx_quantize, ss_convert
+    return {**mx_quantize.launches, **fake_quant.launches,
+            **ss_convert.launches}
+
+
+def _reset_quant_launches():
+    from repro_torch.kernels import fake_quant, mx_quantize, ss_convert
+    for mod in (mx_quantize, fake_quant, ss_convert):
+        mod.reset_launches()
+
+
+def _train(label, cfg, qat, schedule, steps, seed):
+    """``run_training`` from random weights on the card, each step timed
+    with CUDA events around the train step; gates: finite losses and grad
+    norms, and B5 / B6 / B7 launched exactly as the structure predicts
+    (fake-quant of the 7 stacked projection leaves once per step: B7 per
+    direct step off the pass-through branch, B6 per anchored step, B5 per
+    anchored step whose target is not the anchor). Returns (final state,
+    history, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import DataConfig, LMDataset
+    from repro_torch.models.transformer import PROJECTIONS, make_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, make_schedule, run_training
+    from repro_torch.train.state import build_train_step
+
+    api = make_model(cfg, qat=qat)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    # one pool of TRAIN_BATCH examples, cycled (the paper cycles a small
+    # QAT set of 128): every step sees the same batch, so a few steps show
+    # the loss falling instead of batch-to-batch noise
+    data = LMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=seed,
+                                n_examples=TRAIN_BATCH))
+    inner = build_train_step(api, opt)
+    events = []
+
+    def timed_step(state, batch, fmt_idx):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = inner(state, batch, fmt_idx)
+        end.record()
+        events.append((start, end))
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_quant_launches()
+    out = run_training(api, data, opt, LoopConfig(total_steps=steps,
+                                                  schedule=schedule),
+                       step_fn=timed_step, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    counts = _quant_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    ms = [s.elapsed_time(e) for s, e in events]
+    n_fmt = len(qat.formats)
+    sched = make_schedule(schedule, n_fmt, steps)
+    leaves = sum(len(v) for v in PROJECTIONS.values()) * cfg.scan_group
+    quantized = [int(i) for i in sched if i < n_fmt]
+    if qat.anchor is None:
+        want = {"fake_quant": leaves * len(quantized), "mx_quantize": 0,
+                "ss_convert": 0}
+    else:
+        moved = [i for i in quantized if qat.formats[i] != qat.anchor]
+        want = {"fake_quant": 0, "mx_quantize": leaves * steps,
+                "ss_convert": leaves * len(moved)}
+    for h, t in zip(hist, ms):
+        fmt = qat.formats[h["fmt_idx"]] if h["fmt_idx"] < n_fmt else "fp"
+        log(f"{label} step {h['step']} fmt {fmt}: "
+            f"loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
+            f"{t:.2f} ms (CUDA events), {1e3 * h['sec']:.2f} ms host wall")
+    log(f"{label}: {cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
+        f"tokens/step={TRAIN_SEQ * TRAIN_BATCH}; step ms {np.round(ms, 2)}; "
+        f"steady-state mean {np.mean(ms[1:]):.2f} ms; peak allocated "
+        f"{peak:.2f} GB; launches {counts} (want {want})")
+    if not all(np.isfinite([h["loss"] for h in hist] +
+                           [h["grad_norm"] for h in hist])):
+        fail(f"{label}: a loss or grad norm is not finite")
+    if counts != want:
+        fail(f"{label}: kernel launches {counts}, want {want}")
+    return out["state"], hist, counts
+
+
+def _step_breakdown(label, cfg, qat, state, seed, fmt_idx=1):
+    """Where one train step's device time goes, from the state a run left:
+    CUDA-event times of its parts (the fake-quant of the 7 projection
+    leaves, forward with the loss, forward and backward, AdamW) and of the
+    whole step, and torch.profiler's device time by kernel over one step,
+    summed by kind, beside that step time (the card's busy share)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.tree import flatten_paths, unflatten_paths
+    from repro_torch.data.pipeline import DataConfig, LMDataset
+    from repro_torch.models.transformer import fake_quant_blocks, make_model
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train.state import build_train_step
+
+    api = make_model(cfg, qat=qat)
+    opt = AdamWConfig(lr=TRAIN_LR)
+    data = LMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                global_batch=TRAIN_BATCH, seed=seed,
+                                n_examples=TRAIN_BATCH))
+    batch = {k: torch.from_numpy(v).to("cuda")
+             for k, v in data.batch_at(0).items()}
+    flat = flatten_paths(state.params)
+    leaves = [p.detach().requires_grad_(True) for _, p in flat]
+    params = unflatten_paths({k: p for (k, _), p in zip(flat, leaves)})
+
+    def event_ms(fn, reps=3):
+        out = fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps, out
+
+    quant_ms, _ = event_ms(lambda: fake_quant_blocks(qat, fmt_idx, params,
+                                                     cfg))
+    fwd_ms, _ = event_ms(lambda: api.train_loss(params, batch, fmt_idx)[0])
+    fb_ms, grads = event_ms(lambda: torch.autograd.grad(
+        api.train_loss(params, batch, fmt_idx)[0], leaves))
+    grads = unflatten_paths({k: g for (k, _), g in zip(flat, grads)})
+    # the timed calls drop their new trees at once (a state each)
+    opt_ms, _ = event_ms(lambda: (adamw_update(state.params, grads,
+                                               state.opt, opt), None)[1])
+    del grads, params, leaves
+    torch.cuda.empty_cache()
+    log(f"{label} step parts (CUDA events, fmt {qat.formats[fmt_idx]}): "
+        f"fake-quant of the 7 leaves {quant_ms:.2f} ms, forward + loss "
+        f"{fwd_ms:.2f} ms, forward + backward {fb_ms:.2f} ms, AdamW "
+        f"{opt_ms:.2f} ms")
+
+    step = build_train_step(api, opt)
+    step_ms, _ = event_ms(lambda: (step(state, batch, fmt_idx), None)[1],
+                          reps=2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch, fmt_idx)
+        torch.cuda.synchronize()
+    # device time by kernel: only the events that ran on the card (the
+    # operator rows above them would count the same time twice)
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    total = sum(k[0] for k in kernels)
+    groups = {}
+    for ms, _, name in kernels:
+        low = name.lower()
+        kind = ("B5/B6/B7" if any(k in low for k in (
+                    "fake_quant", "mx_quantize", "ss_convert"))
+                else "GEMM f32" if any(k in low for k in (
+                    "f32f32", "sgemm"))
+                else "GEMM bf16" if any(k in low for k in (
+                    "gemm", "xmma", "cutlass", "bf16bf16"))
+                else "reductions" if any(k in low for k in (
+                    "reduce", "softmax", "norm", "logsumexp"))
+                else "elementwise" if "elementwise" in low
+                else "other")
+        groups[kind] = groups.get(kind, 0.0) + ms
+    log(f"{label} train step (fmt {qat.formats[fmt_idx]}): {step_ms:.2f} ms "
+        f"(CUDA events); kernel time {total:.2f} ms over "
+        f"{sum(k[1] for k in kernels)} kernels, "
+        f"{100 * total / step_ms:.0f}% of the step; by kind: "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+            groups.items(), key=lambda kv: -kv[1])))
+    for ms, count, name in kernels[:8]:
+        log(f"  {ms:9.2f} ms {100 * ms / max(total, 1e-9):5.1f}% x{count:<5d} "
+            f"{name[:90]}")
+    if not kernels:
+        log(f"{label}: the profiler saw no kernel; the CUDA-event parts "
+            "above stand alone")
+
+
+def phase_training(seed: int):
+    """smollm-135m at full width and depth through both QAT variants, then
+    qwen3-4b at full width and depth 4 through direct QAT. Returns run B's
+    trained master weights and every run's launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+
+    cfg = get_config("smollm-135m")
+    log(f"training phase: {cfg.name} (all {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, tied head), seq {TRAIN_SEQ} x batch "
+        f"{TRAIN_BATCH} (one pool of {TRAIN_BATCH} synthetic examples, "
+        f"cycled), AdamW lr {TRAIN_LR}, random init from seed {seed}")
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    direct = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    state_a, hist_a, counts = _train(
+        "run A (sequential MXINT 2/4/6/8, 2 steps each)", cfg, direct,
+        "multiformat", 8, seed)
+    add(counts)
+    if not hist_a[-1]["loss"] < hist_a[0]["loss"]:
+        fail(f"run A: last loss {hist_a[-1]['loss']} not below the first "
+             f"{hist_a[0]['loss']}")
+    _step_breakdown("smollm-135m", cfg, direct, state_a, seed)
+    del state_a
+    state_b, hist_b, counts = _train(
+        "run B (anchored mxint8, interleaved targets)", cfg,
+        QATConfig(formats=TRAIN_FORMATS_MXINT, anchor="mxint8"),
+        "interleaved", 4, seed + 1)
+    add(counts)
+    if not hist_b[-1]["loss"] < hist_b[0]["loss"]:
+        fail(f"run B: last loss {hist_b[-1]['loss']} not below the first "
+             f"{hist_b[0]['loss']}")
+    trained = state_b.params
+    del state_b
+    torch.cuda.empty_cache()
+
+    big = dataclasses.replace(get_config("qwen3-4b"), n_layers=4)
+    log(f"DEPTH CUT: qwen3-4b training runs {big.n_layers} of 36 layers "
+        "(widths unchanged)")
+    state_q, _, counts = _train("qwen3-4b direct MXINT", big, direct,
+                                "multiformat", 2, seed + 2)
+    add(counts)
+    _step_breakdown("qwen3-4b depth 4", big, direct, state_q, seed + 2)
+    del state_q
+    torch.cuda.empty_cache()
+    return cfg, trained, totals
+
+
+def phase_pipeline(cfg, trained, seed: int):
+    """The paper's pipeline end to end on run B's trained master weights:
+    make_anchor (B6) -> save_anchor / load_anchor -> ElasticEngine at
+    mxint8 and mxint4 (the mxint4 tree built by B5) serving 4 greedy
+    requests on the dense layout (B1 / B2). Gate: the served first-token
+    logits at mxint4 within 5% of max|logit| of the trained model's own
+    forward under the anchored fake-quant at mxint4 (the same weight values
+    by construction). Returns the B5 / B6 launches."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.anchor_ckpt import load_anchor, save_anchor
+    from repro_torch.core.anchor import make_anchor
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels.dispatch import make_qmm
+    from repro_torch.models.transformer import fake_quant_blocks, make_model
+    from repro_torch.serve.engine import ElasticEngine, Request
+
+    log("pipeline phase: trained weights -> anchor -> Slice-and-Scale -> "
+        "serve")
+    _reset_quant_launches()
+    anchor = make_anchor(trained, QATConfig(anchor="mxint8"), device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        nbytes = save_anchor(os.path.join(tmp, "anchor"), anchor)
+        del anchor
+        anchor = load_anchor(os.path.join(tmp, "anchor"), device="cuda")
+    api = make_model(cfg)
+    eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=256,
+                        device="cuda")
+    w4 = eng.weights_for("mxint4")
+    eng.weights_for("mxint8")
+    torch.cuda.synchronize()
+    counts = _quant_launches()
+    log(f"anchor {nbytes / 1e6:.1f} MB; make_anchor + format builds "
+        f"launched {counts}")
+    want = {"mx_quantize": 7, "ss_convert": 7 * cfg.n_layers,
+            "fake_quant": 0}
+    if counts != want:
+        fail(f"pipeline: kernel launches {counts}, want {want}")
+
+    rng = np.random.default_rng(seed + 5)
+    prompts = [rng.integers(0, cfg.vocab, size=int(n)).astype(np.int32)
+               for n in (24, 40, 57, 80)]
+    qat = QATConfig(formats=TRAIN_FORMATS_MXINT, anchor="mxint8")
+    with torch.no_grad():
+        ref_params = fake_quant_blocks(qat, qat.formats.index("mxint4"),
+                                       trained, cfg)
+    kapi = api.with_qmm(make_qmm("kernel"))
+    worst = 0.0
+    for p in prompts:
+        batch = {"tokens": torch.as_tensor(p[None], device="cuda")}
+        cache = kapi.init_cache(1, 256, device="cuda")
+        served, _, _ = kapi.prefill_slot(w4, batch, cache, 0)
+        cache = api.init_cache(1, 256, device="cuda")
+        ref, _, _ = api.prefill_slot(ref_params, batch, cache, 0)
+        diff = float((served.float() - ref.float()).abs().max())
+        top = float(ref.float().abs().max())
+        worst = max(worst, diff / top)
+        log(f"prompt {len(p)}: served mxint4 vs anchored fake-quant forward "
+            f"max|diff| {diff:.4g}, max|logit| {top:.4g}, argmax "
+            f"{int(served.argmax())} vs {int(ref.argmax())}")
+        if not (torch.isfinite(served).all() and diff <= PIPE_TOL * top):
+            fail(f"pipeline: served logits differ by {diff:.4g} > "
+                 f"{PIPE_TOL} * {top:.4g}")
+    for fmt in ("mxint8", "mxint4"):
+        reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+                for i, p in enumerate(prompts)]
+        mx_matmul.reset_launches()
+        t0 = time.perf_counter()
+        eng.generate(reqs, fmt_override=fmt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        bad = [r.rid for r in reqs if r.status.value != "completed"
+               or len(r.out_tokens) != MAX_NEW]
+        log(f"pipeline {fmt}: {len(reqs)} requests x {MAX_NEW} tokens in "
+            f"{wall:.2f} s; launches {dict(mx_matmul.launches)}")
+        if bad or not any(mx_matmul.launches.values()):
+            fail(f"pipeline {fmt}: requests {bad} incomplete or no "
+                 "dequant-GEMM launched")
+    log(f"pipeline gate: worst max|diff| / max|logit| {worst:.4f} "
+        f"(limit {PIPE_TOL})")
+    del eng, anchor, w4, ref_params
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _requests(vocab: int, seed: int):
@@ -711,7 +1250,22 @@ def main() -> int:
     phase_build()
     agg = phase_kernels(args.seed)
     paged_rec = phase_paged_kernels(args.seed)
+    quant_rec = phase_quant_kernels(args.seed)
+    # B5 / B6 / B7 launches: the sum over every run of the main path, each
+    # read from counts set to 0 just before it
+    quant_launches = {k: 0 for k in quant_rec}
+
+    def add(counts):
+        for k, v in counts.items():
+            quant_launches[k] += v
+
+    train_cfg, trained, counts = phase_training(args.seed)
+    add(counts)
+    add(phase_pipeline(train_cfg, trained, args.seed))
+    del trained
+    torch.cuda.empty_cache()
     cfg = qwen3_4b(36)
+    _reset_quant_launches()
     anchor = build_anchor(cfg, args.seed)
     if args.layers != cfg.n_layers:
         dense_cfg = qwen3_4b(args.layers)
@@ -723,7 +1277,23 @@ def main() -> int:
         launches, streams = phase_serving(cfg, anchor, args.seed)
     torch.cuda.empty_cache()
     launches.update(phase_paged_serving(cfg, anchor, args.seed, streams))
-    from repro_torch.kernels import mx_matmul, paged_attention
+    counts = _quant_launches()
+    # one make_anchor per anchor built (7 leaves, one B6 launch each); an
+    # mxint4 build per engine (the dense phase's fused and unfused ones, the
+    # paged one), one B5 launch per layer slice of each of the 7 leaves;
+    # the mxint8 builds are the anchor itself and launch nothing
+    dense_layers = args.layers
+    n_anchors = 1 if dense_layers == cfg.n_layers else 2
+    want = {"mx_quantize": PROJ_PER_LAYER * n_anchors,
+            "ss_convert": PROJ_PER_LAYER * (2 * dense_layers + cfg.n_layers),
+            "fake_quant": 0}
+    log(f"qwen3-4b serving phases (make_anchor and every format build): "
+        f"launches {counts} (want {want})")
+    if counts != want:
+        fail(f"qwen3-4b serving: kernel launches {counts}, want {want}")
+    add(counts)
+    from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
+                                     paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))
     kernels = []
     for (name, fname), a in agg.items():
@@ -749,7 +1319,29 @@ def main() -> int:
             "source": os.path.relpath(paged_attention.SOURCE, root),
             "replaces": TPU_KERNEL[name], "launches": launches[name],
             **a})
-    wrappers = set(mx_matmul.launches) | set(paged_attention.launches)
+    sources = {"mx_quantize": mx_quantize.SOURCE,
+               "fake_quant": fake_quant.SOURCE, "ss_convert": ss_convert.SOURCE}
+    timed_as = {"mx_quantize": "f32 -> mxint8 (anchor export)",
+                "fake_quant": "f32 -> bf16 mxint4 with the straight-through "
+                              "epilogue (direct-QAT forward)",
+                "ss_convert": "mxint8 -> mxint4 (served format)"}
+    for name, a in quant_rec.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": os.path.relpath(sources[name], root),
+            "replaces": TPU_KERNEL[name],
+            "launches": quant_launches[name],
+            "max_abs_err": a["max_abs_err"],
+            "ms": a["ms"], "plain_ms": a["plain_ms"],
+            "bound_ms": a["bound_ms"],
+            "bound_by": "bytes" if a["t_bytes"] >= a["t_ops"]
+            else "operations",
+            "library_ms": None,     # no single PyTorch call does MX blocks
+            "timed_as": f"one qwen3-4b layer's {PROJ_PER_LAYER} projection "
+                        f"weights, {timed_as[name]}",
+        })
+    wrappers = set(mx_matmul.launches) | set(paged_attention.launches) \
+        | set(_quant_launches())
     if wrappers != {k["name"] for k in kernels}:
         fail(f"kernel record {[k['name'] for k in kernels]} does not cover "
              f"every wrapper {sorted(wrappers)}")

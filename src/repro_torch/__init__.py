@@ -1,8 +1,10 @@
-"""PyTorch/CUDA port of the MF-QAT elastic-inference serving path.
+"""PyTorch/CUDA port of MF-QAT: multi-format QAT training, anchor export and
+elastic serving.
 
 Mirrors the module layout of the JAX package ``repro`` (``core/``,
-``checkpoint/``, ``kernels/``, ``models/``, ``serve/``, ``configs/``) so each
-module has an obvious counterpart, but imports only ``torch``, ``numpy`` and
-the standard library. The two MX dequant-GEMM kernels are CUDA C++ for
-Hopper (``csrc/mx_matmul.cu``), built on first use.
+``checkpoint/``, ``data/``, ``kernels/``, ``models/``, ``optim/``,
+``runtime/``, ``serve/``, ``train/``, ``configs/``) so each module has an
+obvious counterpart, but imports only ``torch``, ``numpy`` and the standard
+library. Its seven kernels are CUDA C++ for Hopper (``csrc/*.cu``), built on
+first use.
 """

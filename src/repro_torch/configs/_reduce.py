@@ -13,4 +13,4 @@ def _reduce(cfg: ModelConfig) -> ModelConfig:
                          f"{cfg.family!r}")
     return dataclasses.replace(
         cfg, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
-        vocab=512, compute_dtype=torch.float32, n_layers=2)
+        vocab=512, compute_dtype=torch.float32, seq_chunk=64, n_layers=2)

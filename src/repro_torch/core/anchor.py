@@ -8,10 +8,10 @@ Counterpart of ``repro/core/anchor.py``:
   3. serve the packed codes through the dequant-GEMM kernels, or
      ``materialize`` a dense tree.
 
-Leaves are keyed by JAX ``keystr`` paths (``core/tree.py``). Stacked leaves
-(G, K, N) are quantized and converted one layer slice at a time: the result
-is identical (blocks run along K, inside a slice) and the temporaries of a
-full-width model stay one layer in size.
+Leaves are keyed by JAX ``keystr`` paths (``core/tree.py``). On a CUDA
+tensor a stacked leaf (G, K, N) is quantized by one B6 launch and converted
+by one B5 launch (``kernels/ops.py``), which read it in place and make no
+temporaries; on the CPU the plain versions run.
 """
 from __future__ import annotations
 
@@ -21,11 +21,11 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.core.formats import MXFormat
-from repro_torch.core.mx import MXTensor, dequantize, quantize
+from repro_torch.core.mx import MXTensor, dequantize
 from repro_torch.core.qat import QATConfig, pytree_block_axis
-from repro_torch.core.slice_scale import slice_and_scale
 from repro_torch.core.tree import flatten_paths, unflatten_paths
 from repro_torch.devices import resolve_device
+from repro_torch.kernels.ops import mx_quantize, ss_convert
 
 
 @dataclasses.dataclass
@@ -57,16 +57,6 @@ def per_layer(fn: Callable, t: MXTensor):
     return dataclasses.replace(first, **upd)
 
 
-def _quantize_stacked(w: torch.Tensor, fmt: MXFormat, axis: int) -> MXTensor:
-    """``quantize(w, fmt, axis)``, one leading slice at a time if stacked."""
-    if w.ndim < 3:
-        return quantize(w, fmt, axis=axis)
-    parts = [quantize(w[g], fmt, axis=axis - 1) for g in range(w.shape[0])]
-    return MXTensor(codes=torch.stack([p.codes for p in parts]),
-                    scale_exp=torch.stack([p.scale_exp for p in parts]),
-                    fmt=fmt, block_axis=axis)
-
-
 def make_anchor(params, cfg: QATConfig, anchor: MXFormat | None = None, *,
                 device="cuda") -> AnchorModel:
     """One-time quantization of master weights to the anchor format."""
@@ -80,7 +70,7 @@ def make_anchor(params, cfg: QATConfig, anchor: MXFormat | None = None, *,
         ax = pytree_block_axis(w)
         if (w.ndim >= 2 and cfg.is_quantized_path(path)
                 and w.shape[ax] % fmt.block_size == 0):
-            q[path] = _quantize_stacked(w, fmt, ax)
+            q[path] = mx_quantize(w.contiguous(), fmt, axis=ax)
         else:
             raw[path] = w
     return AnchorModel(quantized=q, raw=raw, fmt_name=fmt.name)
@@ -89,7 +79,7 @@ def make_anchor(params, cfg: QATConfig, anchor: MXFormat | None = None, *,
 def convert(model: AnchorModel, target: MXFormat) -> AnchorModel:
     """Slice-and-Scale the whole model to a lower-precision format."""
     return AnchorModel(
-        quantized={k: per_layer(lambda s: slice_and_scale(s, target), t)
+        quantized={k: ss_convert(t, target)
                    for k, t in model.quantized.items()},
         raw=model.raw,
         fmt_name=target.name,

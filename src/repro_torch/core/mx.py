@@ -149,15 +149,17 @@ def _fp_decode_table(fmt: MXFormat) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=None)
-def _fp_decode_table_cached(fmt: MXFormat) -> np.ndarray:
-    return _fp_decode_table(fmt)
+def _fp_decode_lut(fmt: MXFormat, device: torch.device,
+                   dtype) -> torch.Tensor:
+    """The LUT on ``device``, made once: no host-to-device copy per call
+    (which a CUDA graph could not capture)."""
+    return torch.from_numpy(_fp_decode_table(fmt)).to(device=device,
+                                                      dtype=dtype)
 
 
 def decode_fp(codes: torch.Tensor, fmt: MXFormat,
               dtype=torch.float32) -> torch.Tensor:
-    lut = torch.from_numpy(_fp_decode_table_cached(fmt)).to(
-        device=codes.device, dtype=dtype)
-    return lut[codes.to(torch.int64)]
+    return _fp_decode_lut(fmt, codes.device, dtype)[codes.to(torch.int64)]
 
 
 def decode_elements(codes: torch.Tensor, fmt: MXFormat,
@@ -205,3 +207,20 @@ def dequantize(t: MXTensor, dtype=torch.float32) -> torch.Tensor:
                         t.fmt.block_size, t.block_axis)
     out = vals_b * _exp2i(t.scale_exp.to(torch.int32))[..., None]
     return _from_blocks(out, t.block_axis).to(dtype)
+
+
+def quantize_dequantize(v: torch.Tensor, fmt: MXFormat, axis: int = -1,
+                        dtype=None) -> torch.Tensor:
+    """Fused fake-quant value: dequantize(quantize(v)) without codes, in
+    ``dtype`` (default ``v.dtype``) — the plain version of B7."""
+    axis = axis % v.ndim
+    v32 = v.to(torch.float32)
+    scale_exp = compute_scale_exp(v32, fmt, axis).to(torch.int32)
+    vb = _to_blocks(v32, fmt.block_size, axis)
+    y = vb * _exp2i(-scale_exp)[..., None]
+    if fmt.kind == "int":
+        q = torch.clamp(torch.round(y), -fmt.int_maxq, fmt.int_maxq)
+    else:
+        q = quantize_fp_element_value(y, fmt)
+    out = _from_blocks(q * _exp2i(scale_exp)[..., None], axis)
+    return out.to(dtype if dtype is not None else v.dtype)

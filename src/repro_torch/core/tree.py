@@ -55,3 +55,15 @@ def _lists(node):
             raise ValueError(f"sparse sequence indices {sorted(out)}")
         return [out[i] for i in range(len(out))]
     return out
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same-shaped ``rest``),
+    keeping the dict/list structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)

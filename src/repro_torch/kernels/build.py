@@ -1,6 +1,7 @@
 """One nvcc build of every CUDA source of the port into one shared library.
 
-Every ``csrc/*.cu`` file has a plain C interface; each is compiled for
+Every ``csrc/*.cu`` file has a plain C interface (``*.cuh`` headers hold
+what several share); each is compiled for
 ``sm_90a`` into an object by its own ``nvcc`` (all started together), and
 the objects are linked into one ``.so`` that the kernel wrappers load with
 ``ctypes``. The library goes into ``build/repro_torch/`` at the repository
@@ -87,7 +88,7 @@ def library() -> ctypes.CDLL:
         return _lib
     srcs = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in sorted(CSRC.glob("*.cu*")):          # sources and headers
         digest.update(src.name.encode() + src.read_bytes())
     out = BUILD_DIR / f"librepro_torch_{digest.hexdigest()[:12]}.so"
     log_path = out.with_suffix(".log")

@@ -11,6 +11,12 @@ with a card nothing calls them.
   ``csrc/paged_attention.cu``  B3/B4: attention read through a block table
                                from page pools (P, ps, Hkv, D), in f32, with
                                total masking.
+
+The plain versions of B5–B7 (``csrc/ss_convert.cu``, ``mx_quantize.cu``,
+``fake_quant.cu``) are the core functions themselves —
+``core/slice_scale.py::slice_and_scale``, ``core/mx.py::quantize`` and
+``core/mx.py::quantize_dequantize`` — which ``kernels/ops.py`` calls on the
+CPU.
 """
 from __future__ import annotations
 

@@ -1,10 +1,13 @@
 """Shared model infrastructure: the config and the quantization context.
 
-Counterpart of ``repro/models/common.py`` for serving. Every projection
-weight flows through ``QuantCtx.dense``: with a ``qmm`` hook a packed MX
-leaf goes straight to the dequant-GEMM dispatch (``kernels/dispatch.py``);
-without one it is dequantized at its point of use. Weights are (d_in, d_out)
-with MX blocks along d_in, the contraction axis.
+Counterpart of ``repro/models/common.py``. Every projection weight flows
+through ``QuantCtx.dense``: with a ``qmm`` hook a packed MX leaf goes
+straight to the dequant-GEMM dispatch (``kernels/dispatch.py``); without one
+it is dequantized at its point of use. MF-QAT training fake-quantizes the
+stacked projection leaves before the layer loop
+(``models/transformer.py::fake_quant_blocks``), so ``dense`` sees them
+already quantized. Weights are (d_in, d_out) with MX blocks along d_in, the
+contraction axis.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ class ModelConfig:
     tie_embeddings: bool = False
     compute_dtype: Any = torch.bfloat16
     scan_group: int = 1             # layers per stacked group
+    seq_chunk: int = 1024           # loss chunking along the sequence
 
     @property
     def hd(self) -> int:

@@ -7,12 +7,19 @@ checkpoints map 1:1; the JAX ``lax.scan`` over groups becomes a Python loop
 over ``leaf[g]`` views. The KV cache, dense (G, B, S, Hkv, D) or paged
 (pools (G, P, ps, Hkv, D) and a block table), is updated in place.
 
-Entry points (``ModelApi``): ``prefill``, ``prefill_slot`` (one request into
-one slot of the batched cache), ``prefill_chunk`` / ``prefill_chunk_slot``
-(one prompt chunk at a cursor), ``serve_step`` (one token for every slot),
-``mixed_step`` (decode rows and one prompt chunk in one step),
-``with_serving`` / ``with_qmm`` (the same entry points with a dequant-GEMM
-hook and a paged read path, ``attn_impl``).
+Entry points (``ModelApi``): ``train_loss`` (the MF-QAT training loss, with
+autograd), ``prefill``, ``prefill_slot`` (one request into one slot of the
+batched cache), ``prefill_chunk`` / ``prefill_chunk_slot`` (one prompt chunk
+at a cursor), ``serve_step`` (one token for every slot), ``mixed_step``
+(decode rows and one prompt chunk in one step), ``with_serving`` /
+``with_qmm`` (the same entry points with a dequant-GEMM hook and a paged
+read path, ``attn_impl``).
+
+Training fake-quantizes each stacked projection leaf once per step, before
+the layer loop (``fake_quant_blocks``): the JAX package fake-quantizes
+inside ``dense``, one layer slice at a time, and the values are the same
+(blocks run along d_in, inside a slice), in 7 launches per step instead of
+7 × layers.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from repro_torch.core.qat import QATConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.common import ModelConfig, QuantCtx, is_paged_cache
@@ -94,21 +102,24 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
                    attn_impl: str = "gather"):
     """Run the block stack over x (B, S, d); the cache is updated in place.
 
-    Monolithic prefill (``prefill`` without ``chunk_start``) writes each
-    layer's K/V at positions [0, S) — of a batch-row view of the dense cache,
-    or through ``cache["block_table"]`` when paged. Chunked prefill
+    Monolithic prefill (``prefill`` without ``chunk_start``) attends
+    causally over x and writes each layer's K/V at positions [0, S) — of a
+    batch-row view of the dense cache, or through ``cache["block_table"]``
+    when paged; with no cache (training) nothing is written. Chunked prefill
     (``chunk_start``), the mixed tick (``q_len``) and decode read and write
     the cache inside ``attention_block``. Returns the final-norm hidden
     states (B, S, d).
     """
-    block_table = cache.get("block_table")
+    block_table = cache.get("block_table") if cache is not None else None
+    monolithic = prefill and chunk_start is None
     for g in range(cfg.n_groups):
         for j in range(cfg.scan_group):
             p = _group_params(params["blocks"][j], g)
-            c = cache["blocks"][j]
-            kc, vc = (c["k_pages"][g], c["v_pages"][g]) \
-                if block_table is not None else (c["k"][g], c["v"][g])
-            monolithic = prefill and chunk_start is None
+            kc = vc = None
+            if cache is not None:
+                c = cache["blocks"][j]
+                kc, vc = (c["k_pages"][g], c["v_pages"][g]) \
+                    if block_table is not None else (c["k"][g], c["v"][g])
             h = L.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
             out, (k_new, v_new) = L.attention_block(
                 ctx, h, p["attn"], cfg, positions, f"blk{j}.attn",
@@ -118,7 +129,7 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
             if monolithic and block_table is not None:
                 L.paged_prefill_update(kc, k_new, block_table)
                 L.paged_prefill_update(vc, v_new, block_table)
-            elif monolithic:
+            elif monolithic and cache is not None:
                 s = k_new.shape[1]
                 kc[:, :s] = k_new.to(kc.dtype)
                 vc[:, :s] = v_new.to(vc.dtype)
@@ -139,14 +150,64 @@ def _head_logits(ctx: QuantCtx, params, cfg: ModelConfig, h_last):
     if not cfg.tie_embeddings and ctx.qmm is not None and \
             is_packed_leaf(params["lm_head"]):
         return ctx.qmm(h_last.to(torch.float32), params["lm_head"], "lm_head")
-    w = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(h_last.to(torch.float32), w.to(torch.float32))
+    return torch.matmul(h_last.to(torch.float32),
+                        _lm_head_w(params, cfg).to(torch.float32))
 
 
 def _last_hidden(hidden, lengths):
     """hidden (B, S, d) -> (B, d) at each row's own last real position."""
     rows = torch.arange(hidden.shape[0], device=hidden.device)
     return hidden[rows, lengths.long() - 1]
+
+
+# Projection leaves of a block, by the names ``dense`` gives them
+# (``blk{j}.attn.wq``, ...): the weights MF-QAT fake-quantizes.
+PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
+               "mlp": ("w_gate", "w_up", "w_down")}
+
+
+def fake_quant_blocks(qat: QATConfig, fmt_idx: int, params,
+                      cfg: ModelConfig):
+    """``params`` with every stacked projection leaf fake-quantized (STE) at
+    format ``fmt_idx`` once for the whole stack, in the compute dtype. A
+    (G, d_in, d_out) leaf is blocked at ``block_axis + 1``, so each layer
+    slice gets the value JAX's ``dense`` gives it."""
+    blocks = []
+    for j, blk in enumerate(params["blocks"]):
+        blk = dict(blk)
+        for sub, names in PROJECTIONS.items():
+            blk[sub] = dict(blk[sub])
+            for n in names:
+                w = blk[sub][n]
+                blk[sub][n] = qat.apply(
+                    w, f"blk{j}.{sub}.{n}", fmt_idx,
+                    axis=qat.block_axis % 2 + w.ndim - 2,
+                    out_dtype=cfg.compute_dtype)
+        blocks.append(blk)
+    return dict(params, blocks=blocks)
+
+
+def _lm_head_w(params, cfg: ModelConfig):
+    return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+
+
+def chunked_ce_loss(hidden, head_w, labels, mask, cfg: ModelConfig):
+    """Mean cross entropy over the masked positions, with the f32 logits
+    taken ``seq_chunk`` positions at a time (JAX's scan over chunks)."""
+    s = hidden.shape[1]
+    c = min(cfg.seq_chunk, s)
+    while s % c:
+        c //= 2
+    w = head_w.to(torch.float32)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, s, c):
+        logits = torch.matmul(hidden[:, i:i + c].to(torch.float32), w)
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, labels[:, i:i + c, None].long())[..., 0]
+        mk = mask[:, i:i + c]
+        tot = tot + torch.sum((lse - tgt) * mk)
+        cnt = cnt + torch.sum(mk)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 def _slot_view(cache, slot: int):
@@ -163,6 +224,8 @@ def _slot_view(cache, slot: int):
 class ModelApi:
     cfg: ModelConfig
     init_params: Callable         # (seed, device=) -> params
+    train_loss: Callable          # (params, batch, fmt_idx=None) -> (loss,
+    #                               {"ce", "aux"}), differentiable
     init_cache: Callable          # (batch, s_max, dtype=None, device=,
     #                               kv_layout=, page_size=, num_pages=)
     prefill: Callable             # (params, batch, cache) -> (logits, cache, len)
@@ -181,14 +244,42 @@ class ModelApi:
     with_serving: Callable        # (qmm=None, attn_impl="gather") -> ModelApi
     #                               with both serving knobs baked in
     attn_impl: str = "gather"     # paged read path: "gather" | "paged_kernel"
+    qat: Optional[QATConfig] = None   # the MF-QAT config train_loss runs
 
 
 def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
-               attn_impl: str = "gather") -> ModelApi:
+               attn_impl: str = "gather",
+               qat: Optional[QATConfig] = None) -> ModelApi:
     if attn_impl not in ("gather", "paged_kernel"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}; one of "
                          "('gather', 'paged_kernel')")
     ctx = QuantCtx(qmm=qmm)
+    n_fmts = len(qat.formats) if qat else 0
+
+    def train_loss(params, batch, fmt_idx=None):
+        """Next-token cross entropy of ``batch["tokens"]`` against
+        ``batch["labels"]`` (optional ``batch["mask"]``) with every
+        projection fake-quantized at format ``fmt_idx`` (a host int; None is
+        the pass-through branch). Returns ``(loss, {"ce", "aux"})``; the
+        graph reaches every leaf of ``params`` that requires grad."""
+        qparams = params
+        if qat is not None and qat.enabled:
+            qparams = fake_quant_blocks(
+                qat, n_fmts if fmt_idx is None else int(fmt_idx), params, cfg)
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = _embed(params, cfg, tokens)
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        hidden = forward_hidden(QuantCtx(), qparams, cfg, x, positions, None,
+                                None, prefill=True)
+        labels = batch["labels"]
+        mask = batch.get("mask")
+        mask = torch.ones(labels.shape, device=x.device) if mask is None \
+            else mask.to(torch.float32)
+        loss = chunked_ce_loss(hidden, _lm_head_w(params, cfg), labels, mask,
+                               cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return loss + aux, {"ce": loss, "aux": aux}
 
     def init_cache(b, s_max, dtype=None, *, device="cuda",
                    kv_layout="dense", page_size=16, num_pages=None):
@@ -312,11 +403,12 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                             _last_hidden(hidden, q_len)), cache
 
     def with_serving(qmm=None, attn_impl="gather"):
-        return make_model(cfg, qmm, attn_impl)
+        return make_model(cfg, qmm, attn_impl, qat)
 
     return ModelApi(
         cfg=cfg,
         init_params=functools.partial(init_params, cfg),
+        train_loss=train_loss,
         init_cache=init_cache,
         prefill=prefill,
         serve_step=serve_step,
@@ -325,7 +417,8 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         prefill_chunk_slot=prefill_chunk_slot,
         mixed_step=mixed_step,
         # the derived api keeps this one's attn_impl: chaining composes
-        with_qmm=lambda q: make_model(cfg, q, attn_impl),
+        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat),
         with_serving=with_serving,
         attn_impl=attn_impl,
+        qat=qat,
     )

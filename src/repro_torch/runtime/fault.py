@@ -1,0 +1,139 @@
+"""Fault tolerance of the training loop: preemption handling, a watchdog
+heartbeat and a straggler monitor.
+
+The three classes are copies of ``repro/runtime/fault.py``'s (standard
+library only); the serving engine's ``FaultInjector`` is not ported yet.
+  - PreemptionGuard: SIGTERM/SIGINT -> set a flag; the train loop checks it
+    every step and checkpoints-then-exits cleanly. Re-entry resumes from
+    LATEST.
+  - Watchdog: a step-duration heartbeat; if a step exceeds `timeout_s`, the
+    registered callback fires. ``on_timeout`` runs on the watchdog's daemon
+    thread, never on the caller's; the default callback records a
+    ``TimeoutError``, which ``heartbeat()`` / ``stop()`` re-raise on the
+    calling thread.
+  - StragglerMonitor: rolling per-step stats; steps slower than
+    `threshold x median` are flagged and recorded in ``events``.
+"""
+from __future__ import annotations
+
+import collections
+import signal
+import statistics
+import threading
+import time
+from typing import Callable, List, Optional
+
+
+class PreemptionGuard:
+    def __init__(self, signals=(signal.SIGTERM, signal.SIGINT)):
+        self._flag = threading.Event()
+        self._prev = {}
+        self._signals = signals
+
+    def __enter__(self):
+        for s in self._signals:
+            try:
+                self._prev[s] = signal.signal(s, self._handler)
+            except ValueError:   # non-main thread (tests)
+                pass
+        return self
+
+    def __exit__(self, *exc):
+        for s, h in self._prev.items():
+            signal.signal(s, h)
+        return False
+
+    def _handler(self, signum, frame):
+        self._flag.set()
+
+    @property
+    def preempted(self) -> bool:
+        return self._flag.is_set()
+
+    def trigger(self):      # for tests / manual drain
+        self._flag.set()
+
+
+class Watchdog:
+    """Fires `on_timeout` if heartbeat() isn't called within timeout_s.
+
+    ``on_timeout`` runs on the watchdog's daemon thread (see the module
+    docstring for the callback-thread contract). With the default
+    callback, a timeout is recorded and re-raised as ``TimeoutError`` from
+    the *next* ``heartbeat()`` or from ``stop()`` — i.e. on the thread
+    that owns the watched loop, where it can actually abort it.
+    """
+
+    def __init__(self, timeout_s: float,
+                 on_timeout: Optional[Callable[[], None]] = None):
+        self.timeout_s = timeout_s
+        self.on_timeout = on_timeout or self._default
+        self._last = time.monotonic()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._timeout_exc: Optional[TimeoutError] = None
+        self.fired = False
+
+    def _default(self):
+        # Runs on the watchdog thread: raising here would kill only that
+        # thread (the pre-fix bug), so record and let the caller's next
+        # heartbeat()/stop() re-raise where it can abort the loop.
+        self._timeout_exc = TimeoutError(
+            f"watchdog: step exceeded the {self.timeout_s:.1f}s heartbeat "
+            "timeout (raised at the next heartbeat on the caller's thread; "
+            "the timeout itself fired on the watchdog thread)")
+
+    def _reraise(self):
+        if self._timeout_exc is not None:
+            exc, self._timeout_exc = self._timeout_exc, None
+            raise exc
+
+    def start(self):
+        self._last = time.monotonic()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def heartbeat(self):
+        self._reraise()
+        self._last = time.monotonic()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread:
+            self._thread.join(timeout=1)
+        self._reraise()
+
+    def _run(self):
+        while not self._stop.wait(min(self.timeout_s / 4, 1.0)):
+            if time.monotonic() - self._last > self.timeout_s:
+                self.fired = True
+                try:
+                    self.on_timeout()
+                finally:
+                    return
+
+
+class StragglerMonitor:
+    def __init__(self, window: int = 50, threshold: float = 2.0):
+        self.times = collections.deque(maxlen=window)
+        self.threshold = threshold
+        self.events: List[dict] = []
+
+    def record(self, step: int, seconds: float) -> bool:
+        """Returns True if this step is a straggler."""
+        is_straggler = False
+        if len(self.times) >= 8:
+            med = statistics.median(self.times)
+            if seconds > self.threshold * med:
+                is_straggler = True
+                self.events.append({
+                    "step": step, "seconds": seconds, "median": med,
+                    "action": "flag-host-for-reschedule",
+                })
+        self.times.append(seconds)
+        return is_straggler
+
+    @property
+    def median(self) -> Optional[float]:
+        return statistics.median(self.times) if self.times else None

@@ -20,8 +20,8 @@ from repro_torch.core.formats import get_format
 from repro_torch.core.mx import MXTensor, dequantize
 from repro_torch.core.packed import (pack_int4, pack_int4_splitn, unpack_int4,
                                      unpack_int4_splitn)
-from repro_torch.core.slice_scale import slice_and_scale
 from repro_torch.core.tree import flatten_paths, unflatten_paths
+from repro_torch.kernels.ops import ss_convert
 
 
 @dataclasses.dataclass
@@ -142,7 +142,7 @@ def make_packed_params(anchor: AnchorModel, *, target_fmt: str | None = None,
 
 def _to_target(fmt_t, pack4: bool):
     def one(t: MXTensor):
-        t = slice_and_scale(t, fmt_t)
+        t = ss_convert(t, fmt_t)
         return pack_leaf_int4(t) if pack4 else t
     return one
 

@@ -1,5 +1,6 @@
 """The Hopper kernels against their plain versions, on the card: the two
-dequant-GEMM kernels (B1/B2) and the two paged-attention kernels (B3/B4).
+dequant-GEMM kernels (B1/B2), the two paged-attention kernels (B3/B4), and
+the MX quantize, fake-quant and Slice-and-Scale kernels (B6, B7, B5).
 
 Needs a CUDA device (and nvcc to build the kernels); each test decides that
 inside itself and skips on a host without one, so every pytest worker
@@ -7,8 +8,10 @@ collects the same tests. Run on a machine with a card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_kernels_gpu.py -q
 
-Tolerance: f32 accumulation in both, only the summation order differs —
-rtol 1e-4 and atol 1e-4 * max|plain|.
+Tolerance: B1–B4 accumulate in f32 in both, only the summation order
+differs — rtol 1e-4 and atol 1e-4 * max|plain|. B5–B7 do the same
+elementwise arithmetic as their plain versions: bit-identical, including
+all-zero blocks, subnormal blocks and blocks whose scale clips to -127.
 """
 import numpy as np
 import pytest
@@ -16,7 +19,9 @@ import torch
 
 from repro_torch.core.formats import get_format
 from repro_torch.core.mx import quantize
-from repro_torch.kernels import mx_matmul, paged_attention, ref
+from repro_torch.core.slice_scale import slice_and_scale
+from repro_torch.kernels import fake_quant, mx_matmul, mx_quantize, ops
+from repro_torch.kernels import paged_attention, ref, ss_convert
 from repro_torch.serve.packed_params import pack_leaf_int4
 
 pytestmark = pytest.mark.gpu
@@ -212,3 +217,146 @@ def test_layer_slice_of_stacked_pool_is_read_in_place():
         _close(paged_attention.paged_attention_mq(q, kp[g], vp[g], bt,
                                                   cl - ql, ql),
                ref.ref_paged_attention_mq(q, kp[g], vp[g], bt, cl - ql, ql))
+
+
+# ---------------------------------------------------------------------------
+# B6 / B7 / B5: quantize, fake-quant, Slice-and-Scale
+# ---------------------------------------------------------------------------
+QUANT_FORMATS = ["mxint8", "mxint6", "mxint4", "mxint2", "mxfp8", "mxfp6",
+                 "mxfp4"]
+SS_PAIRS = [("mxint8", "mxint6"), ("mxint8", "mxint4"), ("mxint8", "mxint2"),
+            ("mxint6", "mxint3"), ("mxfp8", "mxfp6"), ("mxfp8", "mxfp4"),
+            ("mxfp6", "mxfp5")]
+# (shape, block axis): a weight blocked along K, blocks along the last
+# axis, a stacked (G, K, N) leaf, a ragged inner width
+QUANT_CASES = [((256, 96), 0), ((40, 128), -1), ((3, 128, 80), 1),
+               ((64, 7), 0)]
+
+
+def edge_values(shape, axis, bs, seed=0):
+    """Normal weights (std 0.02), and along the block axis: an all-zero
+    block, a subnormal block, a block with max in [2^-126, 2^-120) (its
+    scale clips to -127 at 8 bits), signed zeros and a block of exact
+    powers of two and halfway values (round half to even)."""
+    rng = np.random.default_rng(seed)
+    moved = list(shape)
+    k = moved.pop(axis % len(shape))
+    flat = (rng.normal(size=(int(np.prod(moved)), k)) * 0.02).astype(
+        np.float32)
+    tiny = np.float32(2.0 ** -123)
+    flat[0, :bs] = 0.0
+    flat[1, :bs] = (rng.normal(size=bs) * 1e-40).astype(np.float32)
+    flat[2, :bs] = (rng.uniform(-1, 1, size=bs) * tiny).astype(np.float32)
+    flat[2, 0] = 2.0 ** -121
+    flat[3, :bs // 2] = -0.0
+    flat[4, :bs] = (2.0 ** rng.integers(-8, 2, size=bs)
+                    * rng.choice([1.0, 1.5, 1.25, 2.5, 3.5], size=bs)
+                    ).astype(np.float32)
+    out = flat.reshape(*moved, k)
+    return np.ascontiguousarray(np.moveaxis(out, -1, axis))
+
+
+def _values(shape, axis, bs, dtype, dev, seed=0):
+    return torch.from_numpy(edge_values(shape, axis, bs, seed)).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", QUANT_CASES)
+@pytest.mark.parametrize("bs", [32, 16, 64])
+@pytest.mark.parametrize("name", QUANT_FORMATS)
+def test_mx_quantize_bit_identical_with_plain(name, bs, shape, axis, dtype):
+    dev = _card()
+    if shape[axis] % bs:
+        pytest.skip("block axis not a multiple of the block size")
+    v = _values(shape, axis, bs, dtype, dev)
+    fmt = get_format(name, bs)
+    before = mx_quantize.launches["mx_quantize"]
+    got = ops.mx_quantize(v, fmt, axis=axis)
+    torch.cuda.synchronize()
+    assert mx_quantize.launches["mx_quantize"] == before + 1
+    want = quantize(v, fmt, axis=axis)
+    assert torch.equal(got.codes, want.codes)
+    assert torch.equal(got.scale_exp, want.scale_exp)
+    assert got.block_axis == want.block_axis
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("ste", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", QUANT_CASES)
+@pytest.mark.parametrize("name", QUANT_FORMATS)
+def test_fake_quant_bit_identical_with_plain(name, shape, axis, dtype, ste,
+                                             out_dtype):
+    dev = _card()
+    v = _values(shape, axis, 32, dtype, dev, seed=1)
+    fmt = get_format(name, 32)
+    before = fake_quant.launches["fake_quant"]
+    got = ops.fake_quant(v, fmt, axis, out_dtype=out_dtype, ste=ste)
+    torch.cuda.synchronize()
+    assert fake_quant.launches["fake_quant"] == before + 1
+    want = ops.fake_quant_plain(v, fmt, axis, out_dtype=out_dtype, ste=ste)
+    assert got.dtype == want.dtype
+    assert torch.equal(got.view(torch.int16 if got.dtype == torch.bfloat16
+                                else torch.int32),
+                       want.view(torch.int16 if want.dtype == torch.bfloat16
+                                 else torch.int32))
+
+
+@pytest.mark.parametrize("shape,axis", QUANT_CASES)
+@pytest.mark.parametrize("high,low", SS_PAIRS)
+def test_ss_convert_bit_identical_with_plain(high, low, shape, axis):
+    dev = _card()
+    v = _values(shape, axis, 32, torch.float32, dev, seed=2)
+    t = quantize(v, get_format(high, 32), axis=axis)
+    before = ss_convert.launches["ss_convert"]
+    got = ops.ss_convert(t, get_format(low, 32))
+    torch.cuda.synchronize()
+    assert ss_convert.launches["ss_convert"] == before + 1
+    want = slice_and_scale(t, get_format(low, 32))
+    assert torch.equal(got.codes, want.codes)
+    assert torch.equal(got.scale_exp, want.scale_exp)
+
+
+def test_ss_convert_reads_a_layer_slice_in_place():
+    dev = _card()
+    v = _values((3, 128, 80), 1, 32, torch.float32, dev, seed=3)
+    t = quantize(v, get_format("mxint8", 32), axis=1)
+    low = get_format("mxint4", 32)
+    for g in range(3):
+        part = type(t)(codes=t.codes[g], scale_exp=t.scale_exp[g], fmt=t.fmt,
+                       block_axis=0)
+        got, want = ops.ss_convert(part, low), slice_and_scale(part, low)
+        assert torch.equal(got.codes, want.codes)
+        assert torch.equal(got.scale_exp, want.scale_exp)
+
+
+def test_same_format_launches_nothing():
+    dev = _card()
+    t = quantize(_values((64, 32), 0, 32, torch.float32, dev),
+                 get_format("mxint8", 32), axis=0)
+    before = ss_convert.launches["ss_convert"]
+    assert ops.ss_convert(t, get_format("mxint8", 32)) is t
+    assert ss_convert.launches["ss_convert"] == before
+
+
+def test_kernels_refuse_what_they_do_not_take():
+    """A CUDA tensor the kernels do not take raises; it never falls back to
+    the plain version."""
+    dev = _card()
+    fmt = get_format("mxint8", 32)
+    v = _values((64, 32), 0, 32, torch.float32, dev)
+    with pytest.raises(ValueError):
+        ops.mx_quantize(v.to(torch.float16), fmt, axis=0)
+    with pytest.raises(ValueError):
+        ops.fake_quant(v.t(), fmt, axis=1)              # not contiguous
+    with pytest.raises(ValueError):
+        ops.fake_quant(v, get_format("mxint8", 48), axis=1)
+    with pytest.raises(ValueError):
+        ops.fake_quant(v, fmt, axis=0, out_dtype=torch.float16)
+    t = quantize(v, fmt, axis=0)
+    bad = type(t)(codes=t.codes.to(torch.uint8), scale_exp=t.scale_exp,
+                  fmt=fmt, block_axis=0)
+    with pytest.raises(ValueError):
+        ops.ss_convert(bad, get_format("mxint4", 32))
+    with pytest.raises(ValueError):
+        ops.ss_convert(t, get_format("mxfp4", 32))
