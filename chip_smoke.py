@@ -21,10 +21,13 @@ Phases (any failure exits non-zero before the result line):
   4. paged-attention kernels at qwen3-4b attention shapes (H 32, Hkv 8,
      D 128, page 16, bf16 pools of 129 pages, 4 slots, random page
      permutations): paged_attention (B3) at decode lengths, ragged lengths,
-     a window and a zero-length row, paged_attention_mq (B4) at a mixed
-     tick; each held against its plain version (same tolerance), NaN in
-     every dead page leaving the output bit-identical, B4 at q_len 1
-     agreeing with B3; timed beside the plain version, the HBM bound and
+     a window, a zero-length row and a long context (cache_len 4096 x 4 on
+     its own pool of 1025 pages), paged_attention_mq (B4) at a mixed tick;
+     each case's split plan logged (splits, blocks, blocks with pages);
+     each held against its plain version (same tolerance), NaN in every
+     dead page leaving the output bit-identical, a repeated call, eagerly
+     and replayed from a CUDA graph, bit-identical, B4 at q_len 1 agreeing
+     with B3; timed beside the plain version, the HBM bound and
      scaled_dot_product_attention on a contiguous copy of the live K/V
      (timing only, not called by the port);
   5. quantize / fake-quant / Slice-and-Scale kernels: mx_quantize (B6) to
@@ -262,17 +265,19 @@ def phase_kernels(seed: int):
     return agg
 
 
-def _paged_inputs(gen, spans, c: int):
-    """q (4, c, H, D), bf16 pools (129, 16, Hkv, D) and a block table of
-    random pages covering spans[i] tokens per row (page 0 is scratch)."""
+def _paged_inputs(gen, spans, c: int, pool_pages: int = POOL_PAGES,
+                  max_len: int = MAX_LEN):
+    """q (4, c, H, D), bf16 pools (pool_pages, 16, Hkv, D) and a block table
+    (4, max_len / 16) of random pages covering spans[i] tokens per row
+    (page 0 is scratch)."""
     import torch
     dev = torch.device("cuda")
-    mp = MAX_LEN // PAGE
+    mp = max_len // PAGE
     q = torch.randn((len(spans), c, ATTN_H, ATTN_D), generator=gen,
                     device=dev).to(torch.bfloat16)
-    kp, vp = (torch.randn((POOL_PAGES, PAGE, ATTN_HKV, ATTN_D), generator=gen,
+    kp, vp = (torch.randn((pool_pages, PAGE, ATTN_HKV, ATTN_D), generator=gen,
                           device=dev).to(torch.bfloat16) for _ in range(2))
-    perm = torch.randperm(POOL_PAGES - 1, generator=gen, device=dev) + 1
+    perm = torch.randperm(pool_pages - 1, generator=gen, device=dev) + 1
     bt = torch.zeros((len(spans), mp), dtype=torch.int32, device=dev)
     for i, n in enumerate(spans):
         k = -(-n // PAGE)
@@ -310,6 +315,49 @@ def _sdpa_ms(q, length: int):
         qt, k, v, enable_gqa=True), 50)
 
 
+def _log_plan(pa, case, q, bt, rows, window):
+    """The split plan of one case: its splits, its blocks and how many of
+    them have pages to read. ``rows`` are (q_offset, q_len) per slot, B3's
+    (cache_len - 1, 1)."""
+    c = q.shape[1] if q.ndim == 4 else 1
+    mp = bt.shape[1]
+    plan = pa.split_plan(q.shape[0], c, ATTN_H, ATTN_HKV, ATTN_D, PAGE, mp,
+                         q.element_size())
+    live = 0
+    for qo, ql in rows:
+        for qb in range(plan.nq):
+            w = pa.walk(qo, ql, qb, plan.tq, c, PAGE, mp, window)
+            if w is not None:
+                rows_qb = pa.live_lanes(ql, qb, plan.tq, c) * (ATTN_H
+                                                              // ATTN_HKV)
+                live += sum(len(pa.split_pages(plan, *w, s, rows_qb)) > 0
+                            for s in range(plan.splits))
+    grid = plan.grid
+    log(f"  {case}: {plan.splits} splits of {plan.pages_per_split} pages "
+        f"({plan.tiles_per_split} tile(s), {plan.stages} stage(s)); grid "
+        f"{grid} = {grid[0] * grid[1] * grid[2]} blocks, "
+        f"{live * ATTN_HKV} with pages to read")
+
+
+def _bit_stable(fn, first) -> bool:
+    """``fn()`` again, then captured in a CUDA graph and replayed twice:
+    all bit-identical with ``first``."""
+    import torch
+    again = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    once = captured.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    ok = torch.equal(again, first) and torch.equal(once, first) \
+        and torch.equal(captured, first)
+    del graph
+    return ok
+
+
 def phase_paged_kernels(seed: int):
     """B3/B4 checks and times at qwen3-4b attention shapes; returns the
     record of the decode case (B3) and the mixed-tick case (B4)."""
@@ -321,7 +369,8 @@ def phase_paged_kernels(seed: int):
     kv_token = 2 * ATTN_HKV * ATTN_D * 2          # K + V bytes, bf16
     out = {}
     log("paged-attention phase: H 32, Hkv 8, D 128, page 16, bf16 pools of "
-        "129 pages, 4 slots; device ms per call (CUDA graph, CUDA events)")
+        "129 pages (1025 at cache_len 4096), 4 slots; device ms per call "
+        "(CUDA graph, CUDA events)")
     log(f"{'kernel':20s}{'case':26s}{'max_err':>10s}{'ms':>9s}{'plain':>9s}"
         f"{'sdpa':>9s}{'bound':>9s} by")
 
@@ -341,16 +390,21 @@ def phase_paged_kernels(seed: int):
                     bound_ms=max(t_bytes, t_ops), bound_by=by,
                     timed_as=f"{case}, qwen3-4b attention, one layer")
 
-    # ---- B3: decode lengths, ragged lengths, a window, a zero-length row
-    for case, spans, window in (("cache_len 200 x4", [200] * 4, None),
-                                ("ragged 1/16/17/511", [1, 16, 17, 511],
-                                 None),
-                                ("window 100, len 200", [200] * 4, 100),
-                                ("with cache_len 0", [0, 200, 37, 511],
-                                 None)):
-        q, kp, vp, bt = _paged_inputs(gen, spans, 1)
+    # ---- B3: decode lengths, ragged lengths, a window, a zero-length row,
+    # and a long context on its own pool of 1025 pages (34 MB per pool)
+    for case, spans, window, pool_pages, max_len in (
+            ("cache_len 200 x4", [200] * 4, None, POOL_PAGES, MAX_LEN),
+            ("ragged 1/16/17/511", [1, 16, 17, 511], None, POOL_PAGES,
+             MAX_LEN),
+            ("window 100, len 200", [200] * 4, 100, POOL_PAGES, MAX_LEN),
+            ("with cache_len 0", [0, 200, 37, 511], None, POOL_PAGES,
+             MAX_LEN),
+            ("cache_len 4096 x4", [4096] * 4, None, 4 * 4096 // PAGE + 1,
+             4096)):
+        q, kp, vp, bt = _paged_inputs(gen, spans, 1, pool_pages, max_len)
         q = q[:, 0].contiguous()
         cl = torch.tensor(spans, dtype=torch.int32, device="cuda")
+        _log_plan(pa, case, q, bt, [(n - 1, 1) for n in spans], window)
         got = pa.paged_attention(q, kp, vp, bt, cl, window)
         want = ref.ref_paged_attention(q, kp, vp, bt, cl, window)
         kp_p, vp_p = _poison_dead(kp, vp, bt, spans)
@@ -359,6 +413,10 @@ def phase_paged_kernels(seed: int):
         if not torch.equal(got, dirty):
             fail(f"paged_attention [{case}]: NaN in dead pages changed the "
                  "output")
+        if not _bit_stable(lambda: pa.paged_attention(q, kp, vp, bt, cl,
+                                                      window), got):
+            fail(f"paged_attention [{case}]: a repeated call (eager or in "
+                 "a CUDA graph) is not bit-identical")
         if 0 in spans and not (got[spans.index(0)] == 0).all():
             fail("paged_attention: a cache_len 0 row is not exact zeros")
         live = sum(min(n, window or n) for n in spans)
@@ -371,6 +429,7 @@ def phase_paged_kernels(seed: int):
                      lib_ms, live * kv_token + q.numel() * 2 + got.numel() * 4,
                      4 * ATTN_H * ATTN_D * live)
         out.setdefault("paged_attention", rec)
+        del kp, vp, kp_p, vp_p
 
     # ---- B4: a mixed tick — 3 decode rows and a 64-token chunk at 128
     rows = [(200, 1), (150, 1), (17, 1), (128, CHUNK)]
@@ -378,6 +437,7 @@ def phase_paged_kernels(seed: int):
     q, kp, vp, bt = _paged_inputs(gen, spans, CHUNK)
     qo = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
     ql = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    _log_plan(pa, "mixed tick 3x1 + 64 at 128", q, bt, rows, None)
     got = pa.paged_attention_mq(q, kp, vp, bt, qo, ql)
     want = ref.ref_paged_attention_mq(q, kp, vp, bt, qo, ql)
     kp_p, vp_p = _poison_dead(kp, vp, bt, spans)
@@ -388,6 +448,10 @@ def phase_paged_kernels(seed: int):
     torch.cuda.synchronize()
     if not torch.equal(got, dirty):
         fail("paged_attention_mq: NaN in dead pages changed the output")
+    if not _bit_stable(lambda: pa.paged_attention_mq(q, kp, vp, bt, qo, ql),
+                       got):
+        fail("paged_attention_mq: a repeated call (eager or in a CUDA "
+             "graph) is not bit-identical")
     if any(not (got[i, n:] == 0).all() for i, (_, n) in enumerate(rows)):
         fail("paged_attention_mq: a dead lane is not exact zeros")
     c_scale = float(single.abs().max())

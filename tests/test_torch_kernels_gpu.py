@@ -201,6 +201,85 @@ def test_paged_attention_mq_with_q_len_one_collapses_to_b3():
     assert (mq[:, 1:] == 0).all()
 
 
+def _identical_eager_and_in_a_graph(fn):
+    """fn() twice eagerly, then captured in a CUDA graph and replayed twice:
+    every output bit-identical with the first (the splits merge in a fixed
+    order and the ticket counters are back at zero after every launch)."""
+    first, second = fn(), fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    once = captured.clone()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(once, first) and torch.equal(captured, first)
+
+
+@pytest.mark.parametrize("window", [None, 70, 1000])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_long_context_many_splits(dtype, window):
+    """cache_len up to 4096 over 257-page table rows: many splits per
+    (slot, kv head), two tiles per split; a window of 70 starts inside a
+    split, one of 1000 leaves whole splits empty."""
+    dev = _card()
+    spans = [4096, 3001, 17, 4000]
+    q, kp, vp, bt = _paged_case(dev, spans, 16, 8, 4, 128, dtype=dtype,
+                                seed=4)
+    plan = paged_attention.split_plan(4, 1, 32, 8, 128, 16, bt.shape[1],
+                                      q.element_size())
+    assert bt.shape[1] >= 256 and plan.splits > 8
+    q1 = q[:, 0].contiguous()
+    cl = torch.tensor(spans, dtype=torch.int32, device=dev)
+    got = paged_attention.paged_attention(q1, kp[0], vp[0], bt, cl, window)
+    _close(got, ref.ref_paged_attention(q1, kp[0], vp[0], bt, cl, window))
+    kp_p, vp_p = _poisoned(kp[0], vp[0], bt.cpu().numpy(), spans, 16)
+    assert torch.equal(got, paged_attention.paged_attention(
+        q1, kp_p, vp_p, bt, cl, window))
+    assert torch.equal(got, paged_attention.paged_attention(
+        q1, kp[0], vp[0], bt, cl, window))
+
+
+@pytest.mark.parametrize("window", [None, 100])
+@pytest.mark.parametrize("cursor", [0, 448])
+def test_paged_attention_mq_chunk_at_cursor(cursor, window):
+    """A 64-token chunk at cursor 0 and at 448 beside decode rows."""
+    dev = _card()
+    rows = [(cursor, 64), (200, 1), (17, 1), (511, 1)]
+    spans = [qo + ql for qo, ql in rows]
+    q, kp, vp, bt = _paged_case(dev, spans, 16, 8, 4, 128, c=64, seed=5)
+    qo = torch.tensor([r[0] for r in rows], dtype=torch.int32, device=dev)
+    ql = torch.tensor([r[1] for r in rows], dtype=torch.int32, device=dev)
+    got = paged_attention.paged_attention_mq(q, kp[0], vp[0], bt, qo, ql,
+                                             window)
+    _close(got, ref.ref_paged_attention_mq(q, kp[0], vp[0], bt, qo, ql,
+                                           window))
+    kp_p, vp_p = _poisoned(kp[0], vp[0], bt.cpu().numpy(), spans, 16)
+    assert torch.equal(got, paged_attention.paged_attention_mq(
+        q, kp_p, vp_p, bt, qo, ql, window))
+    for i, (_, n) in enumerate(rows):
+        assert (got[i, n:] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernels_bit_identical_eager_and_in_a_cuda_graph(dtype):
+    dev = _card()
+    spans = [1000, 700, 33, 0]
+    q, kp, vp, bt = _paged_case(dev, spans, 16, 8, 4, 128, c=64,
+                                dtype=dtype, seed=6)
+    cl = torch.tensor(spans, dtype=torch.int32, device=dev)
+    q1 = q[:, 0].contiguous()
+    _identical_eager_and_in_a_graph(lambda: paged_attention.paged_attention(
+        q1, kp[0], vp[0], bt, cl, 300))
+    qo = torch.tensor([936, 699, 32, 0], dtype=torch.int32, device=dev)
+    ql = torch.tensor([64, 1, 1, 0], dtype=torch.int32, device=dev)
+    _identical_eager_and_in_a_graph(
+        lambda: paged_attention.paged_attention_mq(q, kp[0], vp[0], bt, qo,
+                                                   ql))
+
+
 def test_layer_slice_of_stacked_pool_is_read_in_place():
     """A layer's pool is the view pool[g] of the stacked (G, P, ps, Hkv, D)
     tensor; the kernels read it at its data pointer."""
@@ -360,3 +439,23 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.ss_convert(bad, get_format("mxint4", 32))
     with pytest.raises(ValueError):
         ops.ss_convert(t, get_format("mxfp4", 32))
+
+
+def test_paged_kernels_refuse_what_they_do_not_take():
+    """Shapes outside the kernel's plan raise ValueError on the card; they
+    never fall back to the plain version."""
+    dev = _card()
+    bt = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    cl = torch.tensor([3, 5], dtype=torch.int32, device=dev)
+    for (h, hkv, d, ps) in ((8, 2, 48, 16),       # D not a power of two
+                            (8, 2, 64, 128),      # pages over 64 keys
+                            (128, 1, 64, 16)):    # 128 heads per kv head
+        q = torch.zeros((2, h, d), dtype=torch.bfloat16, device=dev)
+        kp = torch.zeros((5, ps, hkv, d), dtype=torch.bfloat16, device=dev)
+        before = dict(paged_attention.launches)
+        with pytest.raises(ValueError):
+            paged_attention.paged_attention(q, kp, kp, bt, cl)
+        with pytest.raises(ValueError):
+            paged_attention.paged_attention_mq(q[:, None], kp, kp, bt, cl,
+                                               torch.ones_like(cl))
+        assert paged_attention.launches == before

@@ -259,3 +259,138 @@ def test_plain_versions_are_the_cpu_path():
     args = _t(q, kp, vp, bt, cl)
     assert torch.equal(pa.paged_attention(*args),
                        ref.ref_paged_attention(*args))
+
+
+# ---------------------------------------------------------------------------
+# The split plan: how the kernel cuts each walk across blocks, from shapes
+# ---------------------------------------------------------------------------
+def _covered(plan, first, last, rows):
+    """The pages the plan's splits read of walk [first, last] for a q block
+    of ``rows`` live rows, in split order. Each split stays inside its own
+    run of pages, except that a folded walk (more than FOLD_ROWS rows over
+    at most FOLD_TILES tiles) is read whole by the split of its first
+    page."""
+    pages = []
+    pps = plan.pages_per_split
+    fold = rows > pa.FOLD_ROWS \
+        and last - first < pa.FOLD_TILES * plan.tile_pages
+    for s in range(plan.splits):
+        part = list(pa.split_pages(plan, first, last, s, rows))
+        if fold:
+            assert not part or s == first // pps
+        else:
+            assert all(s * pps <= p < (s + 1) * pps for p in part)
+        pages += part
+    return pages
+
+
+@pytest.mark.parametrize("mp", [32, 256])
+@pytest.mark.parametrize("window", [None, 10, 64])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_split_plan_covers_the_b3_walk_exactly_once(ps, window, mp):
+    """Every page of the clamped walk is read by exactly one split, no split
+    reads outside it, and the walk is what pages_read (and JAX) count."""
+    plan = pa.split_plan(4, 1, 32, 8, 128, ps, mp)
+    assert plan.tq == 1 and plan.nq == 1
+    for n in range(512):
+        first, last = pa.walk(n - 1, 1, 0, plan.tq, 1, ps, mp, window)
+        assert _covered(plan, first, last, 4) == list(range(first,
+                                                           last + 1))
+        if n <= mp * ps:
+            assert last - first + 1 == pa.pages_read(n, ps, window) \
+                == jpa.pages_read(n, ps, window)
+        else:                              # longer than the table holds
+            assert last == mp - 1
+
+
+@pytest.mark.parametrize("q_len", [1, 3, 16, 64])
+@pytest.mark.parametrize("mp", [32, 256])
+@pytest.mark.parametrize("window", [None, 10, 64])
+@pytest.mark.parametrize("ps", [8, 16])
+def test_split_plan_covers_the_b4_walks_exactly_once(ps, window, mp, q_len):
+    """For every q block of a 64-lane chunk at every cursor, the splits read
+    each page of that block's walk once; the q blocks' walks together are
+    the row's pages_read_mq (and JAX's), and a block with no live lane
+    reads nothing."""
+    c = 64
+    plan = pa.split_plan(4, c, 32, 8, 128, ps, mp)
+    for qo in range(512):
+        union = set()
+        for qb in range(plan.nq):
+            w = pa.walk(qo, q_len, qb, plan.tq, c, ps, mp, window)
+            if w is None:
+                assert qb * plan.tq >= q_len
+                continue
+            first, last = w
+            rows = 4 * pa.live_lanes(q_len, qb, plan.tq, c)
+            assert _covered(plan, first, last, rows) == list(range(first,
+                                                                  last + 1))
+            union.update(range(first, last + 1))
+        if qo + q_len <= mp * ps:
+            want = pa.pages_read_mq(qo, q_len, ps, window)
+            assert want == jpa.pages_read_mq(qo, q_len, ps, window)
+            assert len(union) == want
+            assert union == set(range(min(union), max(union) + 1))
+        else:
+            assert max(union) == mp - 1
+
+
+@pytest.mark.parametrize("b,c,h,hkv,d,ps,mp,itemsize", [
+    (4, 1, 32, 8, 128, 16, 32, 2),          # qwen3-4b decode (B3)
+    (4, 64, 32, 8, 128, 16, 32, 2),         # qwen3-4b mixed tick (B4)
+    (4, 1, 32, 8, 128, 16, 257, 2),         # long context: many splits
+    (4, 64, 9, 3, 64, 16, 32, 2),           # smollm-135m, G = 3
+    (3, 40, 32, 4, 64, 16, 4, 4),           # f32, G = 8, one split
+    (2, 8, 64, 1, 256, 8, 300, 4),          # f32 at D 256: one stage
+])
+def test_split_plan_sizes_match_the_launch(b, c, h, hkv, d, ps, mp,
+                                           itemsize):
+    """The grid covers every (slot, kv head, q block) and split, the
+    splits cover the table, and the buffers the wrapper allocates hold
+    every partial the kernel can write."""
+    plan = pa.split_plan(b, c, h, hkv, d, ps, mp, itemsize)
+    g = h // hkv
+    assert plan.grid == (plan.splits, hkv, b * plan.nq)
+    assert plan.groups == b * hkv * plan.nq
+    assert plan.rows == plan.tq * g <= pa.ROWS
+    assert plan.tq * (plan.nq - 1) < c <= plan.tq * plan.nq
+    assert plan.tile_pages * ps <= pa.TILE_KEYS
+    pps = plan.pages_per_split
+    assert (plan.splits - 1) * pps < mp <= plan.splits * pps
+    assert plan.smem_bytes <= pa.MAX_SMEM
+    # two tiles in flight wherever a block may walk more than one: a split
+    # of several tiles, or a folded walk of a q block of many rows
+    multi = plan.tiles_per_split > 1 or plan.rows > pa.FOLD_ROWS
+    assert plan.stages == (2 if multi
+                           and pa._smem(d, itemsize, 2) <= pa.MAX_SMEM
+                           else 1)
+    assert plan.splits <= pa.MAX_SPLITS
+    # the warps' merge reuses q and one stage: 64 rows x (D + 8) f32 and
+    # 3 x 64
+    ld = d + 16 // itemsize
+    assert 4 * (pa.ROWS * (d + 8) + 3 * pa.ROWS) \
+        <= itemsize * (pa.ROWS + 2 * pa.TILE_KEYS) * ld
+    acc, ml, tickets = pa.launch_buffers(plan, torch.device("cpu"))
+    assert acc.dtype == ml.dtype == torch.float32
+    assert tickets.dtype == torch.int32 and (tickets == 0).all()
+    assert tickets.numel() >= plan.groups
+    if plan.splits == 1:                    # blocks write the output
+        assert acc.numel() == ml.numel() == 0
+    else:                                   # the last index each can take
+        last = plan.groups * plan.splits - 1
+        assert acc.numel() == (last * plan.rows + plan.rows - 1) * d + d
+        assert ml.numel() == (2 * last + 1) * plan.rows + plan.rows
+
+
+def test_split_plan_refuses_what_the_kernel_does_not_take():
+    for d in (24, 48, 96, 512):
+        with pytest.raises(ValueError, match="power of two"):
+            pa.split_plan(2, 1, 8, 2, d, 16, 8)
+    with pytest.raises(ValueError, match="page sizes"):
+        pa.split_plan(2, 1, 8, 2, 64, 128, 8)
+    with pytest.raises(ValueError, match="query rows a block holds"):
+        pa.split_plan(2, 1, 128, 1, 64, 16, 8)
+    with pytest.raises(ValueError, match="block table needs a column"):
+        pa.split_plan(2, 1, 8, 2, 64, 16, 0)
+    with pytest.raises(ValueError, match="fewer than 2"):
+        pa.split_plan(2, 1, 8, 2, 64, 16, 1 << 16)
