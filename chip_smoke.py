@@ -3,6 +3,11 @@
 check them.
 
     python3 chip_smoke.py [--layers N] [--seed S]
+    python3 chip_smoke.py --kernels-only [--src DIR]
+
+``--kernels-only`` runs phases 1-3 and stops (no result line): with
+``--src`` naming another tree's ``src``, the same measurement of that
+tree's kernels, for an A/B of two trees in one call on one card.
 
 Phases (any failure exits non-zero before the result line):
   1. the card: name, power limit, device count; TF32 off for matmuls and
@@ -11,13 +16,15 @@ Phases (any failure exits non-zero before the result line):
      nvcc for sm_90a into one library, one nvcc per source started
      together, and print the ptxas register / shared-memory / spill lines;
   3. dequant-GEMM kernels: at every qwen3-4b projection shape, at M = 4
-     (decode) and M = 64 (a prefill bucket), hold mx_matmul (mxint8, mxfp8)
-     and mx_matmul_int4 (mxint4) against their plain PyTorch versions on
-     the same card tensors (rtol 1e-4, atol 1e-4 * max|plain|: both
-     accumulate in f32, only the summation order differs), and time the
-     kernel, the plain version and torch.matmul of x by the pre-densified
-     bf16 weight (the nearest library call; it streams 2x / 4x the weight
-     bytes);
+     (decode) and 16 (the decode body), 64 (a prefill bucket) and 256 (the
+     mixed tick; the tiled body), hold mx_matmul (mxint8, mxfp8) and
+     mx_matmul_int4 (mxint4) against their plain PyTorch versions on the
+     same card tensors (rtol 1e-4, atol 1e-4 * max|plain|: both accumulate
+     in f32, only the summation order differs), hold a repeated call and
+     two CUDA-graph replays bit-identical at M = 4, and time the kernel,
+     the plain version and torch.matmul of x by the pre-densified bf16
+     weight (the nearest library call; it streams 2x / 4x the weight
+     bytes), one layer's sum per M;
   4. paged-attention kernels at qwen3-4b attention shapes (H 32, Hkv 8,
      D 128, page 16, bf16 pools of 129 pages, 4 slots, random page
      permutations): paged_attention (B3) at decode lengths, ragged lengths,
@@ -54,10 +61,15 @@ Phases (any failure exits non-zero before the result line):
      served at each format (B1 / B2);
   8. dense serving: qwen3-4b at full width (random weights from a seeded
      generator) -> MXINT8 anchor (B6) -> save_anchor / load_anchor ->
-     ElasticEngine(batch_slots=4, max_len=512) serves 8 greedy requests at
-     mxint8 and at mxint4 (B5 builds it) through the kernels, with launch
-     counts read off the kernel wrappers, and the same requests through
-     the densify contract as the reference;
+     ElasticEngine(batch_slots=4, max_len=512), logit guard on, serves 8
+     greedy requests at mxint8 and at mxint4 (B5 builds it) through the
+     kernels, with launch counts read off the kernel wrappers, no fault
+     detected, and the same requests through the densify contract as the
+     reference; one decode step replayed as a CUDA graph; then a short
+     wave at mxint4 with NaN logits planted at scheduler tick 2 while the
+     batch runs at mxint4 (FaultInjector): every request completes after
+     exactly one escalation, mxint4 -> mxint6, with the tokens before the
+     fault equal to the clean wave's;
   9. paged serving, always at all 36 layers: ElasticEngine(kv_layout=
      "paged", kv_page_size=16, prefill_chunk=64) — the mixed scheduler,
      every attention read through B3/B4 — serves the same 8 requests at
@@ -84,6 +96,8 @@ F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 PROJ_SHAPES = {(2560, 4096): 1, (2560, 1024): 2, (4096, 2560): 1,
                (2560, 9728): 2, (9728, 2560): 1}
 PROJ_PER_LAYER = sum(PROJ_SHAPES.values())          # 7
+KERNEL_MS = (4, 16, 64, 256)    # decode, the decode body's largest M, a
+#                                 prefill bucket, the mixed tick's 4 x 64
 KERNEL_CASES = (("mx_matmul", "mxint8"), ("mx_matmul", "mxfp8"),
                 ("mx_matmul_int4", "mxint4"))
 TPU_KERNEL = {
@@ -183,8 +197,11 @@ def phase_build():
 
 
 def phase_kernels(seed: int):
-    """Per-shape checks and times; returns the per-kernel aggregates for
-    one layer's seven projections at decode (M = 4)."""
+    """Per-shape checks and times at M = 4, 16 (the decode body), 64 and
+    256 (the tiled body; 256 is the mixed tick's M); a repeated call and
+    two CUDA-graph replays bit-identical at M = 4. Returns the per-kernel
+    aggregates over one layer's seven projections, at M = 4 in the top
+    level and per M under "by_m"."""
     import torch
     from repro_torch.core.formats import get_format
     from repro_torch.core.mx import dequantize, quantize
@@ -194,6 +211,7 @@ def phase_kernels(seed: int):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     agg = {}
+    plan = getattr(mx_matmul, "decode_plan", None)
     log("kernel phase: device ms per call (CUDA graph of many calls, timed "
         "with CUDA events), rotating over weight copies > 50 MB L2")
     log(f"{'kernel':16s}{'fmt':8s}{'M':>4s}{'K':>6s}{'N':>6s}{'max_err':>11s}"
@@ -210,13 +228,18 @@ def phase_kernels(seed: int):
                 codes = t.codes
                 kern, plain = mx_matmul.mx_matmul, ref.ref_mx_matmul
             scales = t.scale_exp
+            if plan is not None:
+                p = plan(4, k, n, 32, name == "mx_matmul_int4")
+                log(f"  {name}[{fname}] K={k} N={n}: decode plan strip "
+                    f"{p.strip} B, cluster {p.cluster}, {p.blocks} blocks "
+                    "at M <= 4")
             wbytes = codes.numel() + scales.numel()
             n_copy = max(1, min(64, math.ceil(128e6 / wbytes)))
             copies = [(codes.clone(), scales.clone()) for _ in range(n_copy)]
             w_bf16 = dequantize(t, torch.bfloat16)
             n_dense = max(1, min(16, math.ceil(128e6 / (2 * k * n))))
             dense = [w_bf16.clone() for _ in range(n_dense)]
-            for m in (4, 64):
+            for m in KERNEL_MS:
                 x = (torch.randn((m, k), generator=gen, device=dev)
                      ).to(torch.bfloat16)
                 got = kern(x, codes, scales, t.fmt)
@@ -228,6 +251,11 @@ def phase_kernels(seed: int):
                                       atol=1e-4 * scale):
                     fail(f"{name}[{fname}] M={m} K={k} N={n}: max abs err "
                          f"{err:.3g} vs max|plain| {scale:.3g}")
+                if m == 4 and not _bit_stable(
+                        lambda: kern(x, codes, scales, t.fmt), got):
+                    fail(f"{name}[{fname}] M={m} K={k} N={n}: a repeated "
+                         "call (eager or in a CUDA graph) is not "
+                         "bit-identical")
                 ms = cuda_time_ms(lambda i: kern(
                     x, copies[i % n_copy][0], copies[i % n_copy][1], t.fmt),
                     50)
@@ -243,25 +271,27 @@ def phase_kernels(seed: int):
                 log(f"{name:16s}{fname:8s}{m:4d}{k:6d}{n:6d}{err:11.3g}"
                     f"{ms:9.4f}{plain_ms:9.4f}{lib_ms:11.4f}{bound:9.4f} {by}")
                 a = agg.setdefault((name, fname), dict(
-                    max_abs_err=0.0, max_err=0.0, ms=0.0, plain_ms=0.0,
-                    library_ms=0.0, bound_ms=0.0, t_bytes=0.0, t_ops=0.0))
+                    max_abs_err=0.0, max_err=0.0, by_m={}))
                 a["max_abs_err"] = max(a["max_abs_err"], err)
                 a["max_err"] = max(a["max_err"], err / scale)
-                if m == 4:
-                    mult = PROJ_SHAPES[(k, n)]
-                    for key, val in (("ms", ms), ("plain_ms", plain_ms),
-                                     ("library_ms", lib_ms),
-                                     ("bound_ms", bound),
-                                     ("t_bytes", t_bytes),
-                                     ("t_ops", t_ops)):
-                        a[key] += mult * val
+                per = a["by_m"].setdefault(m, dict(
+                    ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                    t_bytes=0.0, t_ops=0.0))
+                mult = PROJ_SHAPES[(k, n)]
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms), ("bound_ms", bound),
+                                 ("t_bytes", t_bytes), ("t_ops", t_ops)):
+                    per[key] += mult * val
             del copies, dense
             torch.cuda.empty_cache()
     for (name, fname), a in agg.items():
-        log(f"one layer's {PROJ_PER_LAYER} projections at M=4, "
-            f"{name}[{fname}]: {a['ms']:.4f} ms (bound {a['bound_ms']:.4f} "
-            f"ms, {100 * a['bound_ms'] / a['ms']:.1f}% of it; plain "
-            f"{a['plain_ms']:.4f} ms; torch bf16 {a['library_ms']:.4f} ms)")
+        a.update(a["by_m"][4])
+        for m, per in sorted(a["by_m"].items()):
+            log(f"one layer's {PROJ_PER_LAYER} projections at M={m}, "
+                f"{name}[{fname}]: {per['ms']:.4f} ms (bound "
+                f"{per['bound_ms']:.4f} ms, {100 * per['bound_ms'] / per['ms']:.1f}"
+                f"% of it; plain {per['plain_ms']:.4f} ms; torch bf16 "
+                f"{per['library_ms']:.4f} ms)")
     return agg
 
 
@@ -1102,9 +1132,14 @@ def phase_serving(cfg, anchor, seed: int):
         launches[kernel] = counts[kernel]
         bad = [r.rid for r in reqs if r.status.value != "completed"
                or len(r.out_tokens) != 16]
-        if bad or st["nonfinite_logit_rows"] != before["nonfinite_logit_rows"]:
-            fail(f"{fmt}: requests {bad} incomplete or non-finite logits "
-                 f"({st['nonfinite_logit_rows']})")
+        faults = st["faults_detected"] - before["faults_detected"]
+        log(f"{fmt}: logit guard {st['logit_guard']}, faults detected "
+            f"{faults}, ticks replayed "
+            f"{st['ticks_replayed'] - before['ticks_replayed']}")
+        if bad or faults or not st["logit_guard"] \
+                or st["nonfinite_logit_rows"] != before["nonfinite_logit_rows"]:
+            fail(f"{fmt}: requests {bad} incomplete, non-finite logits "
+                 f"({st['nonfinite_logit_rows']}) or guard faults {faults}")
         if st["prefills"] - before["prefills"] <= fused.slots:
             fail(f"{fmt}: no slot was re-admitted")
         # ---- one decode step at 4 live slots: driven from the host as the
@@ -1147,7 +1182,69 @@ def phase_serving(cfg, anchor, seed: int):
             f"GB; greedy tokens equal to the densify contract: "
             f"{same}/{total} ({100 * same / total:.1f}%)")
         streams[fmt] = [r.out_tokens for r in reqs]
+    for kernel, n in _poisoned_wave(api, anchor, cfg, seed,
+                                    streams["mxint4"]).items():
+        launches[kernel] += n
     return launches, streams
+
+
+def _poisoned_wave(api, anchor, cfg, seed: int, clean):
+    """4 requests x 6 tokens at mxint4 with every logit of scheduler tick 2
+    turned NaN while the batch runs at mxint4: the guard escalates to
+    mxint6 once, replays the tick and every request completes; the tokens
+    before the fault (the prefill's and ticks 0-1's) equal the clean
+    wave's. Returns the B1 / B2 launches of the wave."""
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.serve.engine import ElasticEngine, Request
+
+    fi = FaultInjector(poison_logits={2: None}, poison_fmt="mxint4")
+    eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                        fault_injector=fi, device="cuda")
+    eng.weights_for("mxint4")                   # builds outside the wave
+    eng.weights_for("mxint6")
+    reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=6)
+            for r in _requests(cfg.vocab, seed)[:SLOTS]]
+    mx_matmul.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(reqs, fmt_override="mxint4")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    counts = dict(mx_matmul.launches)
+    execs = sum(t["execs"] for t in eng.tick_trace)
+    events = [(e["tick"], e["from"], e["to"])
+              for e in st["escalation_events"]]
+    log(f"poisoned wave (NaN logits at tick 2 while at mxint4): "
+        f"{len(reqs)} requests x 6 tokens in {wall:.2f} s; statuses "
+        f"{st['request_statuses']}; escalations {events}; quarantined "
+        f"{st['quarantined_formats']}; faults {st['faults_detected']}, "
+        f"replays {st['ticks_replayed']}; fmt_used "
+        f"{sorted({r.fmt_used for r in reqs})}; launches {counts} over "
+        f"{execs} executables")
+    bad = [r.rid for r in reqs if r.status.value != "completed"
+           or len(r.out_tokens) != 6]
+    if bad or events != [(2, "mxint4", "mxint6")] \
+            or st["quarantined_formats"] != ["mxint4"] \
+            or st["faults_detected"] != 1 or st["ticks_replayed"] != 1 \
+            or len(fi.events) != 1:
+        fail(f"poisoned wave: requests {bad} incomplete or the guard did "
+             f"not escalate exactly once ({events}, faults "
+             f"{st['faults_detected']}, replays {st['ticks_replayed']})")
+    if sum(counts.values()) != PROJ_PER_LAYER * cfg.n_layers * execs \
+            or not (counts["mx_matmul"] and counts["mx_matmul_int4"]):
+        fail(f"poisoned wave: launches {counts}, want "
+             f"{PROJ_PER_LAYER} x {cfg.n_layers} x {execs} over both "
+             "kernels")
+    early = [r.out_tokens[:3] for r in reqs]
+    if early != [c[:3] for c in clean[:SLOTS]]:
+        fail(f"poisoned wave: tokens before the fault {early} differ from "
+             f"the clean wave's {[c[:3] for c in clean[:SLOTS]]}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _first_mixed_tick(api, weights, vocab: int, seed: int):
@@ -1266,8 +1363,10 @@ def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
                  f"{PROJ_PER_LAYER * n_layers * execs}; {other} {mm[other]}")
         bad = [r.rid for r in reqs if r.status.value != "completed"
                or len(r.out_tokens) != MAX_NEW]
-        if bad or st["nonfinite_logit_rows"] != before["nonfinite_logit_rows"]:
-            fail(f"{fmt}: requests {bad} incomplete or non-finite logits")
+        if bad or st["faults_detected"] != before["faults_detected"] \
+                or st["nonfinite_logit_rows"] != before["nonfinite_logit_rows"]:
+            fail(f"{fmt}: requests {bad} incomplete, non-finite logits or "
+                 "a guard fault")
         if st["kv_pages_alloc"] != st["kv_pages_freed"]:
             fail(f"{fmt}: pages alloc {st['kv_pages_alloc']} != freed "
                  f"{st['kv_pages_freed']} at drain")
@@ -1300,6 +1399,12 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=36,
                     help="qwen3-4b depth to serve (default: all 36)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="card, build and dequant-GEMM phases only; no "
+                         "result line")
+    ap.add_argument("--src", default=os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src"),
+        help="the tree whose repro_torch to measure (default: this one's)")
     args = ap.parse_args()
 
     import torch
@@ -1307,12 +1412,14 @@ def main() -> int:
         print("chip_smoke FAILED: no CUDA device; this script measures the "
               "port on a card and has no CPU mode", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "src"))
+    sys.path.insert(0, os.path.abspath(args.src))
     t_all = time.perf_counter()
     phase_card()
     phase_build()
     agg = phase_kernels(args.seed)
+    if args.kernels_only:
+        log(f"kernels only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
     paged_rec = phase_paged_kernels(args.seed)
     quant_rec = phase_quant_kernels(args.seed)
     # B5 / B6 / B7 launches: the sum over every run of the main path, each
@@ -1343,13 +1450,14 @@ def main() -> int:
     launches.update(phase_paged_serving(cfg, anchor, args.seed, streams))
     counts = _quant_launches()
     # one make_anchor per anchor built (7 leaves, one B6 launch each); an
-    # mxint4 build per engine (the dense phase's fused and unfused ones, the
-    # paged one), one B5 launch per layer slice of each of the 7 leaves;
-    # the mxint8 builds are the anchor itself and launch nothing
+    # mxint4 build per engine (the dense phase's fused, unfused and poisoned
+    # ones, the paged one) and the poisoned one's mxint6, one B5 launch per
+    # layer slice of each of the 7 leaves; the mxint8 builds are the anchor
+    # itself and launch nothing
     dense_layers = args.layers
     n_anchors = 1 if dense_layers == cfg.n_layers else 2
     want = {"mx_quantize": PROJ_PER_LAYER * n_anchors,
-            "ss_convert": PROJ_PER_LAYER * (2 * dense_layers + cfg.n_layers),
+            "ss_convert": PROJ_PER_LAYER * (4 * dense_layers + cfg.n_layers),
             "fake_quant": 0}
     log(f"qwen3-4b serving phases (make_anchor and every format build): "
         f"launches {counts} (want {want})")
@@ -1376,6 +1484,9 @@ def main() -> int:
             "library_ms": a["library_ms"],
             "timed_as": f"one layer's {PROJ_PER_LAYER} qwen3-4b projections "
                         "at M=4",
+            "ms_by_m": {m: per["ms"] for m, per in a["by_m"].items()},
+            "library_ms_by_m": {m: per["library_ms"]
+                                for m, per in a["by_m"].items()},
         })
     for name, a in paged_rec.items():
         kernels.append({

@@ -13,10 +13,16 @@ edges itself and reads ``x`` as bf16 or f32 (other dtypes are converted to
 an activation-sized f32 copy). On a CUDA tensor a wrapper launches its
 kernel or raises; on a CPU tensor it computes the plain version from
 ``kernels/ref.py``. ``launches`` counts kernel launches and nothing else.
+
+Two kernel bodies, chosen by M alone: up to ``DECODE_MAX_M`` rows (decode
+batches, the smallest prefill buckets) the decode body streams the weight
+split over K across a thread-block cluster, cut as ``decode_plan`` says;
+above it the tiled body of the first port runs.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -31,6 +37,49 @@ SOURCE = _build.CSRC / "mx_matmul.cu"
 launches: Dict[str, int] = {"mx_matmul": 0, "mx_matmul_int4": 0}
 
 _lib: Optional[ctypes.CDLL] = None
+
+DECODE_MAX_M = 16        # the decode body serves M <= 16
+DECODE_MIN_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+DECODE_MAX_BLOCKS = 512  # within the four blocks per SM that fit at once
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """The decode body's grid: ``cluster`` blocks split K over each strip
+    of ``strip`` code bytes per row (both nibble ranges of them at int4),
+    ``m_tiles`` tiles of x rows (4 at M <= 4 and at int4, else 8)."""
+    strip: int
+    cluster: int
+    strips: int
+    m_tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.strips * self.m_tiles
+
+
+def decode_plan(m: int, k: int, n: int, block_size: int,
+                int4: bool = False) -> DecodePlan:
+    """Shapes -> grid of the decode body. From the widest strip down (128
+    bytes, 64 at int4: narrower strips give a block more rows in parallel),
+    the cluster takes as many K ranges as keep the grid within four blocks
+    per SM (``DECODE_MAX_BLOCKS``), at most 8 (the portable size) and one
+    K-block each; the first strip whose grid reaches ``DECODE_MIN_BLOCKS``
+    wins. Where even 16-byte strips fall short, the cluster grows to 16 (a
+    size Hopper allows beyond the portable one)."""
+    width = n // 2 if int4 else n
+    nkb = k // block_size
+    m_tile = 4 if m <= 4 or int4 else 8
+    strip = 64 if int4 else 128
+    while True:
+        strips = -(-width // strip)
+        cluster = max(1, min(8, nkb, DECODE_MAX_BLOCKS // strips))
+        if strips * cluster >= DECODE_MIN_BLOCKS or strip == 16:
+            break
+        strip //= 2
+    if strips * cluster < DECODE_MIN_BLOCKS and nkb >= 16:
+        cluster = 16
+    return DecodePlan(strip, cluster, strips, -(-m // m_tile))
 
 
 def reset_launches() -> None:
@@ -52,6 +101,11 @@ def build() -> ctypes.CDLL:
     lib.mx_matmul_int4_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32,
                                           i32, i32, i32, ptr]
     lib.mx_matmul_int4_launch.restype = i32
+    lib.mx_matmul_decode_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32,
+                                            i32, i32, i32, i32, i32, i32,
+                                            i32, i32, i32, i32, i32, i32,
+                                            ptr]
+    lib.mx_matmul_decode_launch.restype = i32
     _lib = lib
     return lib
 
@@ -98,6 +152,23 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+def _launch_decode(lib, xk, bf16, codes, scales, y, k, n, mode, fmt,
+                   stream) -> int:
+    """The decode body (M <= DECODE_MAX_M) of B1 (mode 0 int, 1 fp) or B2
+    (mode 2)."""
+    int4 = mode == 2
+    plan = decode_plan(xk.shape[0], k, n, fmt.block_size, int4)
+    width = n // 2 if int4 else n
+    vec = int(width % 16 == 0 and codes.data_ptr() % 16 == 0) \
+        | int(xk.data_ptr() % 16 == 0 and k * xk.element_size() % 16 == 0) << 1
+    fp = mode == 1
+    return lib.mx_matmul_decode_launch(
+        xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
+        y.data_ptr(), xk.shape[0], k, n, mode, fmt.bits, fmt.ebits,
+        fmt.mbits, fmt.fp_bias if fp else 0, fmt.emin if fp else 0,
+        fmt.block_size, plan.strip, plan.cluster, vec, stream)
+
+
 def mx_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
               fmt: MXFormat) -> torch.Tensor:
     """B1: x (M, K) @ dequant(codes (K, N), scales (N, K/bs)) -> (M, N) f32."""
@@ -110,11 +181,15 @@ def mx_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     fp = fmt.kind == "fp"
     vec = int(n % 4 == 0 and codes.data_ptr() % 4 == 0)
     with torch.cuda.device(x.device):
-        rc = lib.mx_matmul_launch(
-            xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
-            y.data_ptr(), x.shape[0], k, n, int(fp), fmt.bits, fmt.ebits,
-            fmt.mbits, fmt.fp_bias if fp else 0, fmt.emin if fp else 0,
-            fmt.block_size, vec, stream)
+        if x.shape[0] <= DECODE_MAX_M:
+            rc = _launch_decode(lib, xk, bf16, codes, scales, y, k, n,
+                                int(fp), fmt, stream)
+        else:
+            rc = lib.mx_matmul_launch(
+                xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
+                y.data_ptr(), x.shape[0], k, n, int(fp), fmt.bits,
+                fmt.ebits, fmt.mbits, fmt.fp_bias if fp else 0,
+                fmt.emin if fp else 0, fmt.block_size, vec, stream)
     _raise_on(rc, "mx_matmul")
     launches["mx_matmul"] += 1
     return y
@@ -136,9 +211,14 @@ def mx_matmul_int4(x: torch.Tensor, packed: torch.Tensor,
     xk, bf16, y, stream = _launch_args(x, n)
     vec = int(half % 4 == 0 and packed.data_ptr() % 4 == 0)
     with torch.cuda.device(x.device):
-        rc = lib.mx_matmul_int4_launch(
-            xk.data_ptr(), bf16, packed.data_ptr(), scales.data_ptr(),
-            y.data_ptr(), x.shape[0], k, n, fmt.block_size, vec, stream)
+        if x.shape[0] <= DECODE_MAX_M:
+            rc = _launch_decode(lib, xk, bf16, packed, scales, y, k, n, 2,
+                                fmt, stream)
+        else:
+            rc = lib.mx_matmul_int4_launch(
+                xk.data_ptr(), bf16, packed.data_ptr(), scales.data_ptr(),
+                y.data_ptr(), x.shape[0], k, n, fmt.block_size, vec,
+                stream)
     _raise_on(rc, "mx_matmul_int4")
     launches["mx_matmul_int4"] += 1
     return y

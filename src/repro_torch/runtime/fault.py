@@ -1,8 +1,11 @@
-"""Fault tolerance of the training loop: preemption handling, a watchdog
-heartbeat and a straggler monitor.
+"""Fault tolerance: preemption handling, a watchdog heartbeat and a
+straggler monitor for the training loop, and the serving engine's chaos
+plan.
 
-The three classes are copies of ``repro/runtime/fault.py``'s (standard
-library only); the serving engine's ``FaultInjector`` is not ported yet.
+The classes are the port's copies of ``repro/runtime/fault.py``'s.
+``FaultInjector`` carries the logit poison only (``poison_logits``,
+``poison_fmt``); its other primitives are refused when an engine is handed
+them (``refuse_unported``).
   - PreemptionGuard: SIGTERM/SIGINT -> set a flag; the train loop checks it
     every step and checkpoints-then-exits cleanly. Re-entry resumes from
     LATEST.
@@ -17,11 +20,15 @@ library only); the serving engine's ``FaultInjector`` is not ported yet.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import signal
 import statistics
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import (Callable, Dict, FrozenSet, List, Optional, Tuple,
+                    Union)
+
+import torch
 
 
 class PreemptionGuard:
@@ -137,3 +144,78 @@ class StragglerMonitor:
     @property
     def median(self) -> Optional[float]:
         return statistics.median(self.times) if self.times else None
+
+
+@dataclasses.dataclass
+class FaultInjector:
+    """Deterministic chaos plan for ``ElasticEngine(fault_injector=...)``.
+
+    Keyed by the engine's per-``generate`` scheduler tick (0-based loop
+    iterations, not decode ticks). A poison fires once per tick and is
+    recorded in ``events``, except one restricted by ``poison_fmt``, which
+    fires again on every replay still running a listed format: the fault
+    follows the format, so escalation, not replay, clears it.
+
+      - ``poison_logits``: {tick: row} — overwrite one row's (row None:
+        every row's) logits with NaN after the step runs.
+      - ``poison_fmt``: restrict the poison to these serving formats.
+
+    The reference's other primitives (``fail_allocs``, ``raise_in_step``,
+    ``preempt_at``, ``poison_pool``, ``cancel_at``) are fields here so that
+    one plan reads the same in both packages; an engine refuses a plan that
+    sets any of them.
+    """
+    poison_logits: Dict[int, Optional[int]] = \
+        dataclasses.field(default_factory=dict)
+    poison_fmt: Union[str, Tuple[str, ...], FrozenSet[str], None] = None
+    fail_allocs: Tuple[int, ...] = ()
+    raise_in_step: Tuple[int, ...] = ()
+    preempt_at: Optional[int] = None
+    poison_pool: Dict[int, int] = dataclasses.field(default_factory=dict)
+    cancel_at: Dict[int, int] = dataclasses.field(default_factory=dict)
+    events: List[dict] = dataclasses.field(default_factory=list, init=False)
+    _fired: set = dataclasses.field(default_factory=set, init=False)
+
+    _UNPORTED = ("fail_allocs", "raise_in_step", "preempt_at", "poison_pool",
+                 "cancel_at")
+
+    def refuse_unported(self) -> None:
+        """Raise ``NotImplementedError`` if a primitive the port's engine
+        does not carry is set."""
+        for name in self._UNPORTED:
+            value = getattr(self, name)
+            if value not in (None, (), {}):
+                raise NotImplementedError(
+                    f"FaultInjector({name}={value!r}): only the logit poison "
+                    "is ported yet; page-pool poison, allocation failures, "
+                    "step crashes, preemption and cancellation are not "
+                    "ported yet")
+
+    def _fmts(self) -> Optional[FrozenSet[str]]:
+        if self.poison_fmt is None:
+            return None
+        if isinstance(self.poison_fmt, str):
+            return frozenset((self.poison_fmt,))
+        return frozenset(self.poison_fmt)
+
+    def maybe_poison_logits(self, tick: int, fmt: str,
+                            logits: torch.Tensor) -> torch.Tensor:
+        """This tick's attempt's logits, poisoned if the plan says so (a
+        copy; the step's own output is left as it is)."""
+        if tick not in self.poison_logits:
+            return logits
+        fmts = self._fmts()
+        if fmts is not None:
+            if fmt not in fmts:
+                return logits       # escalated past the bad rung(s): clean
+        elif ("logits", tick) in self._fired:
+            return logits           # transient: fires once, replay is clean
+        self._fired.add(("logits", tick))
+        row = self.poison_logits[tick]
+        self.events.append({"kind": "poison_logits", "tick": tick, "row": row,
+                            "fmt": fmt})
+        if row is None:
+            return torch.full_like(logits, float("nan"))
+        out = logits.clone()
+        out[row] = float("nan")
+        return out

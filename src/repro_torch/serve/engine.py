@@ -38,9 +38,18 @@ The format is batch-pinned: the policy picks when the engine goes from
 drained to busy, and every request admitted while a slot is live inherits
 it. The pseudo-format ``"bf16"`` serves dense anchor-precision weights.
 
+The logit guard (``logit_guard=True``, the default): non-finite logits in a
+consumed row (a live decode row, or the row of a prompt's last chunk)
+escalate the pinned format one rung toward the anchor, quarantine the rung
+that misbehaved and replay the tick from its pre-tick state; at the anchor
+the dead rows alone retire FAILED_NUMERIC. The finite flags ride the tick's
+one device-to-host copy, so a clean tick pays nothing for the guard.
+``fault_injector`` (``runtime/fault.py::FaultInjector``) poisons logits to
+drive it.
+
 Left out of this slice (each refused with a clear error): speculative
-decoding, sampling, the logit guard, fault injection, snapshots, SLO tiers
-and tensor parallelism.
+decoding, sampling, the injector's other primitives and step retries,
+cancellation, deadlines, snapshots, SLO tiers and tensor parallelism.
 """
 from __future__ import annotations
 
@@ -59,6 +68,7 @@ from repro_torch.kernels import mx_matmul, paged_attention
 from repro_torch.kernels.dispatch import make_qmm
 from repro_torch.kernels.paged_attention import pages_read, pages_read_mq
 from repro_torch.models.transformer import ModelApi
+from repro_torch.runtime.fault import FaultInjector
 from repro_torch.serve.packed_params import (anchor_block_size,
                                              make_packed_params,
                                              weight_stream_bytes)
@@ -82,7 +92,8 @@ class RequestStatus(str, enum.Enum):
     QUEUED = "queued"
     RUNNING = "running"
     COMPLETED = "completed"              # reached max_new / cache capacity
-    FAILED_CAPACITY = "failed_capacity"  # prompt longer than the cache
+    FAILED_NUMERIC = "failed_numeric"    # non-finite logits at anchor rung
+    FAILED_CAPACITY = "failed_capacity"  # unservable prompt / pool starved
 
 
 @dataclasses.dataclass
@@ -101,8 +112,7 @@ class Request:
 _UNSUPPORTED = {
     "speculative": (None, "speculative decoding is not ported yet"),
     "mesh": (None, "tensor-parallel serving is not ported yet"),
-    "logit_guard": (False, "the logit guard is not ported yet"),
-    "fault_injector": (None, "fault injection is not ported yet"),
+    "max_step_retries": (2, "step-crash retries are not ported yet"),
 }
 
 
@@ -125,7 +135,9 @@ class ElasticEngine:
     many tokens, at most one chunk per tick; ``scheduler`` ``"mixed"`` (the
     default with chunks) runs that chunk inside the decode batch as one
     ``mixed_step``, ``"sequential"`` as its own executable before the
-    decode step.
+    decode step. ``logit_guard`` escalates and replays a tick whose consumed
+    logits are not finite (module docstring); ``fault_injector`` poisons
+    logits to exercise it.
     """
 
     def __init__(self, api: ModelApi, anchor: AnchorModel, *,
@@ -134,14 +146,23 @@ class ElasticEngine:
                  fused: Optional[bool] = None, kv_layout: str = "dense",
                  kv_page_size: int = 16, kv_num_pages: Optional[int] = None,
                  attn_impl: Optional[str] = None, prefill_chunk=None,
-                 scheduler: Optional[str] = None, device="cuda",
-                 **unsupported):
+                 scheduler: Optional[str] = None, logit_guard: bool = True,
+                 fault_injector: Optional[FaultInjector] = None,
+                 device="cuda", **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
                 raise TypeError(f"unexpected argument {name!r}")
             default, why = _UNSUPPORTED[name]
             if value != default:
                 raise NotImplementedError(f"{name}={value!r}: {why}")
+        if fault_injector is not None:
+            if not isinstance(fault_injector, FaultInjector):
+                raise TypeError("fault_injector must be a repro_torch."
+                                "runtime.fault.FaultInjector, got "
+                                f"{type(fault_injector).__name__}")
+            fault_injector.refuse_unported()
+        self.logit_guard = logit_guard
+        self._fault_injector = fault_injector
         self.device = resolve_device(device)
         self.anchor = anchor
         self.slots = batch_slots
@@ -208,6 +229,11 @@ class ElasticEngine:
         self._prefill_s = 0.0           # host wall time in prefill executables
         self._decode_s = 0.0            # host wall time in decode/mixed steps
         self._nonfinite_rows = 0        # consumed logit rows with NaN/Inf
+        self._faults_detected = 0       # guarded attempts with a dead row
+        self._fmt_escalations = 0
+        self._escalation_events: List[dict] = []
+        self._ticks_replayed = 0
+        self._failures: List[dict] = []  # one per non-COMPLETED request
         self._status_counts: Dict[str, int] = {}
         self._admission_requeues = 0
         self._kv_pages_alloc = 0
@@ -332,9 +358,16 @@ class ElasticEngine:
 
     def _finish(self, r: Request, status: RequestStatus,
                 error: Optional[str] = None) -> None:
-        r.status, r.done, r.error = status, True, error
+        """Terminal transition, one per request; a non-COMPLETED one is
+        recorded in ``stats()["failures"]``."""
+        r.status, r.done = status, True
+        if error is not None:
+            r.error = error
         self._status_counts[status.value] = \
             self._status_counts.get(status.value, 0) + 1
+        if status is not RequestStatus.COMPLETED:
+            self._failures.append({"rid": r.rid, "status": status.value,
+                                   "error": error})
 
     def _max_pages_needed(self, plen: int) -> int:
         """Peak page count one request's admission holds: the pages of the
@@ -377,6 +410,81 @@ class ElasticEngine:
             self._finish(r, RequestStatus.FAILED_CAPACITY, reason)
         return None
 
+    # ---- the logit guard --------------------------------------------------
+    def _escalate_or_none(self, fmt: str, tick: int,
+                          what: str) -> Optional[str]:
+        """One rung toward the anchor, quarantining the rung that just
+        misbehaved so later waves never pick it; None at the anchor (the
+        caller then retires the dead rows)."""
+        nxt = self.policy.escalate(fmt)
+        if nxt is None:
+            return None
+        self.policy.quarantine(fmt)
+        self._fmt_escalations += 1
+        self._escalation_events.append(
+            {"tick": tick, "from": fmt, "to": nxt, "at": what})
+        self.set_format(nxt)
+        return nxt
+
+    def _guarded_prefill(self, attempt, pinned: str, tick: int, what: str):
+        """Escalate-and-replay around one admission executable whose logits
+        are consumed (a whole prompt, or a final chunk). ``attempt(fmt)``
+        returns ``(logits (V,), cache, new_len)``; its first token and
+        finite flag come back in one host transfer. Returns ``(first,
+        cache, new_len, pinned, fail_reason, execs)``."""
+        execs = 0
+        while True:
+            logits, cache, new_len = attempt(pinned)
+            execs += 1
+            first, finite = torch.stack([
+                torch.argmax(logits, -1),
+                torch.isfinite(logits).all().to(torch.int64)]).tolist()
+            if finite:
+                return first, cache, new_len, pinned, None, execs
+            self._nonfinite_rows += 1
+            if not self.logit_guard:
+                return first, cache, new_len, pinned, None, execs
+            self._faults_detected += 1
+            nxt = self._escalate_or_none(pinned, tick, what)
+            if nxt is None:
+                return first, cache, new_len, pinned, (
+                    f"non-finite prefill logits at the anchor rung "
+                    f"({pinned}) during {what}"), execs
+            pinned = nxt
+            self._ticks_replayed += 1
+
+    def _guarded_step(self, attempt, pinned: str, consumed: List[int],
+                      tick: int):
+        """Escalate-and-replay around one decode or mixed tick.
+
+        Every attempt is a function of the pre-tick ``(cache_len, tokens)``:
+        the caller commits the cache_len advance, the next tokens and the
+        drain only after this returns, and a replay overwrites whatever KV
+        an attempt wrote at positions >= cache_len, on either layout. The
+        tick's greedy tokens and every row's finite flag come back in one
+        host transfer per attempt. Returns ``(logits, nxt, drained, cache,
+        pinned, dead_rows, execs)``; ``dead_rows`` is non-empty only at the
+        anchor rung.
+        """
+        execs = 0
+        while True:
+            logits, cache = attempt(pinned)
+            execs += 1
+            nxt = torch.argmax(logits, -1)
+            finite = torch.isfinite(logits).all(-1)
+            drained, finite = torch.stack([nxt, finite.to(nxt.dtype)]) \
+                .cpu().numpy()
+            dead = [i for i in consumed if not finite[i]]
+            self._nonfinite_rows += len(dead)
+            if not dead or not self.logit_guard:
+                return logits, nxt, drained, cache, pinned, [], execs
+            self._faults_detected += 1
+            fmt = self._escalate_or_none(pinned, tick, f"decode tick {tick}")
+            if fmt is None:
+                return logits, nxt, drained, cache, pinned, dead, execs
+            pinned = fmt
+            self._ticks_replayed += 1
+
     # ---- serving loop -----------------------------------------------------
     @torch.no_grad()
     def generate(self, requests: List[Request], greedy: bool = True,
@@ -393,6 +501,8 @@ class ElasticEngine:
         layout the pages of a prompt (of a chunk) are allocated at its
         admission, a decoding slot's next page just before the tick that
         writes into it, and all of a slot's pages return at retire.
+        Executables whose logits are consumed run under the logit guard
+        (class docstring); a replay adds to the tick's ``execs``.
         ``tick_trace`` records each tick's work.
         """
         if not greedy:
@@ -404,6 +514,7 @@ class ElasticEngine:
         ps = self.kv_page_size
         window = self.api.cfg.sliding_window
         dev = self.device
+        fi = self._fault_injector
         pending = list(requests)
         active: List[Optional[Request]] = [None] * b
         slot_len = [0] * b              # host mirror of cache_len
@@ -414,6 +525,7 @@ class ElasticEngine:
         filling: Optional[Request] = None   # the (single) mid-prefill request
         fill_slot, fill_cursor = -1, 0
         wait_pages = False  # a requeued admission waits for a retire
+        tick_no = 0         # per-wave scheduler tick: keys the injector
         if paged:
             # page 0 is reserved scratch; allocatable pages 1..P-1
             free_pages = list(range(self._kv_total_pages - 1, 0, -1))
@@ -433,12 +545,16 @@ class ElasticEngine:
                 sync_table()
             wait_pages = False     # freed pages: admission may retry
 
-        def complete_admission(i: int, r: Request, logits) -> None:
+        def repin(fmt: str) -> str:
+            # escalation mid-wave: every live request now decodes at fmt
+            for a in active:
+                if a is not None:
+                    a.fmt_used = fmt
+            return fmt
+
+        def complete_admission(i: int, r: Request, first: int) -> None:
             """prefilling -> decoding (or straight to retired): the first
             token from the prefill logits, TTFT stamped."""
-            nonlocal tokens
-            first = int(torch.argmax(logits, -1))
-            self._nonfinite_rows += int(not torch.isfinite(logits).all())
             tokens[i, 0] = first
             r.fmt_used = pinned
             r.out_tokens.append(first)
@@ -451,6 +567,10 @@ class ElasticEngine:
                 r.status = RequestStatus.RUNNING
                 active[i] = r
 
+        def poisoned(logits, tick: int, fmt: str):
+            return logits if fi is None \
+                else fi.maybe_poison_logits(tick, fmt, logits)
+
         def run_prefill(fn, *args):
             t_pf = time.perf_counter()
             out = fn(*args)
@@ -461,14 +581,15 @@ class ElasticEngine:
         while pending or filling is not None \
                 or any(a is not None for a in active):
             t_tick = time.perf_counter()
+            tick_id = tick_no
+            tick_no += 1
             if pinned is None:          # engine drained: re-pick format
                 pinned = self.policy.pick(
                     queue_depth=len(pending),
                     prefill_tokens=sum(np.asarray(r.prompt).size
                                        for r in pending),
                     override=fmt_override)
-            weights = self.set_format(pinned)
-            api = self._api_for(pinned)
+            self.set_format(pinned)
             tick = dict(prefill_tokens=0, prefill_chunks=0, execs=0, rows=0)
             chunk_tok = None            # staged chunk for the mixed tick
             chunk_ran_alone = False
@@ -505,15 +626,29 @@ class ElasticEngine:
                             break
                         bt[i, :need] = got
                         sync_table()
-                    logits, cache, new_len = run_prefill(
-                        api.prefill_slot, weights, pbatch, cache, i)
+
+                    def attempt(fmt, pb=pbatch, slot=i):
+                        lg, c2, nl = run_prefill(
+                            self._api_for(fmt).prefill_slot,
+                            self.weights_for(fmt), pb, cache, slot)
+                        return poisoned(lg, tick_id, fmt), c2, nl
+
+                    first, cache, new_len, new_pinned, fail, execs = \
+                        self._guarded_prefill(attempt, pinned, tick_id,
+                                              f"prefill of rid={r.rid}")
+                    if new_pinned != pinned:
+                        pinned = repin(new_pinned)
                     tick["prefill_tokens"] += blen
                     tick["prefill_chunks"] += 1
-                    tick["execs"] += 1
-                    tick["rows"] += 1
+                    tick["execs"] += execs
+                    tick["rows"] += execs
+                    if fail is not None:
+                        release_slot(i)
+                        self._finish(r, RequestStatus.FAILED_NUMERIC, fail)
+                        continue
                     cache_len[i] = new_len
                     slot_len[i] = prompt.size
-                    complete_admission(i, r, logits)
+                    complete_admission(i, r, first)
             else:
                 # ---- chunked admission: claim the (single) mid-prefill
                 # request and allocate this chunk's pages
@@ -577,19 +712,41 @@ class ElasticEngine:
                               "lengths": torch.tensor([plen],
                                                       dtype=torch.int32,
                                                       device=dev)}
-                    logits, cache, new_len = run_prefill(
-                        api.prefill_chunk_slot, weights, pbatch, cache, i,
-                        start)
+
+                    def attempt(fmt, pb=pbatch, slot=i, st=start):
+                        # a non-final chunk's logits are never consumed, so
+                        # a poison landing there is invisible
+                        lg, c2, nl = run_prefill(
+                            self._api_for(fmt).prefill_chunk_slot,
+                            self.weights_for(fmt), pb, cache, slot, st)
+                        return poisoned(lg, tick_id, fmt), c2, nl
+
+                    fail = None
+                    if final:
+                        first, cache, new_len, new_pinned, fail, execs = \
+                            self._guarded_prefill(
+                                attempt, pinned, tick_id,
+                                f"final chunk of rid={r.rid}")
+                        if new_pinned != pinned:
+                            pinned = repin(new_pinned)
+                    else:
+                        _, cache, new_len = attempt(pinned)
+                        execs = 1
                     tick["prefill_tokens"] += padded
                     tick["prefill_chunks"] += 1
-                    tick["execs"] += 1
-                    tick["rows"] += 1
-                    cache_len[i] = new_len
-                    fill_cursor = start + take
-                    if final:
-                        slot_len[i] = plen
-                        complete_admission(i, r, logits)
+                    tick["execs"] += execs
+                    tick["rows"] += execs
+                    if fail is not None:
+                        release_slot(i)
+                        self._finish(r, RequestStatus.FAILED_NUMERIC, fail)
                         filling = None
+                    else:
+                        cache_len[i] = new_len
+                        fill_cursor = start + take
+                        if final:
+                            slot_len[i] = plen
+                            complete_admission(i, r, first)
+                            filling = None
                     chunk_tok = None
 
             all_free = all(a is None for a in active)
@@ -653,8 +810,12 @@ class ElasticEngine:
                     pinned = None
                 continue
 
-            live = [a is not None for a in active]
-            mask = np.asarray(live, np.int32)
+            mask = np.asarray([a is not None for a in active], np.int32)
+            # the rows whose logits this tick consumes: the guard checks
+            # exactly these (free and masked rows may hold anything)
+            consumed = [i for i in range(b) if active[i] is not None]
+            if chunk_tok is not None and chunk_tok[3]:
+                consumed.append(fill_slot)
             t_dec = time.perf_counter()
             if chunk_tok is not None:
                 # ---- mixed tick: decode rows carry their token in column
@@ -665,31 +826,38 @@ class ElasticEngine:
                 tok2d[fill_slot] = torch.as_tensor(ctoks, device=dev)
                 q_len = np.ones(b, np.int32)
                 q_len[fill_slot] = take
-                logits, cache = api.mixed_step(
-                    weights, {"tokens": tok2d,
-                              "q_len": torch.as_tensor(q_len, device=dev)},
-                    cache, cache_len)
+                mbatch = {"tokens": tok2d,
+                          "q_len": torch.as_tensor(q_len, device=dev)}
+
+                def attempt(fmt):
+                    lg, c2 = self._api_for(fmt).mixed_step(
+                        self.weights_for(fmt), mbatch, cache, cache_len)
+                    return poisoned(lg, tick_id, fmt), c2
+
                 adv = mask.copy()
                 adv[fill_slot] = take
                 tick["prefill_tokens"] += padded
                 tick["prefill_chunks"] += 1
             else:
-                logits, cache = api.serve_step(weights, {"tokens": tokens},
-                                               cache, cache_len)
+                def attempt(fmt):
+                    lg, c2 = self._api_for(fmt).serve_step(
+                        self.weights_for(fmt), {"tokens": tokens}, cache,
+                        cache_len)
+                    return poisoned(lg, tick_id, fmt), c2
+
                 adv = mask
-            tick["execs"] += 1
-            tick["rows"] += b
+            # escalate-and-replay against the pre-tick state; the commits
+            # below happen once, after the guard settles
+            logits, nxt, drained, cache, new_pinned, dead, execs = \
+                self._guarded_step(attempt, pinned, consumed, tick_id)
+            if new_pinned != pinned:
+                pinned = repin(new_pinned)
+            tick["execs"] += execs
+            tick["rows"] += b * execs
             cache_len = cache_len + torch.as_tensor(adv, device=dev)
-            nxt = torch.argmax(logits, -1)
             tokens = nxt[:, None].to(torch.int32)
-            finite = torch.isfinite(logits).all(-1)
-            # one host transfer per tick: the tokens and the finite flags
-            drained, finite = torch.stack([nxt, finite.to(nxt.dtype)]) \
-                .cpu().numpy()
             self._decode_s += time.perf_counter() - t_dec
             self._ticks += 1
-            self._nonfinite_rows += int(sum(
-                1 for i in range(b) if live[i] and not finite[i]))
 
             # Attention-read accounting for the tick that just ran. The
             # gather path (and the dense layout) reads every row's whole
@@ -711,6 +879,25 @@ class ElasticEngine:
                 else:
                     self._attn_tokens_read += ps
 
+            # ---- dead rows (non-finite logits at the anchor rung): retire
+            # them before the drain, so no poisoned token enters a stream
+            for i in dead:
+                if chunk_tok is not None and i == fill_slot:
+                    release_slot(i)
+                    self._finish(
+                        filling, RequestStatus.FAILED_NUMERIC,
+                        f"non-finite final-chunk logits in this request's "
+                        f"row at the anchor rung ({pinned}), tick {tick_id}")
+                    filling = None
+                    continue
+                r_dead = active[i]
+                active[i] = None
+                release_slot(i)
+                self._finish(
+                    r_dead, RequestStatus.FAILED_NUMERIC,
+                    f"non-finite logits in this request's row at the "
+                    f"anchor rung ({pinned}), tick {tick_id}")
+
             # ---- retire
             for i, r in enumerate(active):
                 if r is None:
@@ -725,11 +912,13 @@ class ElasticEngine:
                     release_slot(i)
             if chunk_tok is not None:
                 # mixed-tick chunk epilogue: advance the cursor; the final
-                # chunk's row logits give the request its first token
+                # chunk's row gives the request its first token (a dead
+                # fill row retired above)
                 fill_cursor = start + take
-                if final:
+                if final and filling is not None:
                     slot_len[fill_slot] = plen
-                    complete_admission(fill_slot, filling, logits[fill_slot])
+                    complete_admission(fill_slot, filling,
+                                       int(drained[fill_slot]))
                     filling = None
             self._record_tick(tick, 1, t_tick, decode_rows=int(mask.sum()))
             if all(a is None for a in active) and filling is None:
@@ -740,7 +929,8 @@ class ElasticEngine:
                      decode_rows: int) -> None:
         """One scheduler-tick trace entry: padded prompt tokens and chunks
         prefilled, whether a decode (or mixed) step ran, the executables
-        dispatched (the mixed scheduler's invariant: at most one), the batch
+        dispatched (the mixed scheduler's invariant: at most one, plus one
+        per guard replay), the batch
         rows they processed, the live decoding rows, and the host wall
         time."""
         self.tick_trace.append({
@@ -764,6 +954,13 @@ class ElasticEngine:
             "prefill_s": self._prefill_s,
             "decode_s": self._decode_s,
             "nonfinite_logit_rows": self._nonfinite_rows,
+            "logit_guard": self.logit_guard,
+            "faults_detected": self._faults_detected,
+            "fmt_escalations": self._fmt_escalations,
+            "escalation_events": list(self._escalation_events),
+            "ticks_replayed": self._ticks_replayed,
+            "quarantined_formats": sorted(self.policy.quarantined),
+            "failures": list(self._failures),
             "current": self.current_fmt,
             "fused": self.fused,
             "device": str(self.device),

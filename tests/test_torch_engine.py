@@ -22,6 +22,7 @@ from repro.serve.engine import Request as JRequest
 from repro_torch.checkpoint.anchor_ckpt import load_anchor
 from repro_torch.configs import get_reduced
 from repro_torch.models.transformer import make_model
+from repro_torch.runtime.fault import FaultInjector
 from repro_torch.serve.engine import ElasticEngine, Request, RequestStatus
 
 SLOTS, MAX_LEN, MAX_NEW = 2, 48, 6
@@ -115,14 +116,28 @@ def test_oversized_prompt_fails_alone(served):
     assert len(reqs[1].out_tokens) == 3
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"fault_injector": object()},
-                                {"speculative": object()},
-                                {"logit_guard": True}])
+@pytest.mark.parametrize("kw", [
+    {"mesh": object()},
+    {"fault_injector": FaultInjector(raise_in_step=(1,))},
+    {"speculative": object()},
+    {"fault_injector": FaultInjector(poison_pool={1: 1})},
+    {"fault_injector": FaultInjector(fail_allocs=(0,))},
+    {"fault_injector": FaultInjector(preempt_at=2)},
+    {"fault_injector": FaultInjector(cancel_at={1: 0})},
+    {"max_step_retries": 0}])
 def test_unported_options_refuse_loudly(served, kw):
     _, _, _, path = served
     with pytest.raises(NotImplementedError, match="not ported"):
         _port_engine(path, **kw)
+
+
+def test_guard_is_on_by_default_and_takes_only_the_ports_injector(served):
+    _, _, _, path = served
+    eng = _port_engine(path, fault_injector=FaultInjector(
+        poison_logits={1: 0}))
+    assert eng.logit_guard and eng.stats()["logit_guard"]
+    with pytest.raises(TypeError, match="FaultInjector"):
+        _port_engine(path, fault_injector=object())
 
 
 def test_sampling_and_missing_card_refuse_loudly(served):

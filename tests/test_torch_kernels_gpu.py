@@ -90,6 +90,83 @@ def test_stacked_leaf_slice_is_read_in_place():
         _close(got, ref.ref_mx_matmul(x, t.codes[g], t.scale_exp[g], fmt))
 
 
+# B1 / B2 decode body (M <= 16) at every qwen3-4b projection shape; M = 17
+# runs the other body.
+QWEN_KN = [(2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728),
+           (9728, 2560)]
+
+
+def _b1(x, t):
+    return mx_matmul.mx_matmul(x, t.codes, t.scale_exp, t.fmt)
+
+
+def _b2(x, leaf, fmt):
+    return mx_matmul.mx_matmul_int4(x, leaf.packed, leaf.scale_exp, fmt)
+
+
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp4"])
+@pytest.mark.parametrize("kn", QWEN_KN)
+@pytest.mark.parametrize("m", [1, 4, 16, 17])
+def test_mx_matmul_decode_shapes_match_plain(m, kn, name):
+    dev = _card()
+    x, t = _operands(m, *kn, name, 32, dev, seed=m)
+    _close(_b1(x, t), ref.ref_mx_matmul(x, t.codes, t.scale_exp, t.fmt))
+
+
+@pytest.mark.parametrize("bs", [32, 16])
+@pytest.mark.parametrize("kn", QWEN_KN)
+@pytest.mark.parametrize("m", [1, 4, 16, 17])
+def test_mx_matmul_int4_decode_shapes_match_plain(m, kn, bs):
+    dev = _card()
+    x, t = _operands(m, *kn, "mxint4", bs, dev, seed=m)
+    leaf = pack_leaf_int4(t)
+    _close(_b2(x, leaf, t.fmt),
+           ref.ref_mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt))
+
+
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t whose first byte sits one past a 16-byte
+    boundary (a leaf read where it lies, off the vector path)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("m", [4, 17])
+def test_unaligned_leaf_takes_the_scalar_path(m):
+    """Codes, and x, that lie off the 16-byte grid are read by the scalar
+    edge paths."""
+    dev = _card()
+    x, t = _operands(m, 256, 96, "mxint8", 32, dev, seed=5)
+    codes, xu = _unaligned(t.codes), _unaligned(x)
+    assert codes.data_ptr() % 16 and xu.data_ptr() % 16
+    want = ref.ref_mx_matmul(x, t.codes, t.scale_exp, t.fmt)
+    _close(mx_matmul.mx_matmul(x, codes, t.scale_exp, t.fmt), want)
+    _close(mx_matmul.mx_matmul(xu, t.codes, t.scale_exp, t.fmt), want)
+    x, t = _operands(m, 256, 96, "mxint4", 32, dev, seed=6)
+    leaf = pack_leaf_int4(t)
+    packed, xu = _unaligned(leaf.packed), _unaligned(x)
+    want = ref.ref_mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt)
+    _close(mx_matmul.mx_matmul_int4(x, packed, leaf.scale_exp, t.fmt), want)
+    _close(mx_matmul.mx_matmul_int4(xu, leaf.packed, leaf.scale_exp, t.fmt),
+           want)
+
+
+@pytest.mark.parametrize("case", ["mxint8", "mxfp8", "mxint4"])
+@pytest.mark.parametrize("kn", [(2560, 1024), (9728, 2560)])
+def test_decode_body_bit_identical_eager_and_in_a_cuda_graph(kn, case):
+    """The cluster reduction runs in rank order: a repeated call and two
+    replays of a captured one are bit-identical."""
+    dev = _card()
+    x, t = _operands(4, *kn, case, 32, dev, seed=9)
+    if case == "mxint4":
+        leaf = pack_leaf_int4(t)
+        _identical_eager_and_in_a_graph(lambda: _b2(x, leaf, t.fmt))
+    else:
+        _identical_eager_and_in_a_graph(lambda: _b1(x, t))
+
+
 # ---------------------------------------------------------------------------
 # B3 / B4: paged attention
 # ---------------------------------------------------------------------------
@@ -203,8 +280,8 @@ def test_paged_attention_mq_with_q_len_one_collapses_to_b3():
 
 def _identical_eager_and_in_a_graph(fn):
     """fn() twice eagerly, then captured in a CUDA graph and replayed twice:
-    every output bit-identical with the first (the splits merge in a fixed
-    order and the ticket counters are back at zero after every launch)."""
+    every output bit-identical with the first (partials merge in a fixed
+    order; B3/B4's ticket counters are back at zero after every launch)."""
     first, second = fn(), fn()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):

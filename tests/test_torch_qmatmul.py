@@ -102,3 +102,26 @@ def test_int4_block_size_comes_from_the_leaf():
     np.testing.assert_allclose(dispatch.qmatmul(torch.from_numpy(x),
                                                 leaf).numpy(),
                                want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+QWEN_KN = [(2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728),
+           (9728, 2560)]
+
+
+@pytest.mark.parametrize("bs", [32, 16])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("kn", QWEN_KN)
+def test_decode_plan_fills_the_card_at_every_qwen3_projection(kn, int4, bs):
+    """At M = 4 the decode body launches at least two blocks per SM of the
+    H100; its strips tile the code row, in 16-byte steps, and its clusters
+    stay at the portable 8 unless 16-byte strips alone fall short."""
+    k, n = kn
+    plan = mx_matmul.decode_plan(4, k, n, bs, int4)
+    width = n // 2 if int4 else n
+    assert plan.blocks >= mx_matmul.DECODE_MIN_BLOCKS
+    assert plan.m_tiles == 1 and plan.strip % 16 == 0
+    assert (plan.strips - 1) * plan.strip < width <= plan.strips * plan.strip
+    assert plan.cluster <= 8 or plan.strip == 16
+    assert plan.cluster <= k // bs
+    assert mx_matmul.decode_plan(16, k, n, bs, int4).m_tiles == \
+        (4 if int4 else 2)
