@@ -16,15 +16,17 @@ Phases (any failure exits non-zero before the result line):
      nvcc for sm_90a into one library, one nvcc per source started
      together, and print the ptxas register / shared-memory / spill lines;
   3. dequant-GEMM kernels: at every qwen3-4b projection shape, at M = 4
-     (decode) and 16 (the decode body), 64 (a prefill bucket) and 256 (the
-     mixed tick; the tiled body), hold mx_matmul (mxint8, mxfp8) and
-     mx_matmul_int4 (mxint4) against their plain PyTorch versions on the
-     same card tensors (rtol 1e-4, atol 1e-4 * max|plain|: both accumulate
-     in f32, only the summation order differs), hold a repeated call and
-     two CUDA-graph replays bit-identical at M = 4, and time the kernel,
-     the plain version and torch.matmul of x by the pre-densified bf16
-     weight (the nearest library call; it streams 2x / 4x the weight
-     bytes), one layer's sum per M;
+     (decode; the decode body) and 16, 32, 64, 128, 256 (the prefill
+     buckets and the mixed tick's 4 x 64; the tiled body), each tiled plan
+     logged, hold mx_matmul (mxint8, mxfp8) and mx_matmul_int4 (mxint4)
+     against their plain PyTorch versions on the same card tensors (rtol
+     1e-4, atol 1e-4 * max|plain|: both accumulate in f32, only the
+     summation order differs), hold a repeated call and two CUDA-graph
+     replays bit-identical at M = 4 and 256, and time the kernel, the
+     plain version and torch.matmul of x by the pre-densified bf16 weight
+     (the nearest library call; it streams 2x / 4x the weight bytes), one
+     layer's sum per M; then both bodies at M = 4, 8, 12, 16 (held to the
+     plain version and timed), where DECODE_MAX_M is chosen;
   4. paged-attention kernels at qwen3-4b attention shapes (H 32, Hkv 8,
      D 128, page 16, bf16 pools of 129 pages, 4 slots, random page
      permutations): paged_attention (B3) at decode lengths, ragged lengths,
@@ -96,8 +98,10 @@ F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 PROJ_SHAPES = {(2560, 4096): 1, (2560, 1024): 2, (4096, 2560): 1,
                (2560, 9728): 2, (9728, 2560): 1}
 PROJ_PER_LAYER = sum(PROJ_SHAPES.values())          # 7
-KERNEL_MS = (4, 16, 64, 256)    # decode, the decode body's largest M, a
-#                                 prefill bucket, the mixed tick's 4 x 64
+KERNEL_MS = (4, 16, 32, 64, 128, 256)   # decode (4 slots), then the
+#                  prefill buckets the tiled body serves (256 is also the
+#                  mixed tick's 4 x 64)
+CROSSOVER_MS = (4, 8, 12, 16)   # both bodies, to place DECODE_MAX_M
 KERNEL_CASES = (("mx_matmul", "mxint8"), ("mx_matmul", "mxfp8"),
                 ("mx_matmul_int4", "mxint4"))
 TPU_KERNEL = {
@@ -197,11 +201,12 @@ def phase_build():
 
 
 def phase_kernels(seed: int):
-    """Per-shape checks and times at M = 4, 16 (the decode body), 64 and
-    256 (the tiled body; 256 is the mixed tick's M); a repeated call and
-    two CUDA-graph replays bit-identical at M = 4. Returns the per-kernel
-    aggregates over one layer's seven projections, at M = 4 in the top
-    level and per M under "by_m"."""
+    """Per-shape checks and times at every M of ``KERNEL_MS`` (the decode
+    body up to ``DECODE_MAX_M``, the tiled body above; 256 is the mixed
+    tick's M), and of both bodies at ``CROSSOVER_MS``; a repeated call and
+    two CUDA-graph replays bit-identical at M = 4 and 256. Returns the
+    per-kernel aggregates over one layer's seven projections, at M = 4 in
+    the top level, per M under "by_m" and per body under "crossover"."""
     import torch
     from repro_torch.core.formats import get_format
     from repro_torch.core.mx import dequantize, quantize
@@ -212,6 +217,7 @@ def phase_kernels(seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     agg = {}
     plan = getattr(mx_matmul, "decode_plan", None)
+    tplan = getattr(mx_matmul, "tiled_plan", None)     # absent before PR 17
     log("kernel phase: device ms per call (CUDA graph of many calls, timed "
         "with CUDA events), rotating over weight copies > 50 MB L2")
     log(f"{'kernel':16s}{'fmt':8s}{'M':>4s}{'K':>6s}{'N':>6s}{'max_err':>11s}"
@@ -233,6 +239,15 @@ def phase_kernels(seed: int):
                 log(f"  {name}[{fname}] K={k} N={n}: decode plan strip "
                     f"{p.strip} B, cluster {p.cluster}, {p.blocks} blocks "
                     "at M <= 4")
+            if tplan is not None:
+                for m in KERNEL_MS:
+                    if m <= mx_matmul.DECODE_MAX_M:
+                        continue
+                    p = tplan(m, k, n, 32, name == "mx_matmul_int4")
+                    log(f"  {name}[{fname}] K={k} N={n} M={m}: tiled plan "
+                        f"{p.bm}x{mx_matmul.TILED_BN} tiles, cluster "
+                        f"{p.cluster}, {p.m_tiles}x{p.n_tiles} tiles, "
+                        f"{p.blocks} blocks")
             wbytes = codes.numel() + scales.numel()
             n_copy = max(1, min(64, math.ceil(128e6 / wbytes)))
             copies = [(codes.clone(), scales.clone()) for _ in range(n_copy)]
@@ -251,7 +266,7 @@ def phase_kernels(seed: int):
                                       atol=1e-4 * scale):
                     fail(f"{name}[{fname}] M={m} K={k} N={n}: max abs err "
                          f"{err:.3g} vs max|plain| {scale:.3g}")
-                if m == 4 and not _bit_stable(
+                if m in (4, 256) and not _bit_stable(
                         lambda: kern(x, codes, scales, t.fmt), got):
                     fail(f"{name}[{fname}] M={m} K={k} N={n}: a repeated "
                          "call (eager or in a CUDA graph) is not "
@@ -282,6 +297,24 @@ def phase_kernels(seed: int):
                                  ("library_ms", lib_ms), ("bound_ms", bound),
                                  ("t_bytes", t_bytes), ("t_ops", t_ops)):
                     per[key] += mult * val
+            if tplan is not None:
+                a = agg[(name, fname)].setdefault("crossover", {})
+                for m in CROSSOVER_MS:
+                    x = (torch.randn((m, k), generator=gen, device=dev)
+                         ).to(torch.bfloat16)
+                    want = plain(x, codes, scales, t.fmt)
+                    row = a.setdefault(m, {"decode": 0.0, "tiled": 0.0})
+                    for body in ("decode", "tiled"):
+                        got = kern(x, codes, scales, t.fmt, body=body)
+                        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4
+                                              * float(want.abs().max())):
+                            fail(f"{name}[{fname}] M={m} K={k} N={n}: the "
+                                 f"{body} body disagrees with the plain "
+                                 "version")
+                        row[body] += PROJ_SHAPES[(k, n)] * cuda_time_ms(
+                            lambda i: kern(x, copies[i % n_copy][0],
+                                           copies[i % n_copy][1], t.fmt,
+                                           body=body), 50)
             del copies, dense
             torch.cuda.empty_cache()
     for (name, fname), a in agg.items():
@@ -292,6 +325,10 @@ def phase_kernels(seed: int):
                 f"{per['bound_ms']:.4f} ms, {100 * per['bound_ms'] / per['ms']:.1f}"
                 f"% of it; plain {per['plain_ms']:.4f} ms; torch bf16 "
                 f"{per['library_ms']:.4f} ms)")
+        for m, row in sorted(a.get("crossover", {}).items()):
+            log(f"crossover, one layer at M={m}, {name}[{fname}]: decode "
+                f"body {row['decode']:.4f} ms, tiled body {row['tiled']:.4f} "
+                f"ms (DECODE_MAX_M = {mx_matmul.DECODE_MAX_M})")
     return agg
 
 
@@ -1370,8 +1407,9 @@ def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
         if st["kv_pages_alloc"] != st["kv_pages_freed"]:
             fail(f"{fmt}: pages alloc {st['kv_pages_alloc']} != freed "
                  f"{st['kv_pages_freed']} at drain")
-        for k in totals:
+        for k in at:
             totals[k] += at[k]
+        totals[kernel] = totals.get(kernel, 0) + mm[kernel]
         total = sum(len(r.out_tokens) for r in reqs)
         if dense_streams is not None:
             eq = sum(x == y for r, d in zip(reqs, dense_streams[fmt])
@@ -1447,7 +1485,10 @@ def main() -> int:
     else:
         launches, streams = phase_serving(cfg, anchor, args.seed)
     torch.cuda.empty_cache()
-    launches.update(phase_paged_serving(cfg, anchor, args.seed, streams))
+    # B1/B2 launches: the dense waves' and the paged waves' (prefill chunks,
+    # mixed and pure decode ticks); B3/B4: the paged waves'
+    for k, v in phase_paged_serving(cfg, anchor, args.seed, streams).items():
+        launches[k] = launches.get(k, 0) + v
     counts = _quant_launches()
     # one make_anchor per anchor built (7 leaves, one B6 launch each); an
     # mxint4 build per engine (the dense phase's fused, unfused and poisoned
@@ -1485,6 +1526,7 @@ def main() -> int:
             "timed_as": f"one layer's {PROJ_PER_LAYER} qwen3-4b projections "
                         "at M=4",
             "ms_by_m": {m: per["ms"] for m, per in a["by_m"].items()},
+            "ms_by_body_at_m": a.get("crossover", {}),
             "library_ms_by_m": {m: per["library_ms"]
                                 for m, per in a["by_m"].items()},
         })

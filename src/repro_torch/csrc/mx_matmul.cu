@@ -4,9 +4,10 @@
 //   B1 <- mx_matmul_pallas       (int8 MXINT / uint8 MXFP codes)
 //   B2 <- mx_matmul_int4_pallas  (split-N int4 nibbles)
 // Each has two bodies here, templated on the same three modes, and
-// kernels/mx_matmul.py picks one by M alone: the decode body for M <= 16
-// (mx_matmul_decode_launch), the tiled body above (mx_matmul_launch,
-// mx_matmul_int4_launch).
+// kernels/mx_matmul.py picks one by M alone: the decode body up to
+// DECODE_MAX_M = 4 rows (mx_matmul_decode_launch), the tiled body above
+// (mx_matmul_tiled_launch). The bodies cross between M = 4 and 8 for B1
+// (below 4 for B2), measured on the card (PERF.md).
 //
 // Both compute y (M, N) f32 = x (M, K) @ dequant(W), x in bf16 or f32,
 // where W's element codes are (K, N) [or split-N packed (K, N/2)] and its
@@ -16,7 +17,7 @@
 // clamped to [-126, 127]) and each product table[c] * 2^e accumulated in
 // f32; the bodies differ only in the order of the sum.
 //
-// The decode body (M <= 16). What bounds it on the H100: the weight streams
+// The decode body (M <= 4). What bounds it on the H100: the weight streams
 // from HBM once per call for ~2·M flops per code, so bytes bound it (codes +
 // scales over 3.35 TB/s; one qwen3-4b layer: 0.031 ms at 8 bits, 0.016 ms
 // at 4); the CUDA-core work of decoding, scaling and M FMAs per code (~7
@@ -37,16 +38,53 @@
 // at most 2-way bank conflicts), so mxfp8 costs about what mxint8 does; a
 // split-N int4 byte is read once and feeds both of its columns.
 //
-// The tiled body (M > 16: prefill buckets, the mixed tick's M = 256). What
-// bounds it: the flops grow with M while the bytes do not; every
-// dequantized MX value is exact in bf16, so bf16 tensor cores (989
-// TFLOP/s) could do the work, and the flop bound takes over once M passes
-// about 150 at 8 bits (about 75 at 4 bits). What it does: it reads every
-// code byte once per M-tile of 8 rows with coalesced 4-byte loads along N
-// (4 output columns per thread), never materialises a dense weight, and
-// spreads K over 32 thread groups inside a block; each thread issues a
-// chunk of 16 code rows' loads before using any. It runs on CUDA-core FMAs,
-// far from both bounds; a tensor-core version is later work.
+// The tiled body (M > 4: prefill buckets, the mixed tick's M = 256). What
+// bounds it on the H100: the flops grow with M while the bytes do not, so
+// past M ~ 150 at 8 bits (~75 at 4) the work is operation-bound (one
+// qwen3-4b layer at M = 256: 51.7 GFLOP, 0.052 ms at the bf16 tensor-core
+// peak, against 0.031 ms for its bytes) and only the tensor cores can do
+// it; below that the weight bytes bind, read once per M-tile. Measured on
+// the card, a layer is held back most by shared-memory traffic and the
+// per-stage chain (wait, barrier, decode) of each block, and at M <= 64 by
+// a fixed cost of a few microseconds per launch. What the design does:
+// dequantize in shared memory, multiply on tensor cores with wgmma.
+//   - A block owns a BM x 64 output tile (BM 64 or 128; split-N int4: 32
+//     packed columns, which hold both of the tile's nibble column ranges)
+//     and walks its K range in stages of 64 rows. Code tiles (16-byte
+//     pieces of the leaf's rows) and x tiles arrive by cp.async in a ring
+//     of four stages, issued two stages ahead of the one decoded.
+//   - The block's threads decode each code tile once per M-tile into a
+//     bf16 tile already multiplied by 2^e: each thread reads 4 code bytes
+//     of KR consecutive rows (one 4-byte load each) and writes, column by
+//     column, KR values along K (int8 by a byte permute and one add per
+//     value, int4 nibbles as bf16 128 + u minus 136 per pair, MXFP through
+//     a shared-memory table of decode_fp's values in bf16, 8 copies; the
+//     scales staged 16 K-blocks at a time, fetched one window ahead).
+//   - The product runs as wgmma.m64n64k16 (bf16 in, f32 accumulate), one
+//     warpgroup per 64 rows, with A (x) and B (the decoded tile) both
+//     K-major under the 128-byte swizzle, so every operand is read from
+//     shared memory once per warpgroup (ldmatrix and mma.sync, this body's
+//     first version, read each A tile 4 and each B tile 2 times, and ran
+//     slower on the card). The MMAs of a stage are issued, then the
+//     next stage is decoded into the other of two W tiles while they run;
+//     a proxy fence makes the threads' writes visible to wgmma.
+//   - f32 x (callers outside the serving path) is split into bf16 hi + lo,
+//     two MMAs per product, so x keeps ~16 significant bits.
+//   - The card fills at every shape: kernels/mx_matmul.py::tiled_plan
+//     splits K, in whole K-blocks, over the cs ranks of a thread-block
+//     cluster (from shapes alone), and the ranks' partial tiles meet in
+//     rank order through distributed shared memory. No float atomics, no
+//     scratch, no host read: a call is deterministic and a CUDA-graph
+//     replay bit-identical.
+//   - Edges in the same kernel: ragged M, N and K ranges are zero-filled
+//     (by zero-filling cp.async where the leaf and x lie on the 16-byte
+//     grid); codes or x off the grid, and f32 x, take scalar loads.
+// Exactness: MXINT codes have |c| <= 127 and pow2i clamps e to [-126, 127],
+// so c * 2^e is an exact (normal) bf16 value. The MXFP values (e4m3, e5m2,
+// e3m2, e2m3, e2m1) carry at most 3 mantissa bits, so value * 2^e is exact
+// in bf16 too, except where it falls below 2^-126, where bf16 keeps fewer
+// subnormal bits than f32. bf16 x times these values is exact in f32; only
+// the order of the f32 sums differs from the plain version.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -55,16 +93,10 @@
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kColsPerThread = 4;
-constexpr int kBlockN = 32;                               // columns per block
-constexpr int kColThreads = kBlockN / kColsPerThread;     // 8
-constexpr int kKGroups = kThreads / kColThreads;          // 32
-constexpr int kBlockM = 8;                                // rows per block
 
 constexpr int kModeInt = 0;    // int8 two's-complement MXINT codes
 constexpr int kModeFp = 1;     // uint8 MXFP bit patterns
@@ -88,61 +120,10 @@ __device__ __forceinline__ float decode_fp(uint32_t c, const Fmt& f) {
   return s ? -mag : mag;
 }
 
-// int4 loads are sign-extended to int8 byte lanes when loaded, so MXINT4
-// decodes like MXINT8 (one byte-to-float conversion per code).
-template <int MODE>
-__device__ __forceinline__ float decode(uint32_t c, const Fmt& f) {
-  if (MODE == kModeFp) return decode_fp(c, f);
-  return (float)(int)(int8_t)(uint8_t)c;
-}
-
 // Four zero-extended nibbles, one per byte lane -> four int8 values:
 // ((n ^ 8) - 8) in each lane, with no borrow across lanes.
 __device__ __forceinline__ uint32_t sign_extend_nibbles(uint32_t w) {
   return __vsub4(w ^ 0x08080808u, 0x08080808u);
-}
-
-// Codes of output columns n0..n0+3 at row k, one per byte lane of the
-// returned word. Columns >= N read as code 0, which decodes to 0 in every
-// format. On the vector path (``full``: 4 in-range columns, aligned) int4
-// returns the raw packed word, whose nibbles ``int4_lanes`` extracts after
-// all of a chunk's loads are issued; the scalar path returns finished int8
-// lanes.
-template <int MODE>
-__device__ __forceinline__ uint32_t load_codes(
-    const uint8_t* __restrict__ codes, int k, int n0, int N, bool full) {
-  if (MODE != kModeInt4) {
-    const uint8_t* row = codes + (size_t)k * N;
-    if (full) return *reinterpret_cast<const uint32_t*>(row + n0);
-    uint32_t word = 0u;
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j)
-      if (n0 + j < N) word |= (uint32_t)row[n0 + j] << (8 * j);
-    return word;
-  }
-  // Split-N: byte j holds column j (low nibble) and j + N/2 (high).
-  const int half = N / 2;
-  const uint8_t* row = codes + (size_t)k * half;
-  if (full) {
-    // the vector path needs half % 4 == 0: the 4 columns share one half
-    return *reinterpret_cast<const uint32_t*>(row + (n0 >= half ? n0 - half
-                                                                : n0));
-  }
-  uint32_t word = 0u;
-#pragma unroll
-  for (int j = 0; j < kColsPerThread; ++j) {
-    const int n = n0 + j;
-    const uint32_t b = n >= N ? 0u
-                       : n < half ? row[n] & 0xFu : row[n - half] >> 4;
-    word |= b << (8 * j);
-  }
-  return sign_extend_nibbles(word);
-}
-
-// The four int8 lanes of a raw split-N word: low nibbles for columns in the
-// first half (hi == 0), high nibbles for the second.
-__device__ __forceinline__ uint32_t int4_lanes(uint32_t raw, int hi) {
-  return sign_extend_nibbles((raw >> (4 * hi)) & 0x0F0F0F0Fu);
 }
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -150,115 +131,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Grid: (ceil(N / 32), ceil(M / 8)). Thread t owns columns
-// n0 = 32·bx + 4·(t % 8) .. n0+3 and the K-blocks kb ≡ t / 8 (mod 32); the
-// 32 K-group partial sums meet in shared memory at the end. Each K-block is
-// walked CHUNK rows at a time, all CHUNK code loads issued before any is
-// used, so every thread keeps CHUNK loads in flight.
-template <int MODE, typename XT, int CHUNK>
-__global__ void __launch_bounds__(kThreads)
-mx_mm_kernel(const XT* __restrict__ x, const uint8_t* __restrict__ codes,
-             const int8_t* __restrict__ scales, float* __restrict__ y, int M,
-             int K, int N, Fmt f, int vec) {
-  __shared__ float red[kKGroups][kBlockM][kBlockN];   // 32 KB
-  const int ct = threadIdx.x % kColThreads;
-  const int g = threadIdx.x / kColThreads;
-  const int n0 = blockIdx.x * kBlockN + ct * kColsPerThread;
-  const int m0 = blockIdx.y * kBlockM;
-  const int mcount = min(kBlockM, M - m0);
-  const int nkb = K / f.bs;
-  const bool full = vec != 0 && n0 + kColsPerThread <= N;
-  const int hi = n0 >= N / 2;          // int4: which nibble these columns use
-
-  float acc[kBlockM][kColsPerThread];
-#pragma unroll
-  for (int m = 0; m < kBlockM; ++m)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) acc[m][j] = 0.0f;
-
-  for (int kb = g; kb < nkb; kb += kKGroups) {
-    float s[kColsPerThread];
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j) {
-      const int n = n0 + j;
-      s[j] = n < N ? pow2i(scales[(size_t)n * nkb + kb]) : 0.0f;
-    }
-    for (int k0 = kb * f.bs; k0 < (kb + 1) * f.bs; k0 += CHUNK) {
-      uint32_t word[CHUNK];
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u)
-        word[u] = load_codes<MODE>(codes, k0 + u, n0, N, full);
-#pragma unroll
-      for (int u = 0; u < CHUNK; ++u) {
-        if (MODE == kModeInt4 && full) word[u] = int4_lanes(word[u], hi);
-        float w[kColsPerThread];
-#pragma unroll
-        for (int j = 0; j < kColsPerThread; ++j)
-          w[j] = decode<MODE>((word[u] >> (8 * j)) & 0xFFu, f) * s[j];
-        const XT* xk = x + (size_t)m0 * K + k0 + u;
-#pragma unroll
-        for (int m = 0; m < kBlockM; ++m) {
-          if (m < mcount) {
-            const float xv = to_float(xk[(size_t)m * K]);
-#pragma unroll
-            for (int j = 0; j < kColsPerThread; ++j)
-              acc[m][j] = fmaf(xv, w[j], acc[m][j]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int m = 0; m < kBlockM; ++m)
-#pragma unroll
-    for (int j = 0; j < kColsPerThread; ++j)
-      red[g][m][ct * kColsPerThread + j] = acc[m][j];
-  __syncthreads();
-
-  // kThreads == kBlockM * kBlockN: one output element per thread.
-  const int m = threadIdx.x / kBlockN;
-  const int col = threadIdx.x % kBlockN;
-  const int n = blockIdx.x * kBlockN + col;
-  if (m < mcount && n < N) {
-    float sum = 0.0f;
-#pragma unroll 8
-    for (int gg = 0; gg < kKGroups; ++gg) sum += red[gg][m][col];
-    y[(size_t)(m0 + m) * N + n] = sum;
-  }
-}
-
-template <int MODE, typename XT>
-int launch(const void* x, const uint8_t* codes, const int8_t* scales,
-           float* y, int M, int K, int N, Fmt f, int vec,
-           cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return (int)cudaSuccess;
-  const dim3 grid((N + kBlockN - 1) / kBlockN, (M + kBlockM - 1) / kBlockM);
-  const XT* xt = static_cast<const XT*>(x);
-  if (f.bs % 16 == 0) {
-    mx_mm_kernel<MODE, XT, 16><<<grid, kThreads, 0, stream>>>(
-        xt, codes, scales, y, M, K, N, f, vec);
-  } else if (f.bs % 8 == 0) {
-    mx_mm_kernel<MODE, XT, 8><<<grid, kThreads, 0, stream>>>(
-        xt, codes, scales, y, M, K, N, f, vec);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-template <int MODE>
-int launch_x(const void* x, int x_bf16, const uint8_t* codes,
-             const int8_t* scales, float* y, int M, int K, int N, Fmt f,
-             int vec, cudaStream_t stream) {
-  return x_bf16 ? launch<MODE, __nv_bfloat16>(x, codes, scales, y, M, K, N,
-                                              f, vec, stream)
-                : launch<MODE, float>(x, codes, scales, y, M, K, N, f, vec,
-                                      stream);
-}
-
 // ---------------------------------------------------------------------------
-// The decode body (M <= 16): a streaming reduction over the weight.
+// The decode body (M <= DECODE_MAX_M): a streaming reduction over the
+// weight.
 //
 // Grid (CS, strips, M-tiles), clusters of (CS, 1, 1). A strip is ``strip``
 // consecutive code bytes of every row (split-N int4: of every packed row,
@@ -717,39 +592,647 @@ int launch_decode_m(const void* x, int x_bf16, const uint8_t* codes,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled body (M > DECODE_MAX_M): dequantize in shared memory, multiply
+// on tensor cores by wgmma (see the note at the top).
+//
+// Grid (cs, N-tiles, M-tiles) in clusters of (cs, 1, 1). A block owns a
+// BM x 64 output tile (split-N int4: 32 packed columns, i.e. 32 columns of
+// each nibble range); its BM / 64 warpgroups each multiply a 64 x 64
+// sub-tile with wgmma.m64n64k16, A (x) and B (the decoded weight) both
+// K-major in shared memory under the 128-byte swizzle. Rank r of a
+// cluster walks K-blocks [r * nkb / cs, (r+1) * nkb / cs) in stages of 64
+// rows. One barrier per stage: after it, every thread issues the loads of
+// a stage further on, starts the asynchronous MMAs of this stage on one of
+// two W tiles and, while they run, decodes the next stage's codes into the
+// other; it waits for its MMAs before the next barrier.
+constexpr int kTK = 64;            // K rows per stage: one 128-byte row
+constexpr int kTScaleWin = 16;     // K-blocks of scales staged at a time
+constexpr int kTCopies = 8;        // MXFP table copies
+
+template <int MODE, typename XT, int BM>
+struct TiledCfg {
+  static constexpr int BN = 64;            // output columns per block
+  static constexpr int THREADS = 2 * BM;   // a warpgroup per 64 rows
+  // Blocks per SM at bf16 x (shared memory ~71 KB at BM = 64, ~103 KB at
+  // 128); f32 x adds a lo tile per stage.
+  static constexpr int MIN_BLOCKS =
+      sizeof(XT) == 2 ? (BM == 64 ? 3 : 2) : 1;
+  static constexpr int STAGES = sizeof(XT) == 2 ? 4 : 3;
+  static constexpr int CB = MODE == kModeInt4 ? BN / 2 : BN;  // code bytes
+  static constexpr int CH = CB / 16;       // 16-byte chunks per code row
+  static constexpr int SP = BN;            // scale window pitch (bf16)
+  // Decode tasks: KR code rows x 4 code bytes each, one per thread.
+  static constexpr int KR = (CB / 4) * kTK / THREADS;
+  static constexpr int CU = (kTK * CH + THREADS - 1) / THREADS;  // chunks
+  static constexpr int XU = BM * (kTK / 8) / THREADS;  // x pieces / thread
+  static constexpr int ACC = 32;           // f32 sums per thread
+  static_assert(KR == 2 || KR == 4 || KR == 8, "decode task rows");
+};
+
+// The hot loop addresses shared memory by 32-bit shared-window addresses
+// (one conversion per kernel, none per access).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes to shared memory, of which the first src_bytes (0..16) come
+// from src and the rest are zeros.
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst,
+                                                 const void* src,
+                                                 int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t a) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t lds16(uint32_t a) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(a));
+  return v;
+}
+
+__device__ __forceinline__ void sts32(uint32_t a, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(a), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void sts64(uint32_t a, uint32_t v0, uint32_t v1) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n"
+               :: "r"(a), "r"(v0), "r"(v1) : "memory");
+}
+
+__device__ __forceinline__ void sts128(uint32_t a, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(a), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// Byte offset of 16-byte chunk q of row r in a tile of 128-byte rows under
+// the 128-byte swizzle (the pattern wgmma's layout type 1 reads).
+__device__ __forceinline__ uint32_t sw128(int r, int q) {
+  return (uint32_t)(r * 128 + ((q ^ (r & 7)) << 4));
+}
+
+// wgmma operand descriptor of a K-major tile of 128-byte rows at a
+// 1024-byte-aligned shared address under the 128-byte swizzle: 8-row
+// groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Generic-proxy writes to shared memory (stores, cp.async) become visible
+// to the async proxy that wgmma reads through.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 64, f32, 32 per thread) += A (64 x 16) * B (16 x 64), bf16.
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t a,
+                                               uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0(float (&d)[32]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+                 "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+                 "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+                 "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+                 "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+                 "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+                 "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+                 "+f"(d[30]), "+f"(d[31])
+               :: "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+template <int MODE, typename XT, int BM, bool VEC>
+__global__ void __launch_bounds__(TiledCfg<MODE, XT, BM>::THREADS,
+                                  TiledCfg<MODE, XT, BM>::MIN_BLOCKS)
+mx_mm_tiled_kernel(const XT* __restrict__ x,
+                   const uint8_t* __restrict__ codes,
+                   const int8_t* __restrict__ scales, float* __restrict__ y,
+                   int M, int K, int N, Fmt f) {
+  using C = TiledCfg<MODE, XT, BM>;
+  constexpr int T = C::THREADS, S = C::STAGES, KR = C::KR, BN = C::BN;
+  constexpr bool kSplitX = sizeof(XT) == 4;        // f32 x: hi + lo MMAs
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) uint8_t tsm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int wg = tid / 128;                        // warpgroup: 64 rows
+  const int W = MODE == kModeInt4 ? N / 2 : N;     // code bytes per row
+  const int s0 = blockIdx.y * C::CB;               // tile's first code byte
+  const int m0 = blockIdx.z * BM;
+  const int nkb = K / f.bs;
+  const int kb_lo = rank * nkb / cs, kb_hi = (rank + 1) * nkb / cs;
+  const int k_lo = kb_lo * f.bs, k_hi = kb_hi * f.bs;
+  const int nk = (k_hi - k_lo + kTK - 1) / kTK;    // stages
+  // floor(k / bs) as (k + 0.5) * (1 / bs), truncated: exact for k < 2^20
+  // (the quotient lies at least 0.5 / bs from an integer)
+  const float inv_bs = 1.0f / (float)f.bs;
+
+  // [x ring (hi, then lo for f32 x)][two W tiles][code ring][scales as
+  // bf16 2^e][MXFP table, bf16], from a 1024-byte-aligned base (the
+  // swizzle repeats every 1024 bytes).
+  constexpr int kXStage = BM * 128;                // bytes per x stage
+  constexpr int kWTile = BN * 128;                 // bytes per W tile
+  const uint32_t a_base = (smem_u32(tsm) + 1023) & ~1023u;
+  uint8_t* base = tsm + (a_base - smem_u32(tsm));
+  const uint32_t a_xhi = a_base;
+  const uint32_t a_xlo = a_xhi + S * kXStage;
+  const uint32_t a_wt = a_xhi + (kSplitX ? 2 : 1) * S * kXStage;
+  const uint32_t a_cring = a_wt + 2 * kWTile;
+  const uint32_t a_sw = a_cring + S * kTK * C::CB;
+  const uint32_t a_table = a_sw + kTScaleWin * C::SP * 2;
+  uint8_t* cring = base + (a_cring - a_base);
+  uint16_t* sw = reinterpret_cast<uint16_t*>(base + (a_sw - a_base));
+  uint16_t* table = reinterpret_cast<uint16_t*>(base + (a_table - a_base));
+
+  // column c of the tile (0 <= c < BN) -> output column, or -1
+  auto out_col = [&](int c) -> int {
+    if (MODE != kModeInt4) return s0 + c < N ? s0 + c : -1;
+    const int b = s0 + (c < C::CB ? c : c - C::CB);
+    return b < W ? (c < C::CB ? b : W + b) : -1;
+  };
+
+  if (MODE == kModeFp)
+    for (int i = tid; i < (kTCopies << f.bits); i += T) {
+      const __nv_bfloat16 v =
+          __float2bfloat16_rn(decode_fp((uint32_t)(i / kTCopies), f));
+      table[i] = *reinterpret_cast<const uint16_t*>(&v);
+    }
+
+  // This thread's code chunks and x pieces, at the rank's first K row; a
+  // stage moves them kTK rows on. cbytes: the chunk's bytes inside the row.
+  const uint8_t* csrc[C::CU];
+  int coff[C::CU], crow[C::CU], cbytes[C::CU];
+#pragma unroll
+  for (int u = 0; u < C::CU; ++u) {
+    const int j = tid + u * T;
+    const int r = j / C::CH, b = s0 + (j % C::CH) * 16;
+    crow[u] = j < kTK * C::CH ? r : kTK;           // kTK: no chunk
+    coff[u] = r * C::CB + (j % C::CH) * 16;
+    cbytes[u] = min(max(W - b, 0), 16);
+    csrc[u] = codes + (size_t)(k_lo + r) * W + b;
+  }
+  const XT* xsrc[C::XU];
+  int xoff[C::XU], xkc[C::XU];
+  bool xlive[C::XU];
+#pragma unroll
+  for (int u = 0; u < C::XU; ++u) {
+    const int j = tid + u * T;
+    const int mr = j / (kTK / 8), q = j % (kTK / 8);
+    xoff[u] = sw128(mr, q);
+    xkc[u] = q * 8;
+    xlive[u] = m0 + mr < M;
+    xsrc[u] = x + (size_t)(m0 + mr) * K + k_lo + q * 8;
+  }
+
+  // Stage kt's codes and x into ring slot kt % S, zeros past M, N and the
+  // rank's K range. VEC (code rows and x on the 16-byte grid, bf16 x): all
+  // by zero-filling cp.async, branch-free; else scalar loads.
+  auto issue = [&](int kt) {
+    const int slot = kt % S;
+    const int rows = min(kTK, k_hi - k_lo - kt * kTK);
+    const uint32_t ac = a_cring + slot * kTK * C::CB;
+    const uint32_t ax = a_xhi + slot * kXStage;
+    if constexpr (VEC) {
+#pragma unroll
+      for (int u = 0; u < C::CU; ++u) {
+        if (crow[u] >= kTK) continue;
+        const int nb = crow[u] < rows ? cbytes[u] : 0;
+        cp_async16_zfill(ac + coff[u],
+                         nb ? csrc[u] + (size_t)kt * kTK * W : codes, nb);
+      }
+#pragma unroll
+      for (int u = 0; u < C::XU; ++u) {
+        const bool live = xlive[u] && xkc[u] < rows;
+        cp_async16_zfill(ax + xoff[u], live ? xsrc[u] + kt * kTK : x,
+                         live ? 16 : 0);
+      }
+    } else {
+      uint8_t* cdst = cring + slot * kTK * C::CB;
+#pragma unroll
+      for (int u = 0; u < C::CU; ++u) {
+        if (crow[u] >= kTK) continue;
+        const uint8_t* src = csrc[u] + (size_t)kt * kTK * W;
+        const int b = s0 + coff[u] % C::CB;
+        *reinterpret_cast<uint4*>(cdst + coff[u]) =
+            crow[u] < rows && cbytes[u] > 0 ? load16_edge(src - b, b, W)
+                                            : make_uint4(0u, 0u, 0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < C::XU; ++u) {
+        const XT* src = xsrc[u] + kt * kTK;
+        const bool live = xlive[u] && xkc[u] < rows;
+        float v[8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[e] = live ? to_float(src[e]) : 0.0f;
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          hi[e] = bf16x2(v[2 * e], v[2 * e + 1]);
+          const __nv_bfloat162 h = as_bf2(hi[e]);
+          lo[e] = bf16x2(v[2 * e] - __low2float(h),
+                         v[2 * e + 1] - __high2float(h));
+        }
+        sts128(ax + xoff[u], make_uint4(hi[0], hi[1], hi[2], hi[3]));
+        if constexpr (kSplitX)
+          sts128(a_xlo + slot * kXStage + xoff[u],
+                 make_uint4(lo[0], lo[1], lo[2], lo[3]));
+      }
+    }
+  };
+
+  // Scale windows: the E8M0 exponents of K-blocks [kb, kb + kTScaleWin) of
+  // the tile's columns, fetched into registers one window ahead (so their
+  // loads overlap a window's stages; the first beside stage 0's) and
+  // stored, when the walk reaches them, as bf16 2^e in [K-block][column].
+  // (A 40-block window fetched when reached ran slower on the card.)
+  constexpr int kSPer = BN * kTScaleWin / T;
+  int8_t snext[kSPer];
+  auto fetch_scales = [&](int kb) {
+#pragma unroll
+    for (int u = 0; u < kSPer; ++u) {
+      const int i = tid + u * T;
+      const int n = out_col(i / kTScaleWin), k = kb + i % kTScaleWin;
+      snext[u] = n >= 0 && k < kb_hi ? scales[(size_t)n * nkb + k] : 0;
+    }
+  };
+  // The window must hold stage kt's K-blocks (block-uniform). Its old
+  // readers are done: every call follows a barrier that follows them.
+  int kb0 = INT_MIN / 2, kb_next = -1;   // window held; window fetched
+  auto window_for = [&](int kt) {
+    const int k0 = k_lo + kt * kTK;
+    const int kb_first = __float2int_rz((k0 + 0.5f) * inv_bs);
+    const int kb_last = __float2int_rz((min(k0 + kTK, k_hi) - 0.5f) * inv_bs);
+    if (kb_first < kb0 || kb_last >= kb0 + kTScaleWin) {
+      if (kb_first != kb_next) fetch_scales(kb_first);
+      kb0 = kb_first;
+#pragma unroll
+      for (int u = 0; u < kSPer; ++u) {
+        const int i = tid + u * T;
+        const int e = min(max((int)snext[u], -126), 127);
+        sw[(i % kTScaleWin) * C::SP + i / kTScaleWin] =
+            (uint16_t)((e + 127) << 7);
+      }
+      __syncthreads();
+      kb_next = kb0 + kTScaleWin;
+      if (kb_next < kb_hi) fetch_scales(kb_next);
+    }
+  };
+
+  // Decode: thread t takes code bytes [4 cg, 4 cg + 4) of code rows
+  // [KR rg, KR rg + KR) of the stage (cg = t % (CB / 4), rg = t / (CB /
+  // 4)): KR 4-byte loads, then, column by column, KR values of one column
+  // (one K-block: KR divides 8, bs is a multiple of 8) as KR / 2 bf16 pairs
+  // times (2^e, 2^e), stored into that column's K-major row of the W tile.
+  // Each thread starts at column (cg / 2) % 4 of its four, so the 8 threads
+  // of a store phase reach 8 distinct rows modulo 8: distinct banks.
+  const int cg4 = tid % (C::CB / 4), rg = tid / (C::CB / 4);
+  const int krow = rg * KR;                          // first code row
+  const int rot = (cg4 >> 1) & 3;
+  const uint32_t a_tb = a_table + (lane % kTCopies) * 2;
+  auto decode = [&](int kt, int kb0) {
+    const uint32_t ac = a_cring + (kt % S) * kTK * C::CB + krow * C::CB
+                        + cg4 * 4;
+    const uint32_t aw = a_wt + (kt & 1) * kWTile;
+    const int kbw = min(__float2int_rz((k_lo + kt * kTK + krow + 0.5f)
+                                       * inv_bs) - kb0, kTScaleWin - 1);
+    const uint32_t as = a_sw + kbw * C::SP * 2;
+    uint32_t u[KR];
+#pragma unroll
+    for (int r = 0; r < KR; ++r) u[r] = lds32(ac + r * C::CB);
+    if (MODE == kModeInt4) {
+#pragma unroll
+      for (int r = 0; r < KR; ++r) u[r] ^= 0x88888888u;
+    } else if (MODE == kModeInt) {
+#pragma unroll
+      for (int r = 0; r < KR; ++r) u[r] ^= 0x80808080u;
+    }
+    const __nv_bfloat162 k136 = __floats2bfloat162_rn(136.0f, 136.0f);
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int col = (jj + rot) & 3;                // of the thread's four
+      const int n = cg4 * 4 + col;                   // W row (tile column)
+      const uint32_t s1 = lds16(as + n * 2);
+      const uint32_t s2 = s1 | s1 << 16;             // (2^e, 2^e)
+      uint32_t p[KR / 2], ph[KR / 2];
+#pragma unroll
+      for (int r = 0; r < KR; r += 2) {
+        if (MODE == kModeInt4) {
+          const uint32_t sel = col | col << 4 | (4 + col) << 8
+                               | (4 + col) << 12;
+          const uint32_t t2 = __byte_perm(u[r], u[r + 1], sel);
+          const uint32_t lo = (t2 & 0x000F000Fu) | 0x43004300u;
+          const uint32_t hi = ((t2 >> 4) & 0x000F000Fu) | 0x43004300u;
+          p[r / 2] = as_u32(__hsub2(as_bf2(lo), k136));
+          ph[r / 2] = as_u32(__hsub2(as_bf2(hi), k136));
+        } else if (MODE == kModeFp) {
+          const uint32_t fmask = (1u << f.bits) - 1u;
+          const uint32_t c0 = (u[r] >> (8 * col)) & fmask;
+          const uint32_t c1 = (u[r + 1] >> (8 * col)) & fmask;
+          p[r / 2] = lds16(a_tb + c0 * (2 * kTCopies))
+                     | lds16(a_tb + c1 * (2 * kTCopies)) << 16;
+        } else {
+          const uint32_t sel = 0x7540u | col;
+          const float v0 =
+              __int_as_float(__byte_perm(u[r], 0x4B000000u, sel)) - 8388736.0f;
+          const float v1 = __int_as_float(__byte_perm(u[r + 1], 0x4B000000u,
+                                                      sel)) - 8388736.0f;
+          p[r / 2] = bf16x2(v0, v1);
+        }
+      }
+      auto put = [&](int wn, const uint32_t* v, uint32_t sc) {
+        uint32_t o[KR / 2];
+#pragma unroll
+        for (int i = 0; i < KR / 2; ++i)
+          o[i] = as_u32(__hmul2(as_bf2(v[i]), as_bf2(sc)));
+        const uint32_t a = aw + sw128(wn, krow / 8) + (krow % 8) * 2;
+        if constexpr (KR == 8) sts128(a, make_uint4(o[0], o[1], o[2], o[3]));
+        else if constexpr (KR == 4) sts64(a, o[0], o[1]);
+        else sts32(a, o[0]);
+      };
+      put(n, p, s2);
+      if (MODE == kModeInt4) {                       // high: j + N/2
+        const uint32_t h1 = lds16(as + (C::CB + n) * 2);
+        put(C::CB + n, ph, h1 | h1 << 16);
+      }
+    }
+  };
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+
+  // The warpgroup's operands: rows wg * 64.. of the x stage, the whole W
+  // tile; a K step of 16 moves 32 bytes.
+  auto products = [&](int kt) {
+    const uint32_t xa = a_xhi + (kt % S) * kXStage + wg * 64 * 128;
+    const uint32_t xl = a_xlo + (kt % S) * kXStage + wg * 64 * 128;
+    const uint32_t wb = a_wt + (kt & 1) * kWTile;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTK / 16; ++kk) {
+      wgmma_64x64x16(acc, wg_desc(xa + kk * 32), wg_desc(wb + kk * 32));
+      if constexpr (kSplitX)
+        wgmma_64x64x16(acc, wg_desc(xl + kk * 32), wg_desc(wb + kk * 32));
+    }
+    wgmma_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < S - 1; ++s) {
+    if (s < nk) issue(s);
+    cp_async_commit();
+  }
+  kb_next = kb_lo;                   // the first window, beside stage 0
+  fetch_scales(kb_next);
+  if (nk > 0) {
+    cp_async_wait<S - 2>();          // stage 0 landed
+    __syncthreads();
+    window_for(0);
+    decode(0, kb0);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    // stage kt + 1 landed; decode(kt) and stage kt - 1's MMAs done
+    // everywhere, and visible to the async proxy
+    cp_async_wait<S - 3>();
+    fence_async_smem();
+    __syncthreads();
+    if (kt + S - 1 < nk) issue(kt + S - 1);        // into kt - 1's slot
+    cp_async_commit();
+    products(kt);                                  // asynchronous MMAs
+    if (kt + 1 < nk) {                             // meanwhile, decode
+      window_for(kt + 1);
+      decode(kt + 1, kb0);                          // into the other W tile
+    }
+    wgmma_wait0(acc);
+  }
+  cp_async_wait<0>();
+
+  // Sum r of a thread (r = 4 j + q: n8 tile j, quarter q of the fragment)
+  // -> tile row, column.
+  auto row_of = [&](int t, int r) {
+    return (t / 128) * 64 + ((t / 32) % 4) * 16 + ((t & 31) >> 2)
+           + ((r & 3) >> 1) * 8;
+  };
+  auto col_of = [&](int t, int r) {
+    return (r / 4) * 8 + (t & 3) * 2 + (r & 1);
+  };
+  // Sums r and r + 1 (r even) sit in adjacent columns of one row: stored
+  // as one 8-byte pair where both columns are live and the pair is aligned.
+  auto store_pair = [&](int r, float v0, float v1) {
+    const int m = m0 + row_of(tid, r);
+    const int n = out_col(col_of(tid, r));
+    if (m >= M || n < 0) return;
+    float* p = y + (size_t)m * N + n;
+    if (out_col(col_of(tid, r) + 1) == n + 1) {
+      if ((reinterpret_cast<uintptr_t>(p) & 7) == 0)
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      else
+        p[0] = v0, p[1] = v1;
+    } else {
+      p[0] = v0;
+    }
+  };
+  if (cs == 1) {
+#pragma unroll
+    for (int r = 0; r < C::ACC; r += 2) store_pair(r, acc[r], acc[r + 1]);
+    return;
+  }
+  // Split K: thread t's sums r in [o * rpc, (o + 1) * rpc) (rpc even, so a
+  // pair stays with one rank) belong to rank o. Every rank pushes them into
+  // its slot of rank o's inbox ([source rank][r - o * rpc][t], overlaying
+  // the now idle rings), and rank o adds its slots in rank order.
+  const int rpc = ((C::ACC + cs - 1) / cs + 1) & ~1;
+  const int per = rpc * T;
+  float* inbox = reinterpret_cast<float*>(base);
+  __syncthreads();
+  cluster.sync();                    // every rank is done with its rings
+  {
+    int o = 0, first = 0;
+    float* dst = cluster.map_shared_rank(inbox, 0) + rank * per + tid;
+#pragma unroll
+    for (int r = 0; r < C::ACC; ++r) {
+      if (r == first + rpc) {
+        ++o;
+        first = r;
+        dst = cluster.map_shared_rank(inbox, o) + rank * per + tid;
+      }
+      dst[(r - first) * T] = acc[r];
+    }
+  }
+  cluster.sync();                    // every push has landed
+  for (int j = 0; j < rpc && rank * rpc + j < C::ACC; j += 2) {
+    float v0 = 0.0f, v1 = 0.0f;
+    for (int src = 0; src < cs; ++src) {
+      v0 += inbox[src * per + j * T + tid];
+      v1 += inbox[src * per + (j + 1) * T + tid];
+    }
+    store_pair(rank * rpc + j, v0, v1);
+  }
+}
+
+template <int MODE, typename XT, int BM, bool VEC>
+int launch_tiled(const void* x, const uint8_t* codes, const int8_t* scales,
+                 float* y, int M, int K, int N, Fmt f, int cs,
+                 cudaStream_t stream) {
+  using C = TiledCfg<MODE, XT, BM>;
+  if (M <= 0 || N <= 0) return (int)cudaSuccess;
+  const int nkb = K / f.bs;
+  if (f.bs % 8 != 0 || cs < 1 || cs > 16 || cs > (nkb > 1 ? nkb : 1))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = mx_mm_tiled_kernel<MODE, XT, BM, VEC>;
+  static bool attrs_set = false;
+  if (!attrs_set) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         232448);
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    attrs_set = true;
+  }
+  const size_t table = MODE == kModeFp ? ((size_t)kTCopies << f.bits) * 2
+                                       : 0;
+  const size_t main_b = (size_t)C::STAGES * BM * 128
+                            * (sizeof(XT) == 4 ? 2 : 1)
+                        + 2 * (size_t)C::BN * 128
+                        + (size_t)C::STAGES * kTK * C::CB
+                        + (size_t)kTScaleWin * C::SP * 2 + table;
+  const size_t inbox_b =
+      4 * (size_t)cs * (((C::ACC + cs - 1) / cs + 1) & ~1) * C::THREADS;
+  const size_t smem = (main_b > inbox_b ? main_b : inbox_b) + 1024;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const int W = MODE == kModeInt4 ? N / 2 : N;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs, (W + C::CB - 1) / C::CB, (M + BM - 1) / BM);
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const XT*>(x), codes, scales, y, M, K, N, f);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <int MODE, typename XT, bool VEC>
+int launch_tiled_tile(const void* x, const uint8_t* codes,
+                      const int8_t* scales, float* y, int M, int K, int N,
+                      Fmt f, int bm, int cs, cudaStream_t stream) {
+  if (bm == 128)
+    return launch_tiled<MODE, XT, 128, VEC>(x, codes, scales, y, M, K, N, f,
+                                            cs, stream);
+  if (bm == 64)
+    return launch_tiled<MODE, XT, 64, VEC>(x, codes, scales, y, M, K, N, f,
+                                           cs, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// bf16 x with code rows and x on the 16-byte grid takes the cp.async path;
+// anything else (f32 x, a leaf or x off the grid) the scalar one.
+template <int MODE>
+int launch_tiled_x(const void* x, int x_bf16, const uint8_t* codes,
+                   const int8_t* scales, float* y, int M, int K, int N, Fmt f,
+                   int bm, int cs, int vec, cudaStream_t stream) {
+  if (!x_bf16)
+    return launch_tiled_tile<MODE, float, false>(x, codes, scales, y, M, K, N,
+                                                 f, bm, cs, stream);
+  if (vec == 3)
+    return launch_tiled_tile<MODE, __nv_bfloat16, true>(
+        x, codes, scales, y, M, K, N, f, bm, cs, stream);
+  return launch_tiled_tile<MODE, __nv_bfloat16, false>(
+      x, codes, scales, y, M, K, N, f, bm, cs, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// B1. x is (M, K) f32 (x_bf16 == 0) or bf16 (x_bf16 == 1), row-major.
-// fp == 0: int8 MXINT codes; fp == 1: uint8 MXFP bit patterns with the given
-// (bits, ebits, mbits, bias, emin). bs must be a multiple of 8. vec != 0
-// promises N % 4 == 0 and a 4-byte-aligned codes pointer. Returns
-// cudaGetLastError() after the launch.
-int mx_matmul_launch(const void* x, int x_bf16, const uint8_t* codes,
-                     const int8_t* scales, float* y, int M, int K, int N,
-                     int fp, int bits, int ebits, int mbits, int bias,
-                     int emin, int bs, int vec, void* stream) {
+// B1 (mode 0: int8 MXINT codes, 1: MXFP bit patterns with the given
+// (bits, ebits, mbits, bias, emin)) and B2 (mode 2: split-N int4), the
+// tiled body for M > 4: grid (cs, ceil(N / 64), ceil(M / bm)) in clusters
+// of cs blocks, bm x 64 output tiles (bm 64 or 128), as
+// kernels/mx_matmul.py::tiled_plan picks them. x is (M, K) row-major, f32
+// (x_bf16 == 0) or bf16; bs must be a multiple of 8. vec bit 0 promises
+// 16-byte-aligned code rows (codes pointer and row width), bit 1 a
+// 16-byte-aligned x. Returns the launch's error, else cudaGetLastError().
+int mx_matmul_tiled_launch(const void* x, int x_bf16, const uint8_t* codes,
+                           const int8_t* scales, float* y, int M, int K,
+                           int N, int mode, int bits, int ebits, int mbits,
+                           int bias, int emin, int bs, int bm, int cs,
+                           int vec, void* stream) {
   const Fmt f{bits, ebits, mbits, bias, emin, bs};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return fp ? launch_x<kModeFp>(x, x_bf16, codes, scales, y, M, K, N, f, vec,
-                                s)
-            : launch_x<kModeInt>(x, x_bf16, codes, scales, y, M, K, N, f,
-                                 vec, s);
+  switch (mode) {
+    case kModeInt:
+      return launch_tiled_x<kModeInt>(x, x_bf16, codes, scales, y, M, K, N,
+                                      f, bm, cs, vec, s);
+    case kModeFp:
+      return launch_tiled_x<kModeFp>(x, x_bf16, codes, scales, y, M, K, N, f,
+                                     bm, cs, vec, s);
+    case kModeInt4:
+      return launch_tiled_x<kModeInt4>(x, x_bf16, codes, scales, y, M, K, N,
+                                       f, bm, cs, vec, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// B2. packed is split-N (K, N/2) uint8; vec != 0 promises (N/2) % 4 == 0 and
-// a 4-byte-aligned packed pointer.
-int mx_matmul_int4_launch(const void* x, int x_bf16, const uint8_t* packed,
-                          const int8_t* scales, float* y, int M, int K, int N,
-                          int bs, int vec, void* stream) {
-  const Fmt f{4, 0, 0, 0, 0, bs};
-  return launch_x<kModeInt4>(x, x_bf16, packed, scales, y, M, K, N, f, vec,
-                             static_cast<cudaStream_t>(stream));
-}
 
 // The decode body of B1 (mode 0: int8 MXINT codes, 1: MXFP bit patterns)
-// and B2 (mode 2: split-N int4), for M <= 16: grid (cs, strips, ceil(M/4))
+// and B2 (mode 2: split-N int4), for M <= 4: grid (cs, strips, ceil(M/4))
 // in clusters of cs blocks, strip code bytes per block (a multiple of 16,
 // at most 256; 128 for int4), as kernels/mx_matmul.py::decode_plan picks
 // them. vec bit 0 promises 16-byte-aligned code rows (codes pointer and

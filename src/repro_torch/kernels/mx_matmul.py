@@ -14,16 +14,19 @@ an activation-sized f32 copy). On a CUDA tensor a wrapper launches its
 kernel or raises; on a CPU tensor it computes the plain version from
 ``kernels/ref.py``. ``launches`` counts kernel launches and nothing else.
 
-Two kernel bodies, chosen by M alone: up to ``DECODE_MAX_M`` rows (decode
-batches, the smallest prefill buckets) the decode body streams the weight
-split over K across a thread-block cluster, cut as ``decode_plan`` says;
-above it the tiled body of the first port runs.
+Two kernel bodies, chosen by M alone: up to ``DECODE_MAX_M`` rows (the
+decode batch) the decode body streams the weight split over K across a
+thread-block cluster, cut as ``decode_plan`` says; above it (prefill
+buckets, the mixed tick) the tiled body dequantizes code tiles into shared
+memory and multiplies on the tensor cores (wgmma), its K split over a
+cluster as ``tiled_plan`` says. Both plans read shapes alone, so every call
+can be captured in a CUDA graph.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -38,9 +41,17 @@ launches: Dict[str, int] = {"mx_matmul": 0, "mx_matmul_int4": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 
-DECODE_MAX_M = 16        # the decode body serves M <= 16
+DECODE_MAX_M = 4         # the decode body serves M <= 4 (PERF.md: the
+#                          bodies cross between M = 4 and 8 for B1)
 DECODE_MIN_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
 DECODE_MAX_BLOCKS = 512  # within the four blocks per SM that fit at once
+SMS = 132                # the H100's streaming multiprocessors
+TILED_BN = 64            # output columns per tiled block
+# The tiled plan, chosen from a card sweep of every qwen3-4b shape:
+# cluster ranks of at most this many K rows, and at least this many blocks
+# (where K allows; 64-row M-tiles run three blocks per SM, 128-row two).
+TILED_RANK_ROWS = 1280
+TILED_MIN_BLOCKS = 192
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +93,46 @@ def decode_plan(m: int, k: int, n: int, block_size: int,
     return DecodePlan(strip, cluster, strips, -(-m // m_tile))
 
 
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """The tiled body's grid: ``m_tiles`` x ``n_tiles`` output tiles of
+    ``bm`` x ``TILED_BN`` (split-N int4: ``TILED_BN / 2`` packed columns,
+    both nibble ranges of them), each reduced over a cluster of
+    ``cluster`` blocks that split the ``k_blocks`` K-blocks as
+    ``k_ranges`` says."""
+    bm: int
+    cluster: int
+    m_tiles: int
+    n_tiles: int
+    k_blocks: int
+
+    @property
+    def blocks(self) -> int:
+        return self.cluster * self.m_tiles * self.n_tiles
+
+    def k_ranges(self):
+        """[kb_lo, kb_hi) of each rank, as the kernel computes them."""
+        cs, nkb = self.cluster, self.k_blocks
+        return [(r * nkb // cs, (r + 1) * nkb // cs) for r in range(cs)]
+
+
+def tiled_plan(m: int, k: int, n: int, block_size: int,
+               int4: bool = False) -> TiledPlan:
+    """Shapes -> grid of the tiled body. 64-row M-tiles up to M = 64, else
+    128. The cluster (at most 16 ranks of at least one K-block) is the
+    smallest whose ranks walk at most ``TILED_RANK_ROWS`` rows and whose
+    grid has ``TILED_MIN_BLOCKS`` blocks, where K allows."""
+    bm = 64 if m <= 64 else 128
+    m_tiles = -(-m // bm)
+    n_tiles = -(-n // TILED_BN)      # int4: n / 2 bytes in 32-byte strips
+    nkb = k // block_size
+    top = max(1, min(16, nkb))
+    cs = min(top, max(1, -(-k // TILED_RANK_ROWS)))
+    while m_tiles * n_tiles * cs < TILED_MIN_BLOCKS and cs < top:
+        cs += 1
+    return TiledPlan(bm, cs, m_tiles, n_tiles, nkb)
+
+
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
@@ -94,13 +145,10 @@ def build() -> ctypes.CDLL:
         return _lib
     lib = _build.library()
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.mx_matmul_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32, i32,
-                                     i32, i32, i32, i32, i32, i32, i32, i32,
-                                     ptr]
-    lib.mx_matmul_launch.restype = i32
-    lib.mx_matmul_int4_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32, i32,
-                                          i32, i32, i32, ptr]
-    lib.mx_matmul_int4_launch.restype = i32
+    lib.mx_matmul_tiled_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32,
+                                           i32, i32, i32, i32, i32, i32,
+                                           i32, i32, i32, i32, i32, i32, ptr]
+    lib.mx_matmul_tiled_launch.restype = i32
     lib.mx_matmul_decode_launch.argtypes = [ptr, i32, ptr, ptr, ptr, i32,
                                             i32, i32, i32, i32, i32, i32,
                                             i32, i32, i32, i32, i32, i32,
@@ -152,52 +200,61 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def _launch_decode(lib, xk, bf16, codes, scales, y, k, n, mode, fmt,
-                   stream) -> int:
-    """The decode body (M <= DECODE_MAX_M) of B1 (mode 0 int, 1 fp) or B2
-    (mode 2)."""
+def _launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
+            n: int, mode: int, fmt: MXFormat,
+            body: Optional[str]) -> Tuple[int, torch.Tensor]:
+    """Launch B1 (mode 0 int, 1 fp) or B2 (mode 2) on the card: the decode
+    body up to DECODE_MAX_M rows, the tiled body above (``body`` forces
+    one, to measure where they cross); returns (CUDA error code, y)."""
+    lib = build()
+    xk, bf16, y, stream = _launch_args(x, n)
+    m, k = xk.shape
     int4 = mode == 2
-    plan = decode_plan(xk.shape[0], k, n, fmt.block_size, int4)
+    fp = mode == 1
     width = n // 2 if int4 else n
     vec = int(width % 16 == 0 and codes.data_ptr() % 16 == 0) \
         | int(xk.data_ptr() % 16 == 0 and k * xk.element_size() % 16 == 0) << 1
-    fp = mode == 1
-    return lib.mx_matmul_decode_launch(
-        xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
-        y.data_ptr(), xk.shape[0], k, n, mode, fmt.bits, fmt.ebits,
-        fmt.mbits, fmt.fp_bias if fp else 0, fmt.emin if fp else 0,
-        fmt.block_size, plan.strip, plan.cluster, vec, stream)
+    body = body or ("decode" if m <= DECODE_MAX_M else "tiled")
+    fmt_args = (mode, fmt.bits, fmt.ebits, fmt.mbits,
+                fmt.fp_bias if fp else 0, fmt.emin if fp else 0,
+                fmt.block_size)
+    with torch.cuda.device(x.device):
+        if body == "decode":
+            plan = decode_plan(m, k, n, fmt.block_size, int4)
+            rc = lib.mx_matmul_decode_launch(
+                xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
+                y.data_ptr(), m, k, n, *fmt_args, plan.strip, plan.cluster,
+                vec, stream)
+        elif body == "tiled":
+            plan = tiled_plan(m, k, n, fmt.block_size, int4)
+            rc = lib.mx_matmul_tiled_launch(
+                xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
+                y.data_ptr(), m, k, n, *fmt_args, plan.bm, plan.cluster, vec,
+                stream)
+        else:
+            raise ValueError(f"unknown body {body!r}")
+    return rc, y
 
 
 def mx_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
-              fmt: MXFormat) -> torch.Tensor:
-    """B1: x (M, K) @ dequant(codes (K, N), scales (N, K/bs)) -> (M, N) f32."""
+              fmt: MXFormat, body: Optional[str] = None) -> torch.Tensor:
+    """B1: x (M, K) @ dequant(codes (K, N), scales (N, K/bs)) -> (M, N) f32.
+    ``body`` ("decode" / "tiled") overrides the choice by M on the card."""
     k, n = codes.shape
     _check(x, codes, scales, k, n, fmt, n)
     if not x.is_cuda:
         return ref.ref_mx_matmul(x, codes, scales, fmt)
-    lib = build()
-    xk, bf16, y, stream = _launch_args(x, n)
-    fp = fmt.kind == "fp"
-    vec = int(n % 4 == 0 and codes.data_ptr() % 4 == 0)
-    with torch.cuda.device(x.device):
-        if x.shape[0] <= DECODE_MAX_M:
-            rc = _launch_decode(lib, xk, bf16, codes, scales, y, k, n,
-                                int(fp), fmt, stream)
-        else:
-            rc = lib.mx_matmul_launch(
-                xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
-                y.data_ptr(), x.shape[0], k, n, int(fp), fmt.bits,
-                fmt.ebits, fmt.mbits, fmt.fp_bias if fp else 0,
-                fmt.emin if fp else 0, fmt.block_size, vec, stream)
+    rc, y = _launch(x, codes, scales, n, int(fmt.kind == "fp"), fmt, body)
     _raise_on(rc, "mx_matmul")
     launches["mx_matmul"] += 1
     return y
 
 
 def mx_matmul_int4(x: torch.Tensor, packed: torch.Tensor,
-                   scales: torch.Tensor, fmt: MXFormat) -> torch.Tensor:
-    """B2: x (M, K) @ dequant(split-N int4 (K, N/2), scales (N, K/bs))."""
+                   scales: torch.Tensor, fmt: MXFormat,
+                   body: Optional[str] = None) -> torch.Tensor:
+    """B2: x (M, K) @ dequant(split-N int4 (K, N/2), scales (N, K/bs)).
+    ``body`` ("decode" / "tiled") overrides the choice by M on the card."""
     if fmt.kind != "int" or fmt.bits != 4:
         raise ValueError(f"mx_matmul_int4 serves mxint4, got {fmt.name}")
     if packed.dtype != torch.uint8:
@@ -207,18 +264,7 @@ def mx_matmul_int4(x: torch.Tensor, packed: torch.Tensor,
     _check(x, packed, scales, k, n, fmt, half)
     if not x.is_cuda:
         return ref.ref_mx_matmul_int4(x, packed, scales, fmt)
-    lib = build()
-    xk, bf16, y, stream = _launch_args(x, n)
-    vec = int(half % 4 == 0 and packed.data_ptr() % 4 == 0)
-    with torch.cuda.device(x.device):
-        if x.shape[0] <= DECODE_MAX_M:
-            rc = _launch_decode(lib, xk, bf16, packed, scales, y, k, n, 2,
-                                fmt, stream)
-        else:
-            rc = lib.mx_matmul_int4_launch(
-                xk.data_ptr(), bf16, packed.data_ptr(), scales.data_ptr(),
-                y.data_ptr(), x.shape[0], k, n, fmt.block_size, vec,
-                stream)
+    rc, y = _launch(x, packed, scales, n, 2, fmt, body)
     _raise_on(rc, "mx_matmul_int4")
     launches["mx_matmul_int4"] += 1
     return y

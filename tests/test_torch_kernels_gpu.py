@@ -38,11 +38,11 @@ def _card():
     return torch.device("cuda")
 
 
-def _operands(m, k, n, name, bs, dev, seed=0):
+def _operands(m, k, n, name, bs, dev, seed=0, x_dtype=torch.bfloat16):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
     w = torch.from_numpy(rng.normal(size=(k, n)).astype(np.float32)).to(dev)
-    return x.to(torch.bfloat16), quantize(w, get_format(name, bs), axis=0)
+    return x.to(x_dtype), quantize(w, get_format(name, bs), axis=0)
 
 
 def _close(got, want):
@@ -84,10 +84,12 @@ def test_stacked_leaf_slice_is_read_in_place():
     w = torch.from_numpy(rng.normal(size=(3, 64, 48)).astype(np.float32))
     fmt = get_format("mxint8", 32)
     t = quantize(w.to(dev), fmt, axis=1)
-    x = torch.from_numpy(rng.normal(size=(5, 64)).astype(np.float32)).to(dev)
-    for g in range(3):
-        got = mx_matmul.mx_matmul(x, t.codes[g], t.scale_exp[g], fmt)
-        _close(got, ref.ref_mx_matmul(x, t.codes[g], t.scale_exp[g], fmt))
+    for m in (5, 40):                   # the decode body, the tiled body
+        x = torch.from_numpy(rng.normal(size=(m, 64)).astype(np.float32)
+                             ).to(dev)
+        for g in range(3):
+            got = mx_matmul.mx_matmul(x, t.codes[g], t.scale_exp[g], fmt)
+            _close(got, ref.ref_mx_matmul(x, t.codes[g], t.scale_exp[g], fmt))
 
 
 # B1 / B2 decode body (M <= 16) at every qwen3-4b projection shape; M = 17
@@ -133,7 +135,7 @@ def _unaligned(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-@pytest.mark.parametrize("m", [4, 17])
+@pytest.mark.parametrize("m", [4, 17, 67])
 def test_unaligned_leaf_takes_the_scalar_path(m):
     """Codes, and x, that lie off the 16-byte grid are read by the scalar
     edge paths."""
@@ -160,6 +162,93 @@ def test_decode_body_bit_identical_eager_and_in_a_cuda_graph(kn, case):
     replays of a captured one are bit-identical."""
     dev = _card()
     x, t = _operands(4, *kn, case, 32, dev, seed=9)
+    if case == "mxint4":
+        leaf = pack_leaf_int4(t)
+        _identical_eager_and_in_a_graph(lambda: _b2(x, leaf, t.fmt))
+    else:
+        _identical_eager_and_in_a_graph(lambda: _b1(x, t))
+
+
+# B1 / B2 tiled body (M > 16): the prefill buckets, the mixed tick's live
+# tokens (67: 3 decode rows and a 64-token chunk, ragged) and its M = 256.
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp4"])
+@pytest.mark.parametrize("kn", QWEN_KN)
+@pytest.mark.parametrize("m", [32, 67, 128, 256])
+def test_mx_matmul_tiled_shapes_match_plain(m, kn, name):
+    dev = _card()
+    x, t = _operands(m, *kn, name, 32, dev, seed=m)
+    _close(_b1(x, t), ref.ref_mx_matmul(x, t.codes, t.scale_exp, t.fmt))
+
+
+@pytest.mark.parametrize("bs", [32, 16])
+@pytest.mark.parametrize("kn", QWEN_KN)
+@pytest.mark.parametrize("m", [32, 67, 128, 256])
+def test_mx_matmul_int4_tiled_shapes_match_plain(m, kn, bs):
+    dev = _card()
+    x, t = _operands(m, *kn, "mxint4", bs, dev, seed=m)
+    leaf = pack_leaf_int4(t)
+    _close(_b2(x, leaf, t.fmt),
+           ref.ref_mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt))
+
+
+@pytest.mark.parametrize("m,k,n", [(67, 160, 130), (33, 96, 80),
+                                   (129, 320, 262), (40, 64, 36)])
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint4"])
+def test_tiled_body_ragged_edges(name, m, k, n):
+    """Ragged M, N and K ranges (K not a multiple of the 64-row stage,
+    N / 2 off the 16-byte grid at int4) are zero-filled in the tiles."""
+    dev = _card()
+    x, t = _operands(m, k, n, name, 32, dev, seed=k)
+    if name == "mxint4":
+        leaf = pack_leaf_int4(t)
+        _close(_b2(x, leaf, t.fmt),
+               ref.ref_mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt))
+    else:
+        _close(_b1(x, t), ref.ref_mx_matmul(x, t.codes, t.scale_exp, t.fmt))
+
+
+@pytest.mark.parametrize("m", [4, 67])
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint4"])
+def test_f32_x_and_block_size_64(name, m):
+    """f32 x (the tiled body splits it into bf16 hi + lo) and 64-element
+    blocks, on both bodies."""
+    dev = _card()
+    for bs, dtype in ((32, torch.float32), (64, torch.bfloat16),
+                      (64, torch.float32)):
+        x, t = _operands(m, 2560, 1024, name, bs, dev, seed=bs,
+                         x_dtype=dtype)
+        if name == "mxint4":
+            leaf = pack_leaf_int4(t)
+            _close(_b2(x, leaf, t.fmt), ref.ref_mx_matmul_int4(
+                x, leaf.packed, leaf.scale_exp, t.fmt))
+        else:
+            _close(_b1(x, t),
+                   ref.ref_mx_matmul(x, t.codes, t.scale_exp, t.fmt))
+
+
+@pytest.mark.parametrize("body", ["decode", "tiled"])
+@pytest.mark.parametrize("m", [4, 16, 32])
+def test_either_body_at_any_m(m, body):
+    """The measurement that sets DECODE_MAX_M forces one body or the other;
+    both hold to the plain version on either side of the crossover."""
+    dev = _card()
+    x, t = _operands(m, 2560, 1024, "mxint8", 32, dev, seed=3)
+    _close(mx_matmul.mx_matmul(x, t.codes, t.scale_exp, t.fmt, body=body),
+           ref.ref_mx_matmul(x, t.codes, t.scale_exp, t.fmt))
+    x, t = _operands(m, 2560, 1024, "mxint4", 32, dev, seed=4)
+    leaf = pack_leaf_int4(t)
+    _close(mx_matmul.mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt,
+                                    body=body),
+           ref.ref_mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt))
+
+
+@pytest.mark.parametrize("case", ["mxint8", "mxfp8", "mxint4"])
+@pytest.mark.parametrize("kn", [(2560, 1024), (2560, 9728), (9728, 2560)])
+def test_tiled_body_bit_identical_eager_and_in_a_cuda_graph(kn, case):
+    """At M = 256 the K split meets in rank order: a repeated call and two
+    replays of a captured one are bit-identical."""
+    dev = _card()
+    x, t = _operands(256, *kn, case, 32, dev, seed=10)
     if case == "mxint4":
         leaf = pack_leaf_int4(t)
         _identical_eager_and_in_a_graph(lambda: _b2(x, leaf, t.fmt))

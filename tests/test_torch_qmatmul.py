@@ -23,8 +23,11 @@ from repro_torch.kernels import dispatch, mx_matmul
 from repro_torch.serve.packed_params import pack_leaf_int4
 
 FORMATS = ["mxint8", "mxfp8", "mxint6", "mxint4"]
-# (M, K, N): M below a tile, odd N, K needing padding on the TPU side.
-SHAPES = [(3, 96, 80), (8, 128, 130), (5, 160, 46)]
+# (M, K, N): M below a tile, odd N, K needing padding on the TPU side;
+# then M > 16, the shapes of the card's tiled body (67: the mixed tick's
+# live tokens).
+SHAPES = [(3, 96, 80), (8, 128, 130), (5, 160, 46), (67, 256, 96),
+          (128, 160, 130)]
 
 
 def _np(shape, seed):
@@ -125,3 +128,28 @@ def test_decode_plan_fills_the_card_at_every_qwen3_projection(kn, int4, bs):
     assert plan.cluster <= k // bs
     assert mx_matmul.decode_plan(16, k, n, bs, int4).m_tiles == \
         (4 if int4 else 2)
+
+
+@pytest.mark.parametrize("bs", [32, 16])
+@pytest.mark.parametrize("int4", [False, True])
+@pytest.mark.parametrize("kn", QWEN_KN)
+@pytest.mark.parametrize("m", [32, 64, 128, 256])
+def test_tiled_plan_fills_the_card_at_every_qwen3_projection(m, kn, int4,
+                                                             bs):
+    """Above DECODE_MAX_M the tiled body launches at least one block per
+    SM of the H100; its tiles cover M and N, its clusters stay within 16
+    and split K into whole K-blocks, each rank's range non-empty and the
+    ranges covering K exactly once, in order."""
+    k, n = kn
+    plan = mx_matmul.tiled_plan(m, k, n, bs, int4)
+    assert plan.blocks >= mx_matmul.SMS
+    assert 1 <= plan.cluster <= 16
+    assert plan.bm in (64, 128)
+    assert (plan.m_tiles - 1) * plan.bm < m <= plan.m_tiles * plan.bm
+    bn = mx_matmul.TILED_BN
+    assert (plan.n_tiles - 1) * bn < n <= plan.n_tiles * bn
+    ranges = plan.k_ranges()
+    assert plan.k_blocks == k // bs and len(ranges) == plan.cluster
+    assert ranges[0][0] == 0 and ranges[-1][1] == plan.k_blocks
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
