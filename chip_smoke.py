@@ -4,10 +4,13 @@ check them.
 
     python3 chip_smoke.py [--layers N] [--seed S]
     python3 chip_smoke.py --kernels-only [--src DIR]
+    python3 chip_smoke.py --quant-only [--src DIR]
 
-``--kernels-only`` runs phases 1-3 and stops (no result line): with
-``--src`` naming another tree's ``src``, the same measurement of that
-tree's kernels, for an A/B of two trees in one call on one card.
+``--kernels-only`` runs phases 1-3 and stops, ``--quant-only`` phases 1,
+2, 5 and 8a (no result line either way): with ``--src`` naming another
+tree's ``src`` (one whose wrappers this script knows), the same
+measurement of that tree's kernels, for an A/B of two trees in one call on
+one card.
 
 Phases (any failure exits non-zero before the result line):
   1. the card: name, power limit, device count; TF32 off for matmuls and
@@ -39,13 +42,17 @@ Phases (any failure exits non-zero before the result line):
      with B3; timed beside the plain version, the HBM bound and
      scaled_dot_product_attention on a contiguous copy of the live K/V
      (timing only, not called by the port);
-  5. quantize / fake-quant / Slice-and-Scale kernels: mx_quantize (B6) to
-     mxint8 and mxfp8 and fake_quant (B7) at every qwen3-4b projection
-     weight shape, B7 at the stacked smollm-135m leaves, ss_convert (B5)
-     mxint8 -> mxint6 / 4 / 2 and mxfp8 -> mxfp6 / 4; each bit-identical
-     with its plain version on data with an all-zero, a subnormal and a
-     scale-clipping block; timed beside the plain version and the HBM
-     bound (no single PyTorch call does MX block quantization);
+  5. quantize / fake-quant / Slice-and-Scale kernels: ss_convert (B5) on
+     every code byte and int8 scale of each pair below, and its split-N
+     mode on every nibble pair; then at every qwen3-4b projection weight
+     shape mx_quantize (B6) f32 and bf16 -> mxint8 and mxfp8, ss_convert
+     mxint8 -> mxint6 / 4 / 2 (and split-N mxint4) and mxfp8 -> mxfp6 / 4,
+     fake_quant (B7) -> mxint4 / mxfp4 / mxint8, and B5-B7 at stacked
+     leaves; each bit-identical with its plain version on data with an
+     all-zero, a subnormal, a scale-clipping and a +-max block (and B6 /
+     B7 on blocks holding +-inf, apart); timed beside the plain version
+     and the HBM bound (no single PyTorch call does MX block
+     quantization), summed per case over one layer;
   6. training: smollm-135m at full width and depth from random weights,
      seq 512 x batch 8 (one cycled pool of 8 synthetic examples, as the
      paper cycles a small QAT set), run_training through the
@@ -61,6 +68,12 @@ Phases (any failure exits non-zero before the result line):
      builds it), first-token logits at mxint4 within 5% of max|logit| of
      the trained model's anchored fake-quant forward, 4 greedy requests
      served at each format (B1 / B2);
+  8a. format build: from the qwen3-4b MXINT8 anchor below (all 36
+     layers), ElasticEngine.weights_for("mxint4") and ("mxint6") on fresh
+     engines, timed (host wall, CUDA events, device busy time under
+     torch.profiler, rise of the peak allocation), one B5 launch per
+     quantized leaf, each tree equal leaf for leaf to the plain versions'
+     build (slice_and_scale, pack_leaf_int4; no kernel);
   8. dense serving: qwen3-4b at full width (random weights from a seeded
      generator) -> MXINT8 anchor (B6) -> save_anchor / load_anchor ->
      ElasticEngine(batch_slots=4, max_len=512), logit guard on, serves 8
@@ -216,8 +229,6 @@ def phase_kernels(seed: int):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
     agg = {}
-    plan = getattr(mx_matmul, "decode_plan", None)
-    tplan = getattr(mx_matmul, "tiled_plan", None)     # absent before PR 17
     log("kernel phase: device ms per call (CUDA graph of many calls, timed "
         "with CUDA events), rotating over weight copies > 50 MB L2")
     log(f"{'kernel':16s}{'fmt':8s}{'M':>4s}{'K':>6s}{'N':>6s}{'max_err':>11s}"
@@ -234,20 +245,19 @@ def phase_kernels(seed: int):
                 codes = t.codes
                 kern, plain = mx_matmul.mx_matmul, ref.ref_mx_matmul
             scales = t.scale_exp
-            if plan is not None:
-                p = plan(4, k, n, 32, name == "mx_matmul_int4")
-                log(f"  {name}[{fname}] K={k} N={n}: decode plan strip "
-                    f"{p.strip} B, cluster {p.cluster}, {p.blocks} blocks "
-                    "at M <= 4")
-            if tplan is not None:
-                for m in KERNEL_MS:
-                    if m <= mx_matmul.DECODE_MAX_M:
-                        continue
-                    p = tplan(m, k, n, 32, name == "mx_matmul_int4")
-                    log(f"  {name}[{fname}] K={k} N={n} M={m}: tiled plan "
-                        f"{p.bm}x{mx_matmul.TILED_BN} tiles, cluster "
-                        f"{p.cluster}, {p.m_tiles}x{p.n_tiles} tiles, "
-                        f"{p.blocks} blocks")
+            p = mx_matmul.decode_plan(4, k, n, 32, name == "mx_matmul_int4")
+            log(f"  {name}[{fname}] K={k} N={n}: decode plan strip "
+                f"{p.strip} B, cluster {p.cluster}, {p.blocks} blocks at "
+                "M <= 4")
+            for m in KERNEL_MS:
+                if m <= mx_matmul.DECODE_MAX_M:
+                    continue
+                p = mx_matmul.tiled_plan(m, k, n, 32,
+                                         name == "mx_matmul_int4")
+                log(f"  {name}[{fname}] K={k} N={n} M={m}: tiled plan "
+                    f"{p.bm}x{mx_matmul.TILED_BN} tiles, cluster "
+                    f"{p.cluster}, {p.m_tiles}x{p.n_tiles} tiles, "
+                    f"{p.blocks} blocks")
             wbytes = codes.numel() + scales.numel()
             n_copy = max(1, min(64, math.ceil(128e6 / wbytes)))
             copies = [(codes.clone(), scales.clone()) for _ in range(n_copy)]
@@ -297,24 +307,22 @@ def phase_kernels(seed: int):
                                  ("library_ms", lib_ms), ("bound_ms", bound),
                                  ("t_bytes", t_bytes), ("t_ops", t_ops)):
                     per[key] += mult * val
-            if tplan is not None:
-                a = agg[(name, fname)].setdefault("crossover", {})
-                for m in CROSSOVER_MS:
-                    x = (torch.randn((m, k), generator=gen, device=dev)
-                         ).to(torch.bfloat16)
-                    want = plain(x, codes, scales, t.fmt)
-                    row = a.setdefault(m, {"decode": 0.0, "tiled": 0.0})
-                    for body in ("decode", "tiled"):
-                        got = kern(x, codes, scales, t.fmt, body=body)
-                        if not torch.allclose(got, want, rtol=1e-4, atol=1e-4
-                                              * float(want.abs().max())):
-                            fail(f"{name}[{fname}] M={m} K={k} N={n}: the "
-                                 f"{body} body disagrees with the plain "
-                                 "version")
-                        row[body] += PROJ_SHAPES[(k, n)] * cuda_time_ms(
-                            lambda i: kern(x, copies[i % n_copy][0],
-                                           copies[i % n_copy][1], t.fmt,
-                                           body=body), 50)
+            a = agg[(name, fname)].setdefault("crossover", {})
+            for m in CROSSOVER_MS:
+                x = (torch.randn((m, k), generator=gen, device=dev)
+                     ).to(torch.bfloat16)
+                want = plain(x, codes, scales, t.fmt)
+                row = a.setdefault(m, {"decode": 0.0, "tiled": 0.0})
+                for body in ("decode", "tiled"):
+                    got = kern(x, codes, scales, t.fmt, body=body)
+                    if not torch.allclose(got, want, rtol=1e-4, atol=1e-4
+                                          * float(want.abs().max())):
+                        fail(f"{name}[{fname}] M={m} K={k} N={n}: the "
+                             f"{body} body disagrees with the plain version")
+                    row[body] += PROJ_SHAPES[(k, n)] * cuda_time_ms(
+                        lambda i: kern(x, copies[i % n_copy][0],
+                                       copies[i % n_copy][1], t.fmt,
+                                       body=body), 50)
             del copies, dense
             torch.cuda.empty_cache()
     for (name, fname), a in agg.items():
@@ -325,7 +333,7 @@ def phase_kernels(seed: int):
                 f"{per['bound_ms']:.4f} ms, {100 * per['bound_ms'] / per['ms']:.1f}"
                 f"% of it; plain {per['plain_ms']:.4f} ms; torch bf16 "
                 f"{per['library_ms']:.4f} ms)")
-        for m, row in sorted(a.get("crossover", {}).items()):
+        for m, row in sorted(a["crossover"].items()):
             log(f"crossover, one layer at M={m}, {name}[{fname}]: decode "
                 f"body {row['decode']:.4f} ms, tiled body {row['tiled']:.4f} "
                 f"ms (DECODE_MAX_M = {mx_matmul.DECODE_MAX_M})")
@@ -544,25 +552,75 @@ def phase_paged_kernels(seed: int):
     return out
 
 
-def _plant_edge_blocks(v, bs: int = 32):
-    """Plant three edge blocks, blocked along K, twice in v (..., K, N): in
-    the first K-block of the first slice (columns 0-2) and in the last
-    K-block of the last slice (columns N-3..N-1), so that a stacked leaf's
-    outer offset and scale index meet them too. Of each three: all zeros,
-    subnormal, and a block with max in [2^-126, 2^-120) (its scale clips to
-    -127 at 8 bits)."""
+def _plant_edge_blocks(v, bs: int = 32, inf: bool = False):
+    """Plant five edge blocks, blocked along K, twice in v (..., K, N): in
+    the first K-block of the first slice (columns 0-4) and in the last
+    K-block of the last slice (columns N-5..N-1), so that a stacked leaf's
+    outer offset and scale index meet them too. Of each five: all zeros,
+    subnormal, a block with max in [2^-126, 2^-120) (its scale clips to
+    -127 at 8 bits), values in [-1, 1] (with ``inf``, +inf and -inf among
+    them), and +-the largest finite bf16 (finite in f32 and in bf16)."""
     import torch
     gen = torch.Generator(device=v.device).manual_seed(7)
     k, n = v.shape[-2:]
+    big = torch.finfo(torch.bfloat16).max
     for lead, rows, c0 in (((0,) * (v.ndim - 2), slice(0, bs), 0),
-                           ((-1,) * (v.ndim - 2), slice(k - bs, k), n - 3)):
+                           ((-1,) * (v.ndim - 2), slice(k - bs, k), n - 5)):
         v[lead + (rows, c0)] = 0.0
         v[lead + (rows, c0 + 1)] = torch.randn(
             bs, generator=gen, device=v.device) * 1e-40
         v[lead + (rows, c0 + 2)] = (torch.rand(
             bs, generator=gen, device=v.device) * 2 - 1) * 2.0 ** -123
         v[lead + (rows.start, c0 + 2)] = 2.0 ** -121
+        v[lead + (rows, c0 + 3)] = torch.rand(
+            bs, generator=gen, device=v.device) * 2 - 1
+        if inf:
+            v[lead + (rows.start + 1, c0 + 3)] = float("inf")
+            v[lead + (rows.start + 2, c0 + 3)] = float("-inf")
+        v[lead + (rows, c0 + 4)] = big
+        v[lead + (rows.start, c0 + 4)] = -big
     return v
+
+
+def _inf_gate(ops):
+    """B6 and B7 on blocks holding +-inf (two qwen3-4b projection shapes
+    and a stacked leaf): bit-identical with the plain versions, whose
+    frexp gives inf the exponent 0 (fault C.5: the kernels gave such a
+    block another scale)."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.mx import quantize
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cases = 0
+    for shape in [(2560, 1024), (9728, 2560), (3, 256, 160)]:
+        axis = len(shape) - 2
+        w = _plant_edge_blocks(torch.randn(shape, generator=gen,
+                                           device="cuda"), inf=True)
+        for dtype in (torch.float32, torch.bfloat16):
+            wd = w.to(dtype)
+            for fname in ("mxint8", "mxfp8", "mxfp4"):
+                fmt = get_format(fname, 32)
+                got, want = ops.mx_quantize(wd, fmt, axis), quantize(
+                    wd, fmt, axis)
+                if not (torch.equal(got.codes, want.codes)
+                        and torch.equal(got.scale_exp, want.scale_exp)):
+                    fail(f"mx_quantize {dtype} -> {fname} {shape}: blocks "
+                         "holding inf differ from the plain version")
+                cases += 1
+        for fname, out_dtype in (("mxint4", torch.bfloat16),
+                                 ("mxfp4", torch.bfloat16),
+                                 ("mxint8", torch.float32)):
+            for ste in (False, True):
+                kw = dict(out_dtype=out_dtype, ste=ste)
+                fmt = get_format(fname, 32)
+                got = ops.fake_quant(w, fmt, axis, **kw)
+                want = ops.fake_quant_plain(w, fmt, axis, **kw)
+                if not torch.equal(_bits(got), _bits(want)):
+                    fail(f"fake_quant -> {fname} ste={ste} {shape}: blocks "
+                         "holding inf differ from the plain version")
+                cases += 1
+    log(f"+-inf gate: {cases} B6 / B7 cases bit-identical with the plain "
+        "versions")
 
 
 def _bits(t):
@@ -571,35 +629,88 @@ def _bits(t):
                    torch.int8: torch.int8, torch.uint8: torch.uint8}[t.dtype])
 
 
+def _all_codes(high: str):
+    """(256, 512) codes blocked along axis 0 at bs 32: column j of row r
+    holds byte (j + r) % 256, column j + 256 byte (2j + r) % 256, so every
+    code byte occurs and every (low, high) nibble pair of the split-N
+    layout; (512, 8) scales running over the whole int8 range."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.mx import MXTensor
+    j = torch.arange(512, device="cuda")
+    r = torch.arange(256, device="cuda")[:, None]
+    codes = ((j * (1 + (j >= 256)) + r) % 256).to(torch.uint8)
+    if high.startswith("mxint"):
+        codes = codes.view(torch.int8)
+    scales = (torch.arange(4096, device="cuda") % 256 - 128).to(
+        torch.int8).reshape(512, 8)
+    return MXTensor(codes=codes, scale_exp=scales, fmt=get_format(high, 32),
+                    block_axis=0)
+
+
+def _ss_exhaustive(ops):
+    """B5 against its plain version on every code byte and every int8 scale
+    of each SS_CASES pair; the split-N mode on every nibble pair."""
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.slice_scale import slice_and_scale
+    from repro_torch.serve.packed_params import pack_leaf_int4
+    for high, low in SS_CASES:
+        t, lo = _all_codes(high), get_format(low, 32)
+        got, want = ops.ss_convert(t, lo), slice_and_scale(t, lo)
+        if not (torch.equal(got.codes, want.codes)
+                and torch.equal(got.scale_exp, want.scale_exp)):
+            fail(f"ss_convert {high} -> {low}: not bit-identical with its "
+                 "plain version over all 256 codes")
+    t, lo = _all_codes("mxint8"), get_format("mxint4", 32)
+    packed, scales = ops.ss_convert_int4_splitn(t, lo)
+    want = pack_leaf_int4(slice_and_scale(t, lo))
+    if not (torch.equal(packed, want.packed)
+            and torch.equal(scales, want.scale_exp)):
+        fail("ss_convert split-N mxint8 -> mxint4: not bit-identical with "
+             "its plain version over all 65536 nibble pairs")
+    log(f"ss_convert exhaustive: all 256 codes and int8 scales of "
+        f"{len(SS_CASES)} pairs bit-identical, split-N all 65536 nibble "
+        "pairs too")
+
+
 def phase_quant_kernels(seed: int):
     """B6 / B7 / B5 at every qwen3-4b projection weight shape, and at the
     stacked leaves the main path gives them in one launch each (every
     smollm-135m leaf, one qwen3-4b leaf): bit identity with the plain
-    versions on the same card tensors (edge blocks planted), device ms
-    beside the HBM bound.
+    versions on the same card tensors (edge blocks planted; +-inf in a gate
+    of its own), B5 over every code byte, device ms beside the HBM bound.
     Returns each kernel's record, summed over one qwen3-4b layer's seven
-    projection weights at the main path's settings: B6 f32 -> mxint8 (the
+    projection weights at the main path's settings — B6 f32 -> mxint8 (the
     anchor export), B7 f32 -> bf16 mxint4 with the straight-through epilogue
-    (the direct-QAT forward), B5 mxint8 -> mxint4 (the served format)."""
+    (the direct-QAT forward), B5 mxint8 -> mxint4 (the anchored QAT step) —
+    with every other case's layer sum under "by_case"."""
     import torch
     from repro_torch.core.formats import get_format
     from repro_torch.core.mx import quantize
     from repro_torch.core.slice_scale import slice_and_scale
     from repro_torch.kernels import ops
+    from repro_torch.serve.packed_params import pack_leaf_int4
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    fused = ops.ss_convert_int4_splitn
     log("quantize / fake-quant / Slice-and-Scale phase: bit identity with "
         "the plain versions; device ms per call (CUDA graph, CUDA events), "
         "rotating over copies > 128 MB")
+    _ss_exhaustive(ops)
+    _inf_gate(ops)
     log(f"{'kernel':12s}{'case':26s}{'shape':>18s}{'ms':>9s}{'plain':>9s}"
         f"{'bound':>9s}  GB/s")
+    main_case = {"mx_quantize": "f32 -> mxint8",
+                 "fake_quant": "f32 -> mxint4 bf16 STE",
+                 "ss_convert": "mxint8 -> mxint4"}
     agg = {k: dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, t_bytes=0.0,
-                   t_ops=0.0, max_abs_err=0.0)
-           for k in ("mx_quantize", "fake_quant", "ss_convert")}
+                   t_ops=0.0, max_abs_err=0.0, by_case={})
+           for k in main_case}
 
     def check_time(name, case, shape, got, want, kern, plain, nbytes,
-                   n_elem, layer_mult):
+                   flops, layer_mult):
         same = all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
         if not same:
             fail(f"{name} [{case}] {shape}: not bit-identical with its plain "
@@ -609,14 +720,22 @@ def phase_quant_kernels(seed: int):
         agg[name]["max_abs_err"] = max(agg[name]["max_abs_err"], err)
         ms = cuda_time_ms(kern, 50)
         plain_ms = cuda_time_ms(plain, 3)
-        # a few dozen f32 operations per element (32 reckoned) over the
-        # f32 CUDA-core peak, against the bytes over HBM: bytes bound
+        # the f32 operations the case does over the f32 CUDA-core peak
+        # (B6 / B7: a few dozen per element, 32 reckoned; B5: none, a code
+        # is a table lookup), against the bytes over HBM
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 32 * n_elem / F32_FLOP_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
         bound = max(t_bytes, t_ops)
         log(f"{name:12s}{case:26s}{str(tuple(shape)):>18s}{ms:9.4f}"
             f"{plain_ms:9.4f}{bound:9.4f}  {nbytes / ms / 1e6:.0f}")
-        if layer_mult:
+        if not layer_mult:
+            return
+        per = agg[name]["by_case"].setdefault(case, dict(
+            ms=0.0, plain_ms=0.0, bound_ms=0.0))
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("bound_ms", bound)):
+            per[key] += layer_mult * val
+        if case == main_case[name]:
             for key, val in (("ms", ms), ("plain_ms", plain_ms),
                              ("bound_ms", bound), ("t_bytes", t_bytes),
                              ("t_ops", t_ops)):
@@ -626,29 +745,37 @@ def phase_quant_kernels(seed: int):
         n = max(1, min(16, math.ceil(128e6 / nbytes)))
         return [t.clone() for _ in range(n)]
 
+    lo4 = get_format("mxint4", 32)
     for k, n in PROJ_SHAPES:
         mult = PROJ_SHAPES[(k, n)]
         w = _plant_edge_blocks(torch.randn((k, n), generator=gen,
                                            device=dev) * 0.02)
-        ws = copies_of(w, 4 * k * n)
         nel, nsc = k * n, k * n // 32
+        for dtype, vb in ((torch.bfloat16, 2), (torch.float32, 4)):
+            wd = w.to(dtype)
+            ws = copies_of(wd, vb * k * n)
+            dn = "bf16" if vb == 2 else "f32"
+            for fname in ("mxint8", "mxfp8"):
+                fmt = get_format(fname, 32)
+                got, want = ops.mx_quantize(wd, fmt, 0), quantize(wd, fmt, 0)
+                check_time("mx_quantize", f"{dn} -> {fname}", (k, n),
+                           (got.codes, got.scale_exp),
+                           (want.codes, want.scale_exp),
+                           lambda i: ops.mx_quantize(ws[i % len(ws)], fmt, 0),
+                           lambda i: quantize(wd, fmt, 0),
+                           vb * nel + nel + nsc, 32 * nel, mult)
+            del ws
+        ws = copies_of(w, 4 * k * n)
         for fname in ("mxint8", "mxfp8"):
             fmt = get_format(fname, 32)
-            got, want = ops.mx_quantize(w, fmt, 0), quantize(w, fmt, 0)
-            check_time("mx_quantize", f"f32 -> {fname}", (k, n),
-                       (got.codes, got.scale_exp),
-                       (want.codes, want.scale_exp),
-                       lambda i: ops.mx_quantize(ws[i % len(ws)], fmt, 0),
-                       lambda i: quantize(w, fmt, 0), 4 * nel + nel + nsc,
-                       nel, mult if fname == "mxint8" else 0)
-            anchor = got
+            anchor = ops.mx_quantize(w, fmt, 0)
+            cs = copies_of(anchor.codes, nel)
+            ts = [type(anchor)(codes=c, scale_exp=anchor.scale_exp,
+                               fmt=fmt, block_axis=0) for c in cs]
             for high, low in SS_CASES:
                 if high != fname:
                     continue
                 lo = get_format(low, 32)
-                cs = copies_of(anchor.codes, nel)
-                ts = [type(anchor)(codes=c, scale_exp=anchor.scale_exp,
-                                   fmt=fmt, block_axis=0) for c in cs]
                 got_s = ops.ss_convert(anchor, lo)
                 want_s = slice_and_scale(anchor, lo)
                 check_time("ss_convert", f"{high} -> {low}", (k, n),
@@ -656,8 +783,17 @@ def phase_quant_kernels(seed: int):
                            (want_s.codes, want_s.scale_exp),
                            lambda i: ops.ss_convert(ts[i % len(ts)], lo),
                            lambda i: slice_and_scale(anchor, lo),
-                           2 * (nel + nsc), nel,
-                           mult if low == "mxint4" else 0)
+                           2 * (nel + nsc), 0, mult)
+            if fname == "mxint8":
+                want_p = pack_leaf_int4(slice_and_scale(anchor, lo4))
+                check_time("ss_convert", "mxint8 -> mxint4 split-N", (k, n),
+                           fused(anchor, lo4),
+                           (want_p.packed, want_p.scale_exp),
+                           lambda i: fused(ts[i % len(ts)], lo4),
+                           lambda i: pack_leaf_int4(
+                               slice_and_scale(anchor, lo4)),
+                           nel + nel // 2 + 2 * nsc, 0, mult)
+            del cs, ts
         for fname, out_dtype in (("mxint4", torch.bfloat16),
                                  ("mxfp4", torch.bfloat16),
                                  ("mxint8", torch.float32)):
@@ -670,8 +806,7 @@ def phase_quant_kernels(seed: int):
                        (ops.fake_quant_plain(w, fmt, 0, **kw),),
                        lambda i: ops.fake_quant(ws[i % len(ws)], fmt, 0, **kw),
                        lambda i: ops.fake_quant_plain(w, fmt, 0, **kw),
-                       (4 + obytes) * nel, nel,
-                       mult if fname == "mxint4" else 0)
+                       (4 + obytes) * nel, 32 * nel, mult)
         del w, ws
         torch.cuda.empty_cache()
     # B7 as the training step runs it: one launch per stacked leaf
@@ -685,10 +820,11 @@ def phase_quant_kernels(seed: int):
                    (ops.fake_quant_plain(w, fmt, 1, **kw),),
                    lambda i: ops.fake_quant(w, fmt, 1, **kw),
                    lambda i: ops.fake_quant_plain(w, fmt, 1, **kw),
-                   6 * w.numel(), w.numel(), 0)
-    # B6 and B5 as make_anchor, convert and run B's anchored fake-quant run
-    # them: the whole stacked leaf in one launch, blocked along axis 1
-    anc, low = get_format("mxint8", 32), get_format("mxint4", 32)
+                   6 * w.numel(), 32 * w.numel(), 0)
+    # B6 and B5 as make_anchor, convert, the format build and run B's
+    # anchored fake-quant run them: the whole stacked leaf in one launch,
+    # blocked along axis 1
+    anc = get_format("mxint8", 32)
     stacked = [(30, k, n) for k, n in sorted(set(SMOLLM_LEAVES))] \
         + [(36, 2560, 1024)]
     for shape in stacked:
@@ -700,14 +836,20 @@ def phase_quant_kernels(seed: int):
         check_time("mx_quantize", "stacked, f32 -> mxint8", shape,
                    (got.codes, got.scale_exp), (want.codes, want.scale_exp),
                    lambda i: ops.mx_quantize(ws[i % len(ws)], anc, 1),
-                   lambda i: quantize(w, anc, 1), 5 * nel + nsc, nel, 0)
-        got_s, want_s = ops.ss_convert(got, low), slice_and_scale(got, low)
+                   lambda i: quantize(w, anc, 1), 5 * nel + nsc, 32 * nel, 0)
+        got_s, want_s = ops.ss_convert(got, lo4), slice_and_scale(got, lo4)
         check_time("ss_convert", "stacked, mxint8 -> mxint4", shape,
                    (got_s.codes, got_s.scale_exp),
                    (want_s.codes, want_s.scale_exp),
-                   lambda i: ops.ss_convert(got, low),
-                   lambda i: slice_and_scale(got, low), 2 * (nel + nsc), nel,
+                   lambda i: ops.ss_convert(got, lo4),
+                   lambda i: slice_and_scale(got, lo4), 2 * (nel + nsc), 0,
                    0)
+        want_p = pack_leaf_int4(want_s)
+        check_time("ss_convert", "stacked, split-N mxint4", shape,
+                   fused(got, lo4), (want_p.packed, want_p.scale_exp),
+                   lambda i: fused(got, lo4),
+                   lambda i: pack_leaf_int4(slice_and_scale(got, lo4)),
+                   nel + nel // 2 + 2 * nsc, 0, 0)
         del w, ws, got, want, got_s, want_s
     torch.cuda.empty_cache()
     for name, a in agg.items():
@@ -715,7 +857,140 @@ def phase_quant_kernels(seed: int):
             f"{name}: {a['ms']:.4f} ms (bound {a['bound_ms']:.4f} ms, "
             f"{100 * a['bound_ms'] / a['ms']:.1f}% of it; plain "
             f"{a['plain_ms']:.4f} ms)")
+        for case, per in a["by_case"].items():
+            share = 100 * per["bound_ms"] / per["ms"]
+            log(f"  {name} [{case}], one layer: {per['ms']:.4f} ms, bound "
+                f"{per['bound_ms']:.4f} ms ({share:.1f}% of it), plain "
+                f"{per['plain_ms']:.4f} ms")
     return agg
+
+
+def _profiled(fn):
+    """Run ``fn()`` once under torch.profiler: (its result, the kernels it
+    ran on the card as (ms, count, name) by device time, the profiler).
+    Only the events that ran on the card count: the operator rows above
+    them would count the same time twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                      for e in prof.key_averages()
+                      if getattr(e, "device_type", None) == DeviceType.CUDA
+                      and e.self_device_time_total > 0), reverse=True)
+    return out, kernels, prof
+
+
+def _plain_leaves(anchor, fmt_name: str):
+    """The served leaves by the plain versions, no kernel: each whole
+    stacked leaf through ``slice_and_scale``, 4-bit MXINT then packed by
+    ``pack_leaf_int4``. Slice-and-Scale is elementwise on codes and
+    blockwise on scales, so this is also what the per-layer build made.
+    The reference for the format build, not the main path."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.slice_scale import slice_and_scale
+    from repro_torch.serve.packed_params import pack_leaf_int4
+    out = {}
+    for path, t in anchor.quantized.items():
+        low = get_format(fmt_name, t.fmt.block_size)
+        leaf = slice_and_scale(t, low)
+        if low.kind == "int" and low.bits == 4:
+            leaf = pack_leaf_int4(leaf)
+            out[path] = (leaf.packed, leaf.scale_exp)
+        else:
+            out[path] = (leaf.codes, leaf.scale_exp)
+    return out
+
+
+def phase_format_build(cfg, anchor):
+    """ElasticEngine.weights_for("mxint4") and ("mxint6") from the qwen3-4b
+    MXINT8 anchor, each on a fresh engine: one warm-up build, then three
+    timed (host wall to a synchronize, CUDA events around the call, the
+    rise of max_memory_allocated over what was allocated before and what
+    the tree keeps), one under torch.profiler (device busy time, kernel
+    count). Gates: B5 launched once per quantized leaf, and the tree equal,
+    leaf for leaf, to the plain versions' build. Returns the B5 / B6 / B7
+    launches of one build per format (the other builds repeat it for
+    timing)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.tree import flatten_paths
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+
+    api = make_model(cfg)
+    n_leaves = len(anchor.quantized)
+    log(f"format-build phase: {cfg.name}, {cfg.n_layers} layers, "
+        f"{n_leaves} quantized leaves, anchor {anchor.fmt_name}; B5 "
+        f"launches per build {n_leaves}")
+    totals = {}
+    for fmt in ("mxint4", "mxint6"):
+        walls, events, rises, held = [], [], [], []
+        for rep in range(5):
+            eng = ElasticEngine(api, anchor, batch_slots=SLOTS,
+                                max_len=MAX_LEN, device="cuda")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_quant_launches()
+            if rep == 4:
+                tree, kernels, prof = _profiled(lambda: eng.weights_for(fmt))
+                busy_ms = sum(k[0] for k in kernels)
+                n_kernels = sum(k[1] for k in kernels)
+                top = sorted(prof.key_averages(),
+                             key=lambda e: -e.self_cpu_time_total)[:6]
+                log(f"format build {fmt}, host time by op (profiled "
+                    "build): " + ", ".join(
+                        f"{e.key} {e.self_cpu_time_total / 1e3:.2f} ms "
+                        f"x{e.count}" for e in top))
+            else:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                t0 = time.perf_counter()
+                start.record()
+                tree = eng.weights_for(fmt)
+                end.record()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                if rep:                                  # rep 0 warms up
+                    walls.append(1e3 * wall)
+                    events.append(start.elapsed_time(end))
+                    rises.append((torch.cuda.max_memory_allocated() - base)
+                                 / 1e9)
+                    held.append((torch.cuda.memory_allocated() - base) / 1e9)
+            counts = _quant_launches()
+            if counts["ss_convert"] != n_leaves or counts["mx_quantize"] \
+                    or counts["fake_quant"]:
+                fail(f"format build {fmt}: launches {counts}, want "
+                     f"{n_leaves} ss_convert")
+            if rep == 0:
+                for kname, v in counts.items():
+                    totals[kname] = totals.get(kname, 0) + v
+            if rep < 4:
+                del eng, tree
+        ref = _plain_leaves(anchor, fmt)
+        leaves = dict(flatten_paths(tree))
+        for path, want in ref.items():
+            leaf = leaves[path]
+            got = (leaf.packed, leaf.scale_exp) if hasattr(leaf, "packed") \
+                else (leaf.codes, leaf.scale_exp)
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                fail(f"format build {fmt}: leaf {path} differs from the "
+                     "plain versions' build")
+        log(f"format build {fmt}: host wall {np.round(walls, 3)} ms, CUDA "
+            f"events {np.round(events, 3)} ms, device busy {busy_ms:.3f} ms "
+            f"over {n_kernels} kernels (profiled build), peak allocation "
+            f"rise {np.round(rises, 3)} GB of which the tree keeps "
+            f"{np.round(held, 3)} GB; {n_leaves} leaves equal to the plain "
+            "versions' build")
+        del eng, tree, ref, leaves
+        torch.cuda.empty_cache()
+    return totals
 
 
 def _quant_launches():
@@ -811,8 +1086,6 @@ def _step_breakdown(label, cfg, qat, state, seed, fmt_idx=1):
     whole step, and torch.profiler's device time by kernel over one step,
     summed by kind, beside that step time (the card's busy share)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.tree import flatten_paths, unflatten_paths
     from repro_torch.data.pipeline import DataConfig, LMDataset
     from repro_torch.models.transformer import fake_quant_blocks, make_model
@@ -860,17 +1133,7 @@ def _step_breakdown(label, cfg, qat, state, seed, fmt_idx=1):
     step = build_train_step(api, opt)
     step_ms, _ = event_ms(lambda: (step(state, batch, fmt_idx), None)[1],
                           reps=2)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(state, batch, fmt_idx)
-        torch.cuda.synchronize()
-    # device time by kernel: only the events that ran on the card (the
-    # operator rows above them would count the same time twice)
-    kernels = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                      for e in prof.key_averages()
-                      if getattr(e, "device_type", None) == DeviceType.CUDA
-                      and e.self_device_time_total > 0), reverse=True)
+    _, kernels, _ = _profiled(lambda: step(state, batch, fmt_idx))
     total = sum(k[0] for k in kernels)
     groups = {}
     for ms, _, name in kernels:
@@ -993,7 +1256,9 @@ def phase_pipeline(cfg, trained, seed: int):
     counts = _quant_launches()
     log(f"anchor {nbytes / 1e6:.1f} MB; make_anchor + format builds "
         f"launched {counts}")
-    want = {"mx_quantize": 7, "ss_convert": 7 * cfg.n_layers,
+    # make_anchor: one B6 launch per projection leaf; the mxint4 build: one
+    # B5 launch per leaf (the mxint8 build is the anchor itself)
+    want = {"mx_quantize": PROJ_PER_LAYER, "ss_convert": PROJ_PER_LAYER,
             "fake_quant": 0}
     if counts != want:
         fail(f"pipeline: kernel launches {counts}, want {want}")
@@ -1066,9 +1331,9 @@ def qwen3_4b(n_layers: int):
     return cfg
 
 
-def build_anchor(cfg, seed: int):
+def build_anchor(cfg, seed: int, save: bool = True):
     """Random weights from a seeded generator -> MXINT8 anchor ->
-    save_anchor / load_anchor, on the card."""
+    save_anchor / load_anchor (unless ``save`` is false), on the card."""
     import torch
     from repro_torch.checkpoint.anchor_ckpt import load_anchor, save_anchor
     from repro_torch.core.anchor import make_anchor
@@ -1085,6 +1350,8 @@ def build_anchor(cfg, seed: int):
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"init + make_anchor: {time.perf_counter() - t0:.1f} s")
+    if not save:
+        return anchor
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         nbytes = save_anchor(os.path.join(tmp, "anchor"), anchor)
@@ -1440,6 +1707,10 @@ def main() -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="card, build and dequant-GEMM phases only; no "
                          "result line")
+    ap.add_argument("--quant-only", action="store_true",
+                    help="card, build, quantize / fake-quant / "
+                         "Slice-and-Scale and format-build phases only; no "
+                         "result line")
     ap.add_argument("--src", default=os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "src"),
         help="the tree whose repro_torch to measure (default: this one's)")
@@ -1454,6 +1725,13 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_card()
     phase_build()
+    if args.quant_only:
+        phase_quant_kernels(args.seed)
+        cfg = qwen3_4b(36)
+        phase_format_build(cfg, build_anchor(cfg, args.seed, save=False))
+        log(f"quantize kernels and format build only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     agg = phase_kernels(args.seed)
     if args.kernels_only:
         log(f"kernels only, {args.src}: {time.perf_counter() - t_all:.1f} s")
@@ -1476,6 +1754,13 @@ def main() -> int:
     cfg = qwen3_4b(36)
     _reset_quant_launches()
     anchor = build_anchor(cfg, args.seed)
+    counts = _quant_launches()
+    if counts != {"mx_quantize": PROJ_PER_LAYER, "ss_convert": 0,
+                  "fake_quant": 0}:
+        fail(f"qwen3-4b make_anchor: kernel launches {counts}")
+    add(counts)
+    add(phase_format_build(cfg, anchor))
+    _reset_quant_launches()
     if args.layers != cfg.n_layers:
         dense_cfg = qwen3_4b(args.layers)
         launches, _ = phase_serving(dense_cfg, build_anchor(dense_cfg,
@@ -1490,17 +1775,15 @@ def main() -> int:
     for k, v in phase_paged_serving(cfg, anchor, args.seed, streams).items():
         launches[k] = launches.get(k, 0) + v
     counts = _quant_launches()
-    # one make_anchor per anchor built (7 leaves, one B6 launch each); an
-    # mxint4 build per engine (the dense phase's fused, unfused and poisoned
-    # ones, the paged one) and the poisoned one's mxint6, one B5 launch per
-    # layer slice of each of the 7 leaves; the mxint8 builds are the anchor
-    # itself and launch nothing
-    dense_layers = args.layers
-    n_anchors = 1 if dense_layers == cfg.n_layers else 2
+    # make_anchor of the dense phase's own anchor when it is cut in depth (7
+    # leaves, one B6 launch each); five format builds — the dense phase's
+    # fused, unfused and poisoned engines at mxint4, the poisoned one's
+    # mxint6, the paged engine's mxint4 — one B5 launch per leaf each; the
+    # mxint8 builds are the anchor itself and launch nothing
+    n_anchors = 0 if args.layers == cfg.n_layers else 1
     want = {"mx_quantize": PROJ_PER_LAYER * n_anchors,
-            "ss_convert": PROJ_PER_LAYER * (4 * dense_layers + cfg.n_layers),
-            "fake_quant": 0}
-    log(f"qwen3-4b serving phases (make_anchor and every format build): "
+            "ss_convert": PROJ_PER_LAYER * 5, "fake_quant": 0}
+    log(f"qwen3-4b serving phases (every format build): "
         f"launches {counts} (want {want})")
     if counts != want:
         fail(f"qwen3-4b serving: kernel launches {counts}, want {want}")
@@ -1526,7 +1809,7 @@ def main() -> int:
             "timed_as": f"one layer's {PROJ_PER_LAYER} qwen3-4b projections "
                         "at M=4",
             "ms_by_m": {m: per["ms"] for m, per in a["by_m"].items()},
-            "ms_by_body_at_m": a.get("crossover", {}),
+            "ms_by_body_at_m": a["crossover"],
             "library_ms_by_m": {m: per["library_ms"]
                                 for m, per in a["by_m"].items()},
         })
@@ -1541,7 +1824,9 @@ def main() -> int:
     timed_as = {"mx_quantize": "f32 -> mxint8 (anchor export)",
                 "fake_quant": "f32 -> bf16 mxint4 with the straight-through "
                               "epilogue (direct-QAT forward)",
-                "ss_convert": "mxint8 -> mxint4 (served format)"}
+                "ss_convert": "mxint8 -> mxint4 (the anchored QAT step's "
+                              "conversion; the served mxint4 build runs the "
+                              "split-N mode, under ms_by_case)"}
     for name, a in quant_rec.items():
         kernels.append({
             "name": name, "route": "cuda",
@@ -1556,6 +1841,7 @@ def main() -> int:
             "library_ms": None,     # no single PyTorch call does MX blocks
             "timed_as": f"one qwen3-4b layer's {PROJ_PER_LAYER} projection "
                         f"weights, {timed_as[name]}",
+            "ms_by_case": a["by_case"],
         })
     wrappers = set(mx_matmul.launches) | set(paged_attention.launches) \
         | set(_quant_launches())

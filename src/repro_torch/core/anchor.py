@@ -16,7 +16,7 @@ temporaries; on the CPU the plain versions run.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Dict
 
 import torch
 
@@ -35,26 +35,6 @@ class AnchorModel:
     quantized: Dict[str, MXTensor]
     raw: Dict[str, torch.Tensor]
     fmt_name: str
-
-
-def per_layer(fn: Callable, t: MXTensor):
-    """Apply a per-block MX transform (returning a dataclass container such
-    as an MXTensor) one leading slice at a time for stacked leaves, and
-    restack the slices into what ``fn(t)`` would return for the whole leaf.
-    """
-    if t.codes.ndim < 3:
-        return fn(t)
-    parts = [fn(MXTensor(codes=t.codes[g], scale_exp=t.scale_exp[g],
-                         fmt=t.fmt, block_axis=t.block_axis - 1))
-             for g in range(t.codes.shape[0])]
-    first = parts[0]
-    upd = {f.name: torch.stack([getattr(p, f.name) for p in parts])
-           for f in dataclasses.fields(first)
-           if isinstance(getattr(first, f.name), torch.Tensor)}
-    upd["block_axis"] = t.block_axis
-    if "shape" in {f.name for f in dataclasses.fields(first)}:
-        upd["shape"] = (len(parts),) + tuple(first.shape)
-    return dataclasses.replace(first, **upd)
 
 
 def make_anchor(params, cfg: QATConfig, anchor: MXFormat | None = None, *,

@@ -126,6 +126,13 @@ def unpack_int4(packed: torch.Tensor, dtype=torch.int8) -> torch.Tensor:
                                                   packed.shape[-1] * 2)
 
 
+def splitn_ok(shape, block_axis: int) -> bool:
+    """Whether int4 codes of ``shape`` blocked along ``block_axis`` take the
+    split-N layout: the last axis is the GEMM's output (not the block axis)
+    and even."""
+    return block_axis % len(shape) != len(shape) - 1 and shape[-1] % 2 == 0
+
+
 def pack_int4_splitn(codes: torch.Tensor) -> torch.Tensor:
     """int8 codes (..., N) -> uint8 (..., N/2), split-half layout.
 

@@ -6,7 +6,8 @@ or bf16 values and a block size of 8, 16, 32 or 64; int8 / uint8 codes),
 allocates the outputs and launches the kernel, or raises. On a CPU tensor it
 computes the plain version: ``core/mx.py::quantize``,
 ``core/mx.py::quantize_dequantize``,
-``core/slice_scale.py::slice_and_scale``. The quantizing kernels read the
+``core/slice_scale.py::slice_and_scale`` (then ``pack_int4_splitn`` for the
+fused split-N mode). The quantizing kernels read the
 block axis in place — a tensor is viewed as (outer, K, inner) with K the
 block axis — so a weight blocked along its contraction axis, or a stacked
 (G, K, N) leaf, needs no transposed copy (JAX's ``_as2d`` makes one).
@@ -20,6 +21,7 @@ import torch
 
 from repro_torch.core.formats import MXFormat, delta_e
 from repro_torch.core.mx import MXTensor, quantize, quantize_dequantize
+from repro_torch.core.packed import pack_int4_splitn, splitn_ok
 from repro_torch.core.slice_scale import slice_and_scale
 from repro_torch.kernels import fake_quant as _fq
 from repro_torch.kernels import mx_quantize as _mq
@@ -89,13 +91,13 @@ def fake_quant_plain(v: torch.Tensor, fmt: MXFormat, axis: int = -1, *,
     return (v + (wq - v) if ste else wq).to(out_dtype or v.dtype)
 
 
-def ss_convert(t: MXTensor, low: MXFormat) -> MXTensor:
-    """B5: Slice-and-Scale on packed codes and scales (the API of
-    ``core.slice_scale.slice_and_scale``; identity if the formats match)."""
+def _same_format(t: MXTensor, low: MXFormat) -> bool:
+    return low.name == t.fmt.name and low.block_size == t.fmt.block_size
+
+
+def _check_ss(t: MXTensor, low: MXFormat, name: str) -> None:
+    """Raise unless B5 takes ``t`` -> ``low``."""
     high = t.fmt
-    if not t.codes.is_cuda or (low.name == high.name
-                               and low.block_size == high.block_size):
-        return slice_and_scale(t, low)
     if high.kind != low.kind:
         raise ValueError(
             f"cannot slice-and-scale across kinds ({high.name} -> {low.name})")
@@ -104,16 +106,50 @@ def ss_convert(t: MXTensor, low: MXFormat) -> MXTensor:
     delta_e(high, low)                          # raises on an up-conversion
     want = torch.int8 if high.kind == "int" else torch.uint8
     if t.codes.dtype != want or t.scale_exp.dtype != torch.int8:
-        raise ValueError(f"ss_convert: {high.name} takes {want} codes and "
+        raise ValueError(f"{name}: {high.name} takes {want} codes and "
                          f"int8 scales, got {t.codes.dtype} and "
                          f"{t.scale_exp.dtype}")
     if not (t.codes.is_contiguous() and t.scale_exp.is_contiguous()):
-        raise ValueError("ss_convert: codes and scales must be contiguous")
+        raise ValueError(f"{name}: codes and scales must be contiguous")
     if t.scale_exp.device != t.codes.device:
-        raise ValueError("ss_convert: codes and scales on different devices")
+        raise ValueError(f"{name}: codes and scales on different devices")
+
+
+def ss_convert(t: MXTensor, low: MXFormat) -> MXTensor:
+    """B5: Slice-and-Scale on packed codes and scales (the API of
+    ``core.slice_scale.slice_and_scale``; identity if the formats match)."""
+    if not t.codes.is_cuda or _same_format(t, low):
+        return slice_and_scale(t, low)
+    _check_ss(t, low, "ss_convert")
     codes = torch.empty_like(t.codes, dtype=torch.int8
                              if low.kind == "int" else torch.uint8)
     scales = torch.empty_like(t.scale_exp)
-    _ss.launch(t.codes, t.scale_exp, codes, scales, high, low)
+    _ss.launch(t.codes, t.scale_exp, codes, scales, t.fmt, low)
     return MXTensor(codes=codes, scale_exp=scales, fmt=low,
                     block_axis=t.block_axis)
+
+
+def ss_convert_int4_splitn(t: MXTensor, low: MXFormat
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B5 with the split-N nibble packing fused: Slice-and-Scale ``t`` to
+    the 4-bit MXINT ``low`` and return (packed (..., N/2) uint8, scales) —
+    ``pack_int4_splitn`` of the converted codes, the container B2 reads.
+    ``t`` must take the split-N layout (``core.packed.splitn_ok``). The
+    plain version (CPU tensors, or ``low`` equal to ``t``'s format) packs
+    ``slice_and_scale(t, low)``."""
+    if not (low.kind == "int" and low.bits == 4):
+        raise ValueError(f"split-N packing is for 4-bit MXINT, not "
+                         f"{low.name}")
+    if not splitn_ok(t.codes.shape, t.block_axis):
+        raise ValueError(f"codes {tuple(t.codes.shape)} blocked along axis "
+                         f"{t.block_axis} do not take the split-N layout")
+    if not t.codes.is_cuda or _same_format(t, low):
+        s = slice_and_scale(t, low)
+        return pack_int4_splitn(s.codes).contiguous(), s.scale_exp
+    _check_ss(t, low, "ss_convert_int4_splitn")
+    half = t.codes.shape[-1] // 2
+    packed = torch.empty(t.codes.shape[:-1] + (half,), device=t.codes.device,
+                         dtype=torch.uint8)
+    scales = torch.empty_like(t.scale_exp)
+    _ss.launch(t.codes, t.scale_exp, packed, scales, t.fmt, low, half=half)
+    return packed, scales

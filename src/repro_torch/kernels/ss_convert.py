@@ -2,11 +2,12 @@
 
 Replaces ``repro/kernels/ss_convert.py::ss_convert_pallas``. Slice-and-Scale
 is elementwise on codes and on scales, so ``launch`` takes both as flat
-contiguous byte buffers in whatever layout they have, and outputs of the
-same sizes that its caller allocated. The public wrapper — an ``MXTensor``
-in, an ``MXTensor`` out, the plain version on the CPU — is
-``kernels/ops.py::ss_convert``. ``launches`` counts kernel launches and
-nothing else.
+contiguous byte buffers in whatever layout they have, and outputs that its
+caller allocated: codes of the same size, or, with ``half`` > 0, split-N
+nibble bytes — rows of ``2 * half`` codes written as rows of ``half`` bytes
+(a 4-bit MXINT target). The public wrappers — the plain versions on the CPU
+— are ``kernels/ops.py::ss_convert`` and ``ss_convert_int4_splitn``.
+``launches`` counts kernel launches (either mode) and nothing else.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ def build() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.library()
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.ss_convert_launch.argtypes = [ptr, ptr, i64, ptr, ptr, i64, i32,
+        lib.ss_convert_launch.argtypes = [ptr, ptr, i64, i64, ptr, ptr, i64,
                                           i32, MxFmt, MxFmt, ptr]
         lib.ss_convert_launch.restype = i32
         _lib = lib
@@ -45,14 +46,12 @@ def build() -> ctypes.CDLL:
 
 def launch(codes: torch.Tensor, scales: torch.Tensor,
            out_codes: torch.Tensor, out_scales: torch.Tensor,
-           high: MXFormat, low: MXFormat) -> None:
+           high: MXFormat, low: MXFormat, half: int = 0) -> None:
     lib = build()
-    vec = int(codes.data_ptr() % 4 == 0 and out_codes.data_ptr() % 4 == 0)
     with torch.cuda.device(codes.device):
         rc = lib.ss_convert_launch(
-            codes.data_ptr(), out_codes.data_ptr(), codes.numel(),
+            codes.data_ptr(), out_codes.data_ptr(), codes.numel(), half,
             scales.data_ptr(), out_scales.data_ptr(), scales.numel(),
-            delta_e(high, low), vec, mx_fmt(high), mx_fmt(low),
-            stream_of(codes))
+            delta_e(high, low), mx_fmt(high), mx_fmt(low), stream_of(codes))
     raise_on(rc, "ss_convert")
     launches["ss_convert"] += 1

@@ -15,13 +15,13 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.anchor import AnchorModel, per_layer
-from repro_torch.core.formats import get_format
+from repro_torch.core.anchor import AnchorModel
+from repro_torch.core.formats import MXFormat, get_format
 from repro_torch.core.mx import MXTensor, dequantize
-from repro_torch.core.packed import (pack_int4, pack_int4_splitn, unpack_int4,
-                                     unpack_int4_splitn)
+from repro_torch.core.packed import (pack_int4, pack_int4_splitn, splitn_ok,
+                                     unpack_int4, unpack_int4_splitn)
 from repro_torch.core.tree import flatten_paths, unflatten_paths
-from repro_torch.kernels.ops import ss_convert
+from repro_torch.kernels.ops import ss_convert, ss_convert_int4_splitn
 
 
 @dataclasses.dataclass
@@ -44,9 +44,7 @@ def is_packed_leaf(w) -> bool:
 
 def pack_leaf_int4(t: MXTensor, layout: str = "splitn") -> PackedInt4Leaf:
     assert t.fmt.kind == "int" and t.fmt.bits == 4
-    if layout == "splitn" and (
-            t.block_axis % t.codes.ndim == t.codes.ndim - 1
-            or t.codes.shape[-1] % 2 != 0):
+    if layout == "splitn" and not splitn_ok(t.codes.shape, t.block_axis):
         layout = "splitk"
     if layout == "splitn":
         packed = pack_int4_splitn(t.codes)
@@ -129,22 +127,26 @@ def make_packed_params(anchor: AnchorModel, *, target_fmt: str | None = None,
     """
     fmt_t = get_format(target_fmt or anchor.fmt_name,
                        anchor_block_size(anchor))
-    pack4 = fmt_t.kind == "int" and fmt_t.bits == 4
-    out = {}
-    for k, t in anchor.quantized.items():
-        # One layer slice at a time: a whole converted model's temporaries
-        # never exist at once.
-        out[k] = per_layer(_to_target(fmt_t, pack4), t)
+    out = {k: convert_leaf(t, fmt_t) for k, t in anchor.quantized.items()}
     for k, w in anchor.raw.items():
         out[k] = w.to(dtype) if w.is_floating_point() else w
     return unflatten_paths(out)
 
 
-def _to_target(fmt_t, pack4: bool):
-    def one(t: MXTensor):
-        t = ss_convert(t, fmt_t)
-        return pack_leaf_int4(t) if pack4 else t
-    return one
+def convert_leaf(t: MXTensor, fmt_t: MXFormat):
+    """One anchor leaf (stacked or not) in its served container at
+    ``fmt_t``, by one B5 launch into its final buffers on a CUDA tensor:
+    4-bit MXINT in the split-N layout with the nibble packing fused, other
+    formats as MXTensor leaves. The split-K fallback (block axis last, or
+    an odd last axis) packs the converted codes afterwards."""
+    if not (fmt_t.kind == "int" and fmt_t.bits == 4):
+        return ss_convert(t, fmt_t)
+    if not splitn_ok(t.codes.shape, t.block_axis):
+        return pack_leaf_int4(ss_convert(t, fmt_t))
+    packed, scales = ss_convert_int4_splitn(t, fmt_t)
+    return PackedInt4Leaf(packed=packed, scale_exp=scales,
+                          shape=tuple(t.codes.shape),
+                          block_axis=t.block_axis, fmt_name=fmt_t.name)
 
 
 def weight_stream_bytes(params) -> int:

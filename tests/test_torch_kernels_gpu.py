@@ -17,12 +17,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.anchor import AnchorModel
 from repro_torch.core.formats import get_format
-from repro_torch.core.mx import quantize
+from repro_torch.core.mx import MXTensor, quantize
 from repro_torch.core.slice_scale import slice_and_scale
 from repro_torch.kernels import fake_quant, mx_matmul, mx_quantize, ops
 from repro_torch.kernels import paged_attention, ref, ss_convert
-from repro_torch.serve.packed_params import pack_leaf_int4
+from repro_torch.core.tree import flatten_paths
+from repro_torch.serve.packed_params import (PackedInt4Leaf,
+                                             make_packed_params,
+                                             pack_leaf_int4)
 
 pytestmark = pytest.mark.gpu
 
@@ -584,6 +588,247 @@ def test_same_format_launches_nothing():
     assert ss_convert.launches["ss_convert"] == before
 
 
+QWEN3_KN = [(2560, 4096), (2560, 1024), (4096, 2560), (2560, 9728),
+            (9728, 2560)]
+
+
+def _as_bytes(*ts):
+    """The tensors' bytes in one flat uint8 tensor (for bit comparisons)."""
+    return torch.cat([t.contiguous().view(torch.uint8).reshape(-1)
+                      for t in ts])
+
+
+def _all_codes(high, dev, rows=256):
+    """(rows, 512) codes: column j of row r holds byte (j + r) % 256, so every
+    code byte meets every other at distance N/2 (every split-N nibble pair);
+    (512, rows / 32) scales running over the int8 range."""
+    r = np.arange(rows)[:, None]
+    u = ((np.arange(512)[None, :] * (1 + (np.arange(512) >= 256)) + r)
+         % 256).astype(np.uint8)
+    codes = torch.from_numpy(u).to(dev)
+    if high.startswith("mxint"):
+        codes = codes.view(torch.int8)
+    scales = torch.from_numpy((np.arange(512 * rows // 32) % 256 - 128)
+                              .astype(np.int8).reshape(512, rows // 32))
+    return MXTensor(codes=codes, scale_exp=scales.to(dev),
+                    fmt=get_format(high, 32), block_axis=0)
+
+
+def _off_grid(t, offset):
+    """``t`` with codes and scales copied ``offset`` bytes into larger
+    buffers (views off the 16-byte grid)."""
+    c = torch.zeros(t.codes.numel() + offset, dtype=t.codes.dtype,
+                    device=t.codes.device)
+    c[offset:] = t.codes.reshape(-1)
+    sc = torch.zeros(t.scale_exp.numel() + offset, dtype=torch.int8,
+                     device=t.codes.device)
+    sc[offset:] = t.scale_exp.reshape(-1)
+    return MXTensor(codes=c[offset:].view(t.codes.shape),
+                    scale_exp=sc[offset:].view(t.scale_exp.shape),
+                    fmt=t.fmt, block_axis=t.block_axis)
+
+
+@pytest.mark.parametrize("high,low", SS_PAIRS)
+def test_ss_convert_all_256_codes(high, low):
+    """Every code byte and every int8 scale through the table kernel."""
+    dev = _card()
+    t = _all_codes(high, dev)
+    got = ops.ss_convert(t, get_format(low, 32))
+    want = slice_and_scale(t, get_format(low, 32))
+    assert torch.equal(got.codes, want.codes)
+    assert torch.equal(got.scale_exp, want.scale_exp)
+
+
+@pytest.mark.parametrize("high", ["mxint8", "mxint6"])
+def test_ss_convert_int4_splitn_all_code_pairs(high):
+    """Every (code j, code j + N/2) pair of bytes through the fused mode."""
+    dev = _card()
+    t = _all_codes(high, dev)
+    low = get_format("mxint4", 32)
+    before = ss_convert.launches["ss_convert"]
+    packed, scales = ops.ss_convert_int4_splitn(t, low)
+    torch.cuda.synchronize()
+    assert ss_convert.launches["ss_convert"] == before + 1
+    want = pack_leaf_int4(slice_and_scale(t, low))
+    assert torch.equal(packed, want.packed)
+    assert torch.equal(scales, want.scale_exp)
+
+
+def _splitn_case(shape, dev, offset=0, seed=11):
+    """An mxint8 leaf of ``shape`` blocked along ndim-2; with ``offset`` its
+    codes and scales are views that many bytes into larger buffers (off the
+    16-byte grid)."""
+    axis = len(shape) - 2
+    t = quantize(_values(shape, axis, 32, torch.float32, dev, seed=seed),
+                 get_format("mxint8", 32), axis=axis)
+    return _off_grid(t, offset) if offset else t
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [*QWEN3_KN, (3, 2560, 1024),
+                                   (2, 128, 40), (128, 130), (4, 64, 2)])
+def test_ss_convert_int4_splitn_matches_plain(shape, offset):
+    """Every qwen3-4b shape, a stacked leaf, N/2 off the 16-byte grid (40,
+    130, 2) and buffers off it: one launch, the plain version's bytes."""
+    dev = _card()
+    t = _splitn_case(shape, dev, offset)
+    low = get_format("mxint4", 32)
+    before = ss_convert.launches["ss_convert"]
+    packed, scales = ops.ss_convert_int4_splitn(t, low)
+    torch.cuda.synchronize()
+    assert ss_convert.launches["ss_convert"] == before + 1
+    want = pack_leaf_int4(slice_and_scale(t, low))
+    assert packed.shape == want.packed.shape
+    assert torch.equal(packed, want.packed)
+    assert torch.equal(scales, want.scale_exp)
+
+
+@pytest.mark.parametrize("high,low", [("mxint8", "mxint4"),
+                                      ("mxfp8", "mxfp4")])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_ss_convert_off_the_vector_grid(high, low, offset):
+    """Codes and scales that start off the 16-byte grid, with ragged
+    tails: the byte path of the same kernel."""
+    dev = _card()
+    t = _off_grid(quantize(_values((3, 96, 37), 1, 32, torch.float32, dev,
+                                   seed=12), get_format(high, 32), axis=1),
+                  offset)
+    got = ops.ss_convert(t, get_format(low, 32))
+    want = slice_and_scale(t, get_format(low, 32))
+    assert torch.equal(got.codes, want.codes)
+    assert torch.equal(got.scale_exp, want.scale_exp)
+
+
+def test_ss_convert_bit_identical_eager_and_in_a_cuda_graph():
+    dev = _card()
+    t = _splitn_case((3, 2560, 1024), dev)
+    low = get_format("mxint4", 32)
+    _identical_eager_and_in_a_graph(
+        lambda: _as_bytes(*ops.ss_convert_int4_splitn(t, low)))
+
+    def unfused():
+        out = ops.ss_convert(t, low)
+        return _as_bytes(out.codes, out.scale_exp)
+    _identical_eager_and_in_a_graph(unfused)
+
+
+def test_packed_build_launches_once_per_leaf():
+    """make_packed_params converts each stacked leaf by one launch into its
+    final buffers; the tree equals the per-layer build (each layer slice
+    converted, then packed, then stacked) leaf for leaf."""
+    dev = _card()
+    fmt = get_format("mxint8", 32)
+    leaves = {"['a']": (3, 256, 96), "['b']": (3, 96, 256), "['c']": (64, 32),
+              "['odd']": (2, 64, 7)}
+    anchor = AnchorModel(
+        quantized={k: quantize(_values(s, len(s) - 2, 32, torch.float32, dev,
+                                       seed=i), fmt, axis=len(s) - 2)
+                   for i, (k, s) in enumerate(leaves.items())},
+        raw={"['n']": torch.ones(3, 96, device=dev)}, fmt_name=fmt.name)
+    for target in ("mxint4", "mxint6"):
+        low = get_format(target, 32)
+        before = ss_convert.launches["ss_convert"]
+        tree = dict(flatten_paths(make_packed_params(anchor,
+                                                     target_fmt=target)))
+        torch.cuda.synchronize()
+        assert ss_convert.launches["ss_convert"] == before + len(leaves)
+        for k, t in anchor.quantized.items():
+            slices = [t] if t.codes.ndim == 2 else [
+                MXTensor(codes=t.codes[g], scale_exp=t.scale_exp[g], fmt=fmt,
+                         block_axis=t.block_axis - 1)
+                for g in range(t.codes.shape[0])]
+            conv = [slice_and_scale(p, low) for p in slices]
+            if target == "mxint4":
+                conv = [pack_leaf_int4(p) for p in conv]
+                parts = [(p.packed, p.scale_exp) for p in conv]
+                assert isinstance(tree[k], PackedInt4Leaf)
+                assert tree[k].layout == conv[0].layout
+                got = (tree[k].packed, tree[k].scale_exp)
+            else:
+                parts = [(p.codes, p.scale_exp) for p in conv]
+                got = (tree[k].codes, tree[k].scale_exp)
+            for g_t, parts_t in zip(got, zip(*parts)):
+                want = parts_t[0] if t.codes.ndim == 2 \
+                    else torch.stack(parts_t)
+                assert torch.equal(g_t, want)
+
+
+def _planted(shape, axis, bs, dtype, dev, seed=0):
+    """Edge values plus, in blocks of their own: +-inf beside normal
+    values, and +-the dtype's largest finite value."""
+    v = _values(shape, axis, bs, torch.float32, dev, seed)
+    vm = torch.movedim(v, axis, -1)
+    rows = vm.reshape(-1, vm.shape[-1])
+    n = rows.shape[0]
+    big = torch.finfo(dtype).max
+    rows[5 % n, :bs] = torch.linspace(-1, 1, bs, device=dev)
+    rows[5 % n, 1] = float("inf")
+    rows[5 % n, bs - 2] = float("-inf")
+    rows[6 % n, bs - bs // 2:bs] = big
+    rows[6 % n, 0] = -big
+    out = torch.movedim(rows.reshape(vm.shape), -1, axis).contiguous()
+    return out.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,axis", [((256, 96), 0), ((40, 128), -1),
+                                        ((3, 128, 80), 1), ((64, 7), 0)])
+@pytest.mark.parametrize("bs", [8, 16, 32, 64])
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxfp4"])
+def test_mx_quantize_planted_inf_and_max(name, bs, shape, axis, dtype):
+    """bs 8-64, every layout and both dtypes, with +-inf and +-max blocks
+    planted (a block holding inf takes frexp's exponent of inf, as the
+    plain version does)."""
+    dev = _card()
+    if shape[axis] % bs:
+        pytest.skip("block axis not a multiple of the block size")
+    v = _planted(shape, axis, bs, dtype, dev)
+    fmt = get_format(name, bs)
+    got = ops.mx_quantize(v, fmt, axis=axis)
+    want = quantize(v, fmt, axis=axis)
+    assert torch.equal(got.codes, want.codes)
+    assert torch.equal(got.scale_exp, want.scale_exp)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_mx_quantize_off_the_vector_grid(offset):
+    """Values that start off the 16-byte grid take the one-column path."""
+    dev = _card()
+    v = _planted((3, 128, 80), 1, 32, torch.float32, dev, seed=13)
+    buf = torch.empty(v.numel() + offset, device=dev)
+    buf[offset:] = v.reshape(-1)
+    v = buf[offset:].view(v.shape)
+    fmt = get_format("mxfp8", 32)
+    got = ops.mx_quantize(v, fmt, axis=1)
+    want = quantize(v, fmt, axis=1)
+    assert torch.equal(got.codes, want.codes)
+    assert torch.equal(got.scale_exp, want.scale_exp)
+
+
+def test_mx_quantize_bit_identical_eager_and_in_a_cuda_graph():
+    dev = _card()
+    v = _planted((3, 2560, 1024), 1, 32, torch.float32, dev, seed=14)
+    for name in ("mxint8", "mxfp8"):
+        fmt = get_format(name, 32)
+
+        def quant():
+            out = ops.mx_quantize(v, fmt, 1)
+            return _as_bytes(out.codes, out.scale_exp)
+        _identical_eager_and_in_a_graph(quant)
+
+
+@pytest.mark.parametrize("ste", [False, True])
+@pytest.mark.parametrize("name", ["mxint4", "mxfp4", "mxfp8"])
+def test_fake_quant_planted_inf_and_max(name, ste):
+    dev = _card()
+    v = _planted((3, 128, 80), 1, 32, torch.float32, dev, seed=15)
+    fmt = get_format(name, 32)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = ops.fake_quant(v, fmt, 1, out_dtype=out_dtype, ste=ste)
+        want = ops.fake_quant_plain(v, fmt, 1, out_dtype=out_dtype, ste=ste)
+        assert torch.equal(_as_bytes(got), _as_bytes(want))
+
+
 def test_kernels_refuse_what_they_do_not_take():
     """A CUDA tensor the kernels do not take raises; it never falls back to
     the plain version."""
@@ -605,6 +850,12 @@ def test_kernels_refuse_what_they_do_not_take():
         ops.ss_convert(bad, get_format("mxint4", 32))
     with pytest.raises(ValueError):
         ops.ss_convert(t, get_format("mxfp4", 32))
+    with pytest.raises(ValueError):
+        ops.ss_convert_int4_splitn(t, get_format("mxint6", 32))
+    with pytest.raises(ValueError):                     # odd N
+        ops.ss_convert_int4_splitn(
+            quantize(_values((64, 7), 0, 32, torch.float32, dev),
+                     fmt, axis=0), get_format("mxint4", 32))
 
 
 def test_paged_kernels_refuse_what_they_do_not_take():
