@@ -41,7 +41,10 @@ Phases (any failure exits non-zero before the result line):
      and replayed from a CUDA graph, bit-identical, B4 at q_len 1 agreeing
      with B3; timed beside the plain version, the HBM bound and
      scaled_dot_product_attention on a contiguous copy of the live K/V
-     (timing only, not called by the port);
+     (timing only, not called by the port); then B3 and B4 at the head
+     layouts no serving phase runs, G = 3 (9 / 3 heads, D 64, smollm-135m)
+     and G = 12 (24 / 2, D 128, starcoder2-3b), held against the plain
+     version and NaN-poisoned dead pages, and timed;
   5. quantize / fake-quant / Slice-and-Scale kernels: ss_convert (B5) on
      every code byte and int8 scale of each pair below, and its split-N
      mode on every nibble pair; then at every qwen3-4b projection weight
@@ -76,26 +79,37 @@ Phases (any failure exits non-zero before the result line):
      build (slice_and_scale, pack_leaf_int4; no kernel);
   8. dense serving: qwen3-4b at full width (random weights from a seeded
      generator) -> MXINT8 anchor (B6) -> save_anchor / load_anchor ->
-     ElasticEngine(batch_slots=4, max_len=512), logit guard on, serves 8
-     greedy requests at mxint8 and at mxint4 (B5 builds it) through the
-     kernels, with launch counts read off the kernel wrappers, no fault
+     ElasticEngine(batch_slots=4, max_len=512), logit guard on, every
+     decode tick a CUDA-graph replay after the first of its format (the
+     default), serves 8 greedy requests at mxint8 and at mxint4 (B5 builds
+     it) through the kernels, with launch counts read off the kernel
+     wrappers (a replay credits what its capture recorded), no fault
      detected, and the same requests through the densify contract as the
-     reference; one decode step replayed as a CUDA graph; then a short
-     wave at mxint4 with NaN logits planted at scheduler tick 2 while the
-     batch runs at mxint4 (FaultInjector): every request completes after
-     exactly one escalation, mxint4 -> mxint6, with the tokens before the
-     fault equal to the clean wave's;
+     reference; one decode step replayed as a CUDA graph (the device-time
+     floor); the same wave on an eager twin (cuda_graphs=False, the same
+     weight trees): streams equal token for token, then each engine's
+     wave again, timed (decode tick wall median and range, tok/s, TTFT)
+     and under torch.profiler (the card's idle share over the steady
+     decode ticks), captures and capture seconds; then a short wave at
+     mxint4 with NaN logits planted at scheduler tick 2 while the batch
+     runs at mxint4 (FaultInjector): every request completes after exactly
+     one escalation, mxint4 -> mxint6 (captured mid-wave), with the tokens
+     before the fault equal to the clean wave's, and the eager twin
+     escalating the same way to the same streams;
   9. paged serving, always at all 36 layers: ElasticEngine(kv_layout=
      "paged", kv_page_size=16, prefill_chunk=64) — the mixed scheduler,
-     every attention read through B3/B4 — serves the same 8 requests at
-     mxint8 and mxint4; launch counts, one executable per tick, balanced
-     pages, and the first mixed tick's logits against the gather contract.
+     every attention read through B3/B4, decode and mixed ticks as CUDA
+     graphs — serves the same 8 requests at mxint8 and mxint4; launch
+     counts, one executable per tick, balanced pages, the first mixed
+     tick's logits against the gather contract, and the eager twin's A/B
+     as in 8, over the pure decode and the mixed ticks.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import json
 import math
 import os
@@ -341,16 +355,17 @@ def phase_kernels(seed: int):
 
 
 def _paged_inputs(gen, spans, c: int, pool_pages: int = POOL_PAGES,
-                  max_len: int = MAX_LEN):
+                  max_len: int = MAX_LEN, heads=(ATTN_H, ATTN_HKV, ATTN_D)):
     """q (4, c, H, D), bf16 pools (pool_pages, 16, Hkv, D) and a block table
     (4, max_len / 16) of random pages covering spans[i] tokens per row
-    (page 0 is scratch)."""
+    (page 0 is scratch); ``heads`` is (H, Hkv, D)."""
     import torch
     dev = torch.device("cuda")
+    h, hkv, d = heads
     mp = max_len // PAGE
-    q = torch.randn((len(spans), c, ATTN_H, ATTN_D), generator=gen,
+    q = torch.randn((len(spans), c, h, d), generator=gen,
                     device=dev).to(torch.bfloat16)
-    kp, vp = (torch.randn((pool_pages, PAGE, ATTN_HKV, ATTN_D), generator=gen,
+    kp, vp = (torch.randn((pool_pages, PAGE, hkv, d), generator=gen,
                           device=dev).to(torch.bfloat16) for _ in range(2))
     perm = torch.randperm(pool_pages - 1, generator=gen, device=dev) + 1
     bt = torch.zeros((len(spans), mp), dtype=torch.int32, device=dev)
@@ -548,8 +563,62 @@ def phase_paged_kernels(seed: int):
         sum(spans) * kv_token + live_q * ATTN_H * ATTN_D * 2
         + got.numel() * 4, 4 * ATTN_H * ATTN_D * pairs)
     del kp, vp, kp_p, vp_p
+    _paged_other_heads(gen, pa, ref)
     torch.cuda.empty_cache()
     return out
+
+
+def _paged_other_heads(gen, pa, ref):
+    """B3 and B4 at the head layouts no serving phase runs: G = 3 (smollm-
+    135m, 9 query heads over 3 kv heads, D 64) and G = 12 (starcoder2-3b,
+    24 over 2, D 128). Each held against its plain version (same
+    tolerance), NaN in every dead page leaving it bit-identical, dead lanes
+    exact zeros; timed beside the plain version."""
+    import torch
+    log(f"{'kernel':20s}{'case':26s}{'max_err':>10s}{'ms':>9s}{'plain':>9s}")
+    for label, heads in (("G 3, D 64", (9, 3, 64)),
+                         ("G 12, D 128", (24, 2, 128))):
+        # B3 rows are (cache_len - 1, 1): one of cache_len 0
+        for name, rows in (
+                ("paged_attention", [(199, 1), (-1, 1), (36, 1), (510, 1)]),
+                ("paged_attention_mq", [(200, 1), (150, 1), (17, 1),
+                                        (128, CHUNK)])):
+            spans = [o + n for o, n in rows]
+            c = CHUNK if name == "paged_attention_mq" else 1
+            q, kp, vp, bt = _paged_inputs(gen, spans, c, heads=heads)
+            kp_p, vp_p = _poison_dead(kp, vp, bt, spans)
+            qo = torch.tensor([r[0] for r in rows], dtype=torch.int32,
+                              device="cuda")
+            ql = torch.tensor([r[1] for r in rows], dtype=torch.int32,
+                              device="cuda")
+            if c == 1:
+                q = q[:, 0].contiguous()
+                cl = torch.tensor(spans, dtype=torch.int32, device="cuda")
+                run = lambda k, v: pa.paged_attention(q, k, v, bt, cl)
+                plain = lambda: ref.ref_paged_attention(q, kp, vp, bt, cl)
+            else:
+                run = lambda k, v: pa.paged_attention_mq(q, k, v, bt, qo, ql)
+                plain = lambda: ref.ref_paged_attention_mq(q, kp, vp, bt, qo,
+                                                           ql)
+            got, want, dirty = run(kp, vp), plain(), run(kp_p, vp_p)
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=1e-4, atol=1e-4 * scale):
+                fail(f"{name} [{label}]: max abs err {err:.3g} vs "
+                     f"max|plain| {scale:.3g}")
+            if not torch.equal(got, dirty):
+                fail(f"{name} [{label}]: NaN in dead pages changed the "
+                     "output")
+            if c > 1 and any(not (got[i, n:] == 0).all()
+                             for i, (_, n) in enumerate(rows)):
+                fail(f"{name} [{label}]: a dead lane is not exact zeros")
+            if c == 1 and not (got[1] == 0).all():
+                fail(f"{name} [{label}]: a cache_len 0 row is not zeros")
+            ms = cuda_time_ms(lambda i: run(kp, vp), 50)
+            plain_ms = cuda_time_ms(lambda i: plain(), 5)
+            log(f"{name:20s}{label:26s}{err:10.3g}{ms:9.4f}{plain_ms:9.4f}")
+            del q, kp, vp, kp_p, vp_p
 
 
 def _plant_edge_blocks(v, bs: int = 32, inf: bool = False):
@@ -1367,6 +1436,149 @@ def build_anchor(cfg, seed: int, save: bool = True):
     return anchor
 
 
+def _eager_twin(eng, **kw):
+    """An engine with ``eng``'s model, anchor and knobs that runs every
+    tick eagerly (``cuda_graphs=False``) and serves ``eng``'s own weight
+    trees: no second format build, so the count of builds stands."""
+    from repro_torch.serve.engine import ElasticEngine
+    twin = ElasticEngine(eng.api, eng.anchor, batch_slots=eng.slots,
+                         max_len=eng.max_len, kv_layout=eng.kv_layout,
+                         kv_page_size=eng.kv_page_size,
+                         prefill_chunk=eng.prefill_chunk, cuda_graphs=False,
+                         device="cuda", **kw)
+    twin._weights = eng._weights
+    return twin
+
+
+def _timed_wave(eng, reqs, fmt: str) -> float:
+    """``eng.generate(reqs)``, host seconds to a synchronize."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(reqs, fmt_override=fmt)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _check_same_streams(what: str, got, want) -> None:
+    a = [r.out_tokens for r in got]
+    b = [r.out_tokens for r in want]
+    if a != b:
+        fail(f"{what}: greedy streams differ under CUDA graphs and eagerly: "
+             f"{a} vs {b}")
+
+
+def _tick_wall(trace, pick) -> str:
+    """Median and range of the host wall of the ticks ``pick`` selects."""
+    import numpy as np
+    ms = [1e3 * t["wall_s"] for t in trace if pick(t)]
+    return (f"median {np.median(ms):.2f} ms ({min(ms):.2f}-{max(ms):.2f}, "
+            f"n {len(ms)})")
+
+
+def _profile_events(fn):
+    """Run ``fn()`` under torch.profiler (CPU and CUDA activity) and return
+    the trace's events as ``export_chrome_trace`` writes them (parsing that
+    file is much faster than ``prof.events()`` on a wave's worth)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def _idle_share(events, trace, pick):
+    """The card's idle share over the ticks ``pick`` selects from
+    ``trace``, read from the profile of the wave that wrote it: the
+    engine's ``ElasticEngine.tick`` ranges on the host are its ticks in
+    order, and the card is busy where any of its activities (kernels,
+    copies, fills) overlaps one. Returns (idle share, ticks, profiled tick
+    mean ms)."""
+    span_of = lambda e: (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+    ticks = sorted(span_of(e) for e in events
+                   if e.get("name") == "ElasticEngine.tick"
+                   and e.get("cat") == "user_annotation")
+    if len(ticks) != len(trace):
+        fail(f"profile holds {len(ticks)} tick ranges for {len(trace)} "
+             "ticks")
+    busy = sorted(span_of(e) for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    wins = [w for w, t in zip(ticks, trace) if pick(t)]
+    if len(wins) < 8:
+        fail(f"idle share wants at least 8 steady ticks, got {len(wins)}")
+    if not busy:
+        fail("the profile saw no activity on the card")
+    span = on = 0.0
+    for lo, hi in wins:
+        span += hi - lo
+        end = lo
+        # the union of the activity in [lo, hi]; a tick ends in a
+        # synchronize, so no activity of an earlier tick reaches into it
+        first = max(bisect.bisect_left(busy, (lo,)) - 1, 0)
+        for a, b in busy[first:]:
+            if a >= hi:
+                break
+            a, b = max(a, end), min(b, hi)
+            if b > a:
+                on += b - a
+                end = b
+    return 1 - on / span, len(wins), span / len(wins) / 1e3
+
+
+def _graph_vs_eager(label, geng, greqs, make_reqs, fmt, picks):
+    """The wave ``geng`` (CUDA graphs) just served as ``greqs``, on an
+    eager twin: greedy streams equal token for token. The twin's wave is
+    timed; so is a second wave of ``geng`` (no capture and one replay per
+    tick: the keys are known); then each serves it once more under
+    torch.profiler. Logs tick wall (median, range), tok/s, TTFT and, per
+    kind of tick in ``picks`` ({kind: trace predicate}), the card's busy
+    ms per profiled tick and its idle share, eager against graph."""
+    t_ab = time.perf_counter()
+    st = geng.stats()
+    log(f"{label} {fmt}: the graph engine has captured "
+        f"{st['graph_captures']} tick(s) in {st['graph_capture_s']:.3f} s "
+        f"and replayed {st['graph_replays']}")
+    for mode, eng in (("eager", _eager_twin(geng)), ("graph", geng)):
+        before = eng.stats()
+        reqs = make_reqs()
+        wall = _timed_wave(eng, reqs, fmt)
+        _check_same_streams(f"{label} {fmt} {mode}", reqs, greqs)
+        after = eng.stats()
+        replays = after["graph_replays"] - before["graph_replays"]
+        ticks = after["ticks"] - before["ticks"]
+        if after["graph_captures"] != before["graph_captures"] or \
+                replays != (ticks if mode == "graph" else 0):
+            fail(f"{label} {fmt} {mode}: a wave of known keys made "
+                 f"{after['graph_captures'] - before['graph_captures']} "
+                 f"captures and {replays} replays over {ticks} ticks")
+        trace = list(eng.tick_trace)
+        total = sum(len(r.out_tokens) for r in reqs)
+        events = _profile_events(
+            lambda: eng.generate(make_reqs(), fmt_override=fmt))
+        idle = []
+        for kind, pick in picks.items():
+            share, n, mean_ms = _idle_share(events, eng.tick_trace, pick)
+            idle.append(f"{kind} {100 * share:.1f}% over {n} ticks, busy "
+                        f"{(1 - share) * mean_ms:.2f} ms of a profiled tick "
+                        f"of {mean_ms:.2f} ms")
+        log(f"{label} {fmt} {mode}: " + "; ".join(
+            f"{kind} tick {_tick_wall(trace, pick)}"
+            for kind, pick in picks.items())
+            + f"; wave {total} tokens in {wall:.3f} s = {total / wall:.1f} "
+            f"tok/s, TTFT s {[round(r.ttft_s, 3) for r in reqs]}; card "
+            "idle (torch.profiler): " + "; ".join(idle))
+        del events
+    log(f"{label} {fmt}: graph-vs-eager A/B in "
+        f"{time.perf_counter() - t_ab:.1f} s")
+
+
 def phase_serving(cfg, anchor, seed: int):
     """Dense KV layout, monolithic admission; returns the B1/B2 launch
     counts and each format's greedy streams."""
@@ -1486,6 +1698,10 @@ def phase_serving(cfg, anchor, seed: int):
             f"GB; greedy tokens equal to the densify contract: "
             f"{same}/{total} ({100 * same / total:.1f}%)")
         streams[fmt] = [r.out_tokens for r in reqs]
+        _graph_vs_eager("dense", fused, reqs,
+                        lambda: _requests(cfg.vocab, seed), fmt,
+                        {"decode": lambda t: t["decode"]
+                         and not t["prefill_tokens"]})
     for kernel, n in _poisoned_wave(api, anchor, cfg, seed,
                                     streams["mxint4"]).items():
         launches[kernel] += n
@@ -1546,7 +1762,23 @@ def _poisoned_wave(api, anchor, cfg, seed: int, clean):
     if early != [c[:3] for c in clean[:SLOTS]]:
         fail(f"poisoned wave: tokens before the fault {early} differ from "
              f"the clean wave's {[c[:3] for c in clean[:SLOTS]]}")
-    del eng
+    # the same plan on an eager twin: the same escalation, the same streams
+    twin = _eager_twin(eng, fault_injector=FaultInjector(
+        poison_logits={2: None}, poison_fmt="mxint4"))
+    twin_reqs = [Request(rid=r.rid, prompt=r.prompt, max_new=6)
+                 for r in _requests(cfg.vocab, seed)[:SLOTS]]
+    twin.generate(twin_reqs, fmt_override="mxint4")
+    _check_same_streams("poisoned wave", reqs, twin_reqs)
+    tst = twin.stats()
+    if [(e["tick"], e["from"], e["to"]) for e in tst["escalation_events"]] \
+            != events or tst["ticks_replayed"] != st["ticks_replayed"]:
+        fail(f"poisoned wave: the eager twin escalated "
+             f"{tst['escalation_events']}, the graph engine {events}")
+    log(f"poisoned wave: graph engine {st['graph_captures']} captures "
+        f"({st['graph_capture_s']:.3f} s, the mxint6 tick's mid-wave) and "
+        f"{st['graph_replays']} replays; eager twin: the same escalation "
+        "and streams")
+    del eng, twin
     torch.cuda.empty_cache()
     return counts
 
@@ -1696,6 +1928,10 @@ def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
             f"{st['attn_read_bytes'] - before['attn_read_bytes']}; peak "
             f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
             f"greedy tokens equal to the dense layout: {share}")
+        _graph_vs_eager(
+            "paged", eng, reqs, lambda: _requests(cfg.vocab, seed), fmt,
+            {"pure decode": lambda t: t["decode"] and not t["prefill_chunks"],
+             "mixed": lambda t: t["decode"] and t["prefill_chunks"]})
     return totals
 
 

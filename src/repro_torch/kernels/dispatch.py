@@ -44,6 +44,18 @@ def reset_stats() -> None:
         _stats[k] = 0
 
 
+def snapshot() -> Dict[str, int]:
+    """The path counts as they stand; the difference of two snapshots is
+    what ``credit`` takes (``serve/tick_graph.py`` credits a CUDA graph's
+    at each replay, where no Python runs)."""
+    return dict(_stats)
+
+
+def credit(delta: Dict[str, int]) -> None:
+    for k, v in delta.items():
+        _stats[k] += v
+
+
 def resolve_mode(mode: Optional[str]) -> str:
     mode = mode or "kernel"
     if mode not in MODES:

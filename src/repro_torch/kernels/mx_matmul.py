@@ -138,6 +138,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def snapshot() -> Dict[str, int]:
+    """The launch counts as they stand; the difference of two snapshots is
+    what ``credit`` takes (``serve/tick_graph.py`` credits a CUDA graph's
+    launches at each replay, where no wrapper runs)."""
+    return dict(launches)
+
+
+def credit(delta: Dict[str, int]) -> None:
+    for k, v in delta.items():
+        launches[k] += v
+
+
 def build() -> ctypes.CDLL:
     """Build (once) the port's kernel library and bind B1/B2."""
     global _lib

@@ -83,6 +83,18 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
+def snapshot() -> Dict[str, int]:
+    """The launch counts and the dispatch paths' counts as they stand (their
+    keys differ); the difference of two snapshots is what ``credit`` takes
+    (``serve/tick_graph.py`` credits a CUDA graph's at each replay)."""
+    return {**launches, **_stats}
+
+
+def credit(delta: Dict[str, int]) -> None:
+    for k, v in delta.items():
+        (launches if k in launches else _stats)[k] += v
+
+
 def pages_read(length: int, page_size: int,
                window: Optional[int] = None) -> int:
     """Distinct pages one slot's block-table walk covers for ``length`` live

@@ -170,13 +170,23 @@ def mixed_cache_update(cache: torch.Tensor, kv_new: torch.Tensor,
                        cache_len: torch.Tensor, q_len: torch.Tensor) -> None:
     """Ragged multi-token append into a dense cache (B, Smax, Hkv, D): row
     b's token i lands at ``cache_len[b] + i`` when ``i < q_len[b]``; pad
-    lanes and positions past the cache are dropped."""
-    c = kv_new.shape[1]
+    lanes and positions past the cache are dropped.
+
+    Shapes never depend on the data (a CUDA graph captures it): every lane
+    writes, at ``(cache_len[b] + i) % Smax``, its new value if kept and the
+    value already there if dropped. Within a row those C <= Smax positions
+    are distinct, so no two writes collide and a dropped lane never lands
+    on a kept one. Lanes at i >= Smax are past the cache in every row."""
+    b, smax = cache.shape[:2]
+    c = min(kv_new.shape[1], smax)
     lane = torch.arange(c, device=kv_new.device)
-    pos = cache_len.long()[:, None] + lane[None]
-    keep = (lane[None] < q_len[:, None]) & (pos < cache.shape[1])
-    rows, lanes = keep.nonzero(as_tuple=True)
-    cache[rows, pos[rows, lanes]] = kv_new[rows, lanes].to(cache.dtype)
+    pos = cache_len.long()[:, None] + lane[None]                 # (B, C)
+    keep = (lane[None] < q_len[:, None]) & (pos < smax)
+    rows = torch.arange(b, device=kv_new.device)[:, None].expand(b, c)
+    pos = pos % smax
+    cache[rows, pos] = torch.where(keep[..., None, None],
+                                   kv_new[:, :c].to(cache.dtype),
+                                   cache[rows, pos])
 
 
 def paged_mixed_update(pool: torch.Tensor, kv_new: torch.Tensor,

@@ -47,6 +47,16 @@ one device-to-host copy, so a clean tick pays nothing for the guard.
 ``fault_injector`` (``runtime/fault.py::FaultInjector``) poisons logits to
 drive it.
 
+On the card each decode tick (``serve_step``) and each mixed tick
+(``mixed_step``) runs as one CUDA graph (``serve/tick_graph.py``): the
+first tick of each (entry point, format, KV layout, chunk width) runs
+eagerly and is then captured, and every later one is a replay — the
+counterpart of the reference's one jitted executable per tick. What a
+captured tick reads and writes keeps its storage for the engine's
+lifetime: the KV cache (zeroed at each wave), ``cache_len``, the tokens,
+the block table and one token / ``q_len`` buffer per mixed-tick width.
+Prefill executables run eagerly.
+
 Left out of this slice (each refused with a clear error): speculative
 decoding, sampling, the injector's other primitives and step retries,
 cancellation, deadlines, snapshots, SLO tiers and tensor parallelism.
@@ -73,6 +83,7 @@ from repro_torch.serve.packed_params import (anchor_block_size,
                                              make_packed_params,
                                              weight_stream_bytes)
 from repro_torch.serve.policy import FormatPolicy
+from repro_torch.serve.tick_graph import TickGraphs
 
 DENSE_BF16 = "bf16"   # pseudo-format: dense anchor-precision weights
 
@@ -137,7 +148,9 @@ class ElasticEngine:
     ``mixed_step``, ``"sequential"`` as its own executable before the
     decode step. ``logit_guard`` escalates and replays a tick whose consumed
     logits are not finite (module docstring); ``fault_injector`` poisons
-    logits to exercise it.
+    logits to exercise it. ``cuda_graphs`` (None = on where the device is
+    CUDA) runs decode and mixed ticks as CUDA graphs; False runs every
+    launch eagerly, as ``jax.disable_jit`` does for the reference.
     """
 
     def __init__(self, api: ModelApi, anchor: AnchorModel, *,
@@ -148,7 +161,8 @@ class ElasticEngine:
                  attn_impl: Optional[str] = None, prefill_chunk=None,
                  scheduler: Optional[str] = None, logit_guard: bool = True,
                  fault_injector: Optional[FaultInjector] = None,
-                 device="cuda", **unsupported):
+                 cuda_graphs: Optional[bool] = None, device="cuda",
+                 **unsupported):
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED:
                 raise TypeError(f"unexpected argument {name!r}")
@@ -164,6 +178,13 @@ class ElasticEngine:
         self.logit_guard = logit_guard
         self._fault_injector = fault_injector
         self.device = resolve_device(device)
+        if cuda_graphs is None:
+            cuda_graphs = self.device.type == "cuda"
+        elif cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
+                             f"{self.device}; the CPU path runs every tick "
+                             "eagerly")
+        self._graphs = TickGraphs() if cuda_graphs else None
         self.anchor = anchor
         self.slots = batch_slots
         self.max_len = max_len
@@ -241,6 +262,12 @@ class ElasticEngine:
         self._kv_pages_hwm = 0
         self._attn_tokens_read = 0
         self.tick_trace: List[Dict[str, float]] = []   # reset per generate
+        # What a captured tick reads and writes, allocated at the first wave
+        # and kept (``_wave_state``, ``_mixed_batch``).
+        self._cache = None
+        self._cache_len: Optional[torch.Tensor] = None
+        self._tokens: Optional[torch.Tensor] = None
+        self._mixed_bufs: Dict[int, Dict[str, torch.Tensor]] = {}
 
         itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
         kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * itemsize
@@ -292,13 +319,64 @@ class ElasticEngine:
         return self._packed_api if self._serves_packed(fmt_name) \
             else self._plain_api
 
-    # ---- KV cache ---------------------------------------------------------
+    # ---- KV cache and the ticks' static buffers -------------------------
     def _init_cache(self, b: int):
         if self.kv_layout == "paged":
             return self.api.init_cache(
                 b, self.max_len, device=self.device, kv_layout="paged",
                 page_size=self.kv_page_size, num_pages=self.kv_num_pages)
         return self.api.init_cache(b, self.max_len, device=self.device)
+
+    def _wave_state(self):
+        """The KV cache, ``cache_len`` (B,) and the tokens (B, 1): allocated
+        at the first wave, zeroed in place at every later one, so a wave
+        starts as from fresh zeros and a captured tick finds them where it
+        was captured."""
+        b = self.slots
+        if self._cache is None:
+            self._cache = self._init_cache(b)
+            self._cache_len = torch.zeros(b, dtype=torch.int32,
+                                          device=self.device)
+            self._tokens = torch.zeros((b, 1), dtype=torch.int32,
+                                       device=self.device)
+        else:
+            for c in self._cache["blocks"]:
+                for t in c.values():
+                    t.zero_()
+            if "block_table" in self._cache:
+                self._cache["block_table"].zero_()
+            self._cache_len.zero_()
+            self._tokens.zero_()
+        return self._cache, self._cache_len, self._tokens
+
+    def _mixed_batch(self, width: int) -> Dict[str, torch.Tensor]:
+        """The mixed tick's inputs at chunk width ``width``: tokens (B,
+        width) and q_len (B,), one pair per width for the engine's
+        lifetime."""
+        if width not in self._mixed_bufs:
+            self._mixed_bufs[width] = {
+                "tokens": torch.zeros((self.slots, width), dtype=torch.int32,
+                                      device=self.device),
+                "q_len": torch.zeros(self.slots, dtype=torch.int32,
+                                     device=self.device)}
+        return self._mixed_bufs[width]
+
+    def _tick(self, entry: str, fmt: str, width: int, batch, cache,
+              cache_len) -> torch.Tensor:
+        """The logits of one decode (``entry="serve_step"``) or mixed
+        (``"mixed_step"``) tick at ``fmt``: eager launches, or a CUDA graph
+        keyed by (entry, format, KV layout, chunk width). A graph reads the
+        weight tree where it lies: trees stay in ``_weights`` for the
+        engine's lifetime."""
+        weights = self.weights_for(fmt)
+        fn = getattr(self._api_for(fmt), entry)
+
+        def step():
+            return fn(weights, batch, cache, cache_len)[0]
+
+        if self._graphs is None:
+            return step()
+        return self._graphs.run((entry, fmt, self.kv_layout, width), step)
 
     def _alloc_pages(self, free: List[int], n: int, why: str) -> List[int]:
         """Pop ``n`` physical pages off the free list, or raise
@@ -465,6 +543,12 @@ class ElasticEngine:
         host transfer per attempt. Returns ``(logits, nxt, drained, cache,
         pinned, dead_rows, execs)``; ``dead_rows`` is non-empty only at the
         anchor rung.
+
+        Under CUDA graphs an attempt's logits are a graph's static output,
+        which the next replay of any graph of the engine may overwrite: each
+        attempt drains them here (the argmax and the finite flags, read off
+        the injector's poisoned copy when it fires) before the next one
+        runs, and the caller keeps only ``nxt`` and ``drained``.
         """
         execs = 0
         while True:
@@ -518,9 +602,7 @@ class ElasticEngine:
         pending = list(requests)
         active: List[Optional[Request]] = [None] * b
         slot_len = [0] * b              # host mirror of cache_len
-        cache = self._init_cache(b)
-        cache_len = torch.zeros(b, dtype=torch.int32, device=dev)
-        tokens = torch.zeros((b, 1), dtype=torch.int32, device=dev)
+        cache, cache_len, tokens = self._wave_state()
         pinned: Optional[str] = None    # format for this batch's lifetime
         filling: Optional[Request] = None   # the (single) mid-prefill request
         fill_slot, fill_cursor = -1, 0
@@ -581,6 +663,10 @@ class ElasticEngine:
         while pending or filling is not None \
                 or any(a is not None for a in active):
             t_tick = time.perf_counter()
+            # one profiler range per scheduler tick, closed by _record_tick:
+            # a trace reads the card's busy share of each tick from it
+            span = torch.profiler.record_function("ElasticEngine.tick")
+            span.__enter__()
             tick_id = tick_no
             tick_no += 1
             if pinned is None:          # engine drained: re-pick format
@@ -754,7 +840,7 @@ class ElasticEngine:
                 # No decode this tick. Under the mixed scheduler a chunk that
                 # ran alone ends the tick: the new slot's first decode is
                 # next tick's (one) executable.
-                self._record_tick(tick, 0, t_tick, decode_rows=0)
+                self._record_tick(tick, 0, t_tick, span, decode_rows=0)
                 if all_free and filling is None:
                     pinned = None       # drained; the next wave re-picks
                 continue
@@ -805,7 +891,7 @@ class ElasticEngine:
                     sync_table()
             if chunk_tok is None and all(a is None for a in active):
                 # victim retirement emptied the batch
-                self._record_tick(tick, 0, t_tick, decode_rows=0)
+                self._record_tick(tick, 0, t_tick, span, decode_rows=0)
                 if filling is None:
                     pinned = None
                 continue
@@ -821,18 +907,19 @@ class ElasticEngine:
                 # ---- mixed tick: decode rows carry their token in column
                 # 0, the fill row its chunk at its cursor; one executable
                 start, take, padded, final = chunk_tok
-                tok2d = torch.zeros((b, padded), dtype=torch.int32, device=dev)
+                mbatch = self._mixed_batch(padded)
+                tok2d = mbatch["tokens"]
+                tok2d.zero_()
                 tok2d[:, 0] = tokens[:, 0]
                 tok2d[fill_slot] = torch.as_tensor(ctoks, device=dev)
                 q_len = np.ones(b, np.int32)
                 q_len[fill_slot] = take
-                mbatch = {"tokens": tok2d,
-                          "q_len": torch.as_tensor(q_len, device=dev)}
+                mbatch["q_len"].copy_(torch.from_numpy(q_len))
 
                 def attempt(fmt):
-                    lg, c2 = self._api_for(fmt).mixed_step(
-                        self.weights_for(fmt), mbatch, cache, cache_len)
-                    return poisoned(lg, tick_id, fmt), c2
+                    lg = self._tick("mixed_step", fmt, padded, mbatch, cache,
+                                    cache_len)
+                    return poisoned(lg, tick_id, fmt), cache
 
                 adv = mask.copy()
                 adv[fill_slot] = take
@@ -840,10 +927,9 @@ class ElasticEngine:
                 tick["prefill_chunks"] += 1
             else:
                 def attempt(fmt):
-                    lg, c2 = self._api_for(fmt).serve_step(
-                        self.weights_for(fmt), {"tokens": tokens}, cache,
-                        cache_len)
-                    return poisoned(lg, tick_id, fmt), c2
+                    lg = self._tick("serve_step", fmt, 1, {"tokens": tokens},
+                                    cache, cache_len)
+                    return poisoned(lg, tick_id, fmt), cache
 
                 adv = mask
             # escalate-and-replay against the pre-tick state; the commits
@@ -854,8 +940,8 @@ class ElasticEngine:
                 pinned = repin(new_pinned)
             tick["execs"] += execs
             tick["rows"] += b * execs
-            cache_len = cache_len + torch.as_tensor(adv, device=dev)
-            tokens = nxt[:, None].to(torch.int32)
+            cache_len.add_(torch.as_tensor(adv, device=dev))
+            tokens.copy_(nxt[:, None])
             self._decode_s += time.perf_counter() - t_dec
             self._ticks += 1
 
@@ -920,24 +1006,26 @@ class ElasticEngine:
                     complete_admission(fill_slot, filling,
                                        int(drained[fill_slot]))
                     filling = None
-            self._record_tick(tick, 1, t_tick, decode_rows=int(mask.sum()))
+            self._record_tick(tick, 1, t_tick, span,
+                              decode_rows=int(mask.sum()))
             if all(a is None for a in active) and filling is None:
                 pinned = None
         return requests
 
     def _record_tick(self, tick: Dict[str, int], decode: int, t_tick: float,
-                     decode_rows: int) -> None:
+                     span, decode_rows: int) -> None:
         """One scheduler-tick trace entry: padded prompt tokens and chunks
         prefilled, whether a decode (or mixed) step ran, the executables
         dispatched (the mixed scheduler's invariant: at most one, plus one
         per guard replay), the batch
         rows they processed, the live decoding rows, and the host wall
-        time."""
+        time. Closes the tick's profiler range ``span``."""
         self.tick_trace.append({
             "prefill_tokens": tick["prefill_tokens"],
             "prefill_chunks": tick["prefill_chunks"], "decode": decode,
             "wall_s": time.perf_counter() - t_tick, "execs": tick["execs"],
             "rows": tick["rows"], "decode_rows": decode_rows})
+        span.__exit__(None, None, None)
 
     # ---- introspection ----------------------------------------------------
     def stats(self) -> Dict[str, object]:
@@ -947,6 +1035,11 @@ class ElasticEngine:
                              for f, t in self._weights.items()},
             "kernel_launches": {**mx_matmul.launches,
                                 **paged_attention.launches},
+            "cuda_graphs": self._graphs is not None,
+            "graph_captures": self._graphs.captures if self._graphs else 0,
+            "graph_replays": self._graphs.replays if self._graphs else 0,
+            "graph_capture_s": self._graphs.capture_s if self._graphs
+            else 0.0,
             "fmt_swaps": self._fmt_swaps,
             "ticks": self._ticks,
             "prefills": self._prefills,

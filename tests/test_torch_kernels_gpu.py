@@ -309,6 +309,8 @@ def _poisoned(kp, vp, bt, spans, ps):
     ([0, 5, 33], 8, 2, 1, 16),                  # cache_len 0, MHA, tiny D
     ([7, 40], 32, 4, 8, 64),
     ([100, 37], 64, 2, 2, 128),                 # pages too big to prefetch
+    ([200, 1, 37, 511], 16, 3, 3, 64),          # smollm-135m: G 3, D 64
+    ([200, 17, 0, 300], 16, 2, 12, 128),        # starcoder2-3b: G 12
 ])
 def test_paged_attention_matches_plain(spans, ps, hkv, g, d, dtype, window):
     dev = _card()
@@ -335,6 +337,8 @@ def test_paged_attention_matches_plain(spans, ps, hkv, g, d, dtype, window):
     ([(200, 1), (150, 1), (17, 1), (128, 64)], 64, 16, 8, 4, 128),
     ([(16, 8), (17, 5), (15, 8), (29, 1), (0, 7)], 8, 8, 2, 2, 16),
     ([(0, 40), (63, 1)], 40, 16, 4, 8, 64),
+    ([(200, 1), (37, 1), (128, 64)], 64, 16, 3, 3, 64),       # G 3, D 64
+    ([(150, 1), (0, 64), (63, 1), (17, 0)], 64, 16, 2, 12, 128),  # G 12
 ])
 def test_paged_attention_mq_matches_plain(rows, c, ps, hkv, g, d, window):
     dev = _card()

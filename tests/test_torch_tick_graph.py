@@ -1,0 +1,404 @@
+"""The engine's decode and mixed ticks as CUDA graphs (``serve/tick_graph.py``).
+
+A captured tick reads and writes its tensors where they lay at capture, so
+the engine keeps the KV cache, ``cache_len``, the tokens, the block table
+and each mixed-tick width's buffers in one storage for its lifetime. On the
+CPU (reduced qwen3-4b, 2 layers, 2 slots) these tests hold:
+
+- that storage, at every step call of two waves on one engine, on both KV
+  layouts, monolithic and chunked, under both schedulers;
+- the greedy streams and the tick trace of two consecutive waves on one
+  engine against two waves of the JAX ``ElasticEngine`` (the second wave
+  starts from the zeroed persistent cache);
+- ``mixed_cache_update``, now free of data-dependent shapes, against JAX on
+  ragged rows;
+- the engine's graph path with a stand-in for the CUDA graph whose replay
+  reruns the step captured at the first tick — with the tensors that step
+  read then — and writes NaN over every other graph's static logits: the
+  streams, traces and path counts must equal the eager engine's;
+- ``cuda_graphs=True`` refused on the CPU.
+
+The ``gpu`` cases run the same engines on the card, graph against eager
+(the JAX package is not needed there); they skip on a host without one.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_reduced
+from repro_torch.core.anchor import make_anchor
+from repro_torch.core.qat import QATConfig
+from repro_torch.kernels import dispatch, mx_matmul
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import init_params, make_model
+from repro_torch.runtime.fault import FaultInjector
+from repro_torch.serve import tick_graph
+from repro_torch.serve.engine import ElasticEngine, Request, RequestStatus
+
+SLOTS, MAX_LEN, MAX_NEW, PS = 2, 48, 5, 8
+PAGED = dict(kv_layout="paged", kv_page_size=PS, attn_impl="paged_kernel")
+CONFIGS = {
+    "dense-monolithic": {},
+    "dense-chunk-mixed": dict(prefill_chunk=8),
+    "paged-monolithic": PAGED,
+    "paged-chunk-mixed": dict(PAGED, prefill_chunk=8),
+    "paged-chunk-sequential": dict(PAGED, prefill_chunk=8,
+                                   scheduler="sequential"),
+}
+WAVES = ((3, (21, 5, 13, 30)), (4, (9, 17, 3)))    # (seed, prompt lengths)
+
+
+def _prompts(vocab, seed, lens):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=n).astype(np.int32) for n in lens]
+
+
+def _requests(prompts, max_new=MAX_NEW):
+    return [Request(i, p, max_new) for i, p in enumerate(prompts)]
+
+
+def _trace(tick_trace):
+    return [(t["prefill_tokens"], t["decode"], t["execs"]) for t in tick_trace]
+
+
+@pytest.fixture(scope="module")
+def cpu_anchor():
+    cfg = get_reduced("qwen3-4b")
+    params = init_params(cfg, 0, device="cpu")
+    return cfg, make_anchor(params, QATConfig(anchor="mxint8"), device="cpu")
+
+
+def _engine(cfg, anchor, device="cpu", **kw):
+    kw.setdefault("batch_slots", SLOTS)
+    kw.setdefault("max_len", MAX_LEN)
+    return ElasticEngine(make_model(cfg), anchor, device=device, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Storage: what a captured tick reads keeps its place
+# ---------------------------------------------------------------------------
+def _cache_tensors(cache):
+    out = [t for c in cache["blocks"] for t in c.values()]
+    if "block_table" in cache:
+        out.append(cache["block_table"])
+    return out
+
+
+class _Spy:
+    """Wraps the engine's serving entry points and keeps every tensor they
+    were handed (kept alive, no address can be handed out twice)."""
+
+    def __init__(self, eng):
+        self.seen = {}
+        api = eng._packed_api
+        eng._packed_api = dataclasses.replace(
+            api, serve_step=self._wrap("serve_step", api.serve_step),
+            mixed_step=self._wrap("mixed_step", api.mixed_step),
+            prefill_slot=self._wrap("prefill_slot", api.prefill_slot),
+            prefill_chunk_slot=self._wrap("prefill_chunk_slot",
+                                          api.prefill_chunk_slot))
+
+    def _wrap(self, name, fn):
+        def spy(params, batch, cache, *rest):
+            rec = {"cache": _cache_tensors(cache)}
+            if name in ("serve_step", "mixed_step"):
+                rec["cache_len"] = rest[0]
+                rec["batch"] = dict(batch)
+            self.seen.setdefault(name, []).append(rec)
+            return fn(params, batch, cache, *rest)
+        return spy
+
+    def ptrs(self, name, what):
+        return {tuple(t.data_ptr() for t in r[what]) if what == "cache"
+                else r[what].data_ptr() for r in self.seen.get(name, [])}
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_tick_buffers_keep_their_storage_across_waves(cpu_anchor, name):
+    cfg, anchor = cpu_anchor
+    eng = _engine(cfg, anchor, **CONFIGS[name])
+    spy = _Spy(eng)
+    for seed, lens in WAVES:
+        reqs = eng.generate(_requests(_prompts(cfg.vocab, seed, lens)),
+                            fmt_override="mxint8")
+        assert all(r.status is RequestStatus.COMPLETED for r in reqs)
+    cache = {tuple(t.data_ptr() for t in _cache_tensors(eng._cache))}
+    for entry in spy.seen:
+        assert spy.ptrs(entry, "cache") == cache, entry
+    steps = [r for e in ("serve_step", "mixed_step")
+             for r in spy.seen.get(e, [])]
+    assert steps
+    assert {r["cache_len"].data_ptr() for r in steps} == \
+        {eng._cache_len.data_ptr()}
+    assert {r["batch"]["tokens"].data_ptr()
+            for r in spy.seen.get("serve_step", [])} <= \
+        {eng._tokens.data_ptr()}
+    mixed = spy.seen.get("mixed_step", [])
+    assert bool(mixed) == (CONFIGS[name].get("prefill_chunk") is not None
+                           and eng.scheduler == "mixed")
+    for r in mixed:
+        buf = eng._mixed_bufs[r["batch"]["tokens"].shape[1]]
+        assert r["batch"]["tokens"].data_ptr() == buf["tokens"].data_ptr()
+        assert r["batch"]["q_len"].data_ptr() == buf["q_len"].data_ptr()
+    if mixed:
+        assert len(eng._mixed_bufs) == len({r["batch"]["tokens"].shape[1]
+                                            for r in mixed})
+
+
+# ---------------------------------------------------------------------------
+# Two waves on one engine against two waves of the JAX engine
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def jax_served(tmp_path_factory):
+    jax = pytest.importorskip("jax")
+    from repro.checkpoint.anchor_ckpt import save_anchor as jsave
+    from repro.configs import get_reduced as jreduced
+    from repro.core.anchor import make_anchor as jmake
+    from repro.core.qat import QATConfig as JQAT
+    from repro.models import get_model as jget_model
+    from repro_torch.checkpoint.anchor_ckpt import load_anchor
+    api = jget_model(jreduced("qwen3-4b"))
+    params = jax.jit(api.init_params)(jax.random.PRNGKey(0))
+    anchor = jax.jit(lambda p: jmake(p, JQAT(anchor="mxint8")))(params)
+    path = str(tmp_path_factory.mktemp("anchor") / "anchor")
+    jsave(path, anchor)
+    return api, params, anchor, load_anchor(path, device="cpu")
+
+
+@pytest.mark.parametrize("fmt", ["mxint8", "mxint4"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_two_waves_on_one_engine_equal_the_jax_engine(jax_served, name, fmt):
+    from repro.serve.engine import ElasticEngine as JEngine
+    from repro.serve.engine import Request as JRequest
+    api, params, janchor, anchor = jax_served
+    kw = dict(CONFIGS[name], batch_slots=SLOTS, max_len=MAX_LEN)
+    jeng = JEngine(api, janchor, fused=False, param_template=params, **kw)
+    eng = _engine(get_reduced("qwen3-4b"), anchor, **CONFIGS[name])
+    for seed, lens in WAVES:
+        prompts = _prompts(api.cfg.vocab, seed, lens)
+        want = jeng.generate([JRequest(i, p, MAX_NEW)
+                              for i, p in enumerate(prompts)],
+                             fmt_override=fmt)
+        got = eng.generate(_requests(prompts), fmt_override=fmt)
+        assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
+        assert _trace(eng.tick_trace) == _trace(jeng.tick_trace)
+        assert all(r.status is RequestStatus.COMPLETED for r in got)
+    st = eng.stats()
+    assert st["kv_pages_alloc"] == st["kv_pages_freed"]
+    assert st["cuda_graphs"] is False and st["graph_captures"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The dense mixed-tick KV write without data-dependent shapes
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("smax,c,cache_len,q_len", [
+    # a row at the last position, a full row, a q_len 0 row, a row whose
+    # live lanes run past Smax, a row at capacity (cache_len == Smax)
+    (12, 4, [11, 2, 5, 10, 12], [1, 4, 0, 4, 3]),
+    (6, 8, [0, 3, 6], [8, 5, 2]),             # C > Smax
+    (9, 9, [0, 4, 9, 1], [9, 2, 9, 0]),       # C == Smax
+])
+def test_dense_mixed_append_matches_jax_on_ragged_rows(smax, c, cache_len,
+                                                       q_len):
+    jnp = pytest.importorskip("jax.numpy")
+    from repro.models import layers as jL
+    rng = np.random.default_rng(smax + c)
+    b = len(cache_len)
+    cache = rng.normal(size=(b, smax, 2, 16)).astype(np.float32)
+    kv = rng.normal(size=(b, c, 2, 16)).astype(np.float32)
+    cl, ql = np.asarray(cache_len, np.int32), np.asarray(q_len, np.int32)
+    want = jL.mixed_cache_update(jnp.asarray(cache), jnp.asarray(kv),
+                                 jnp.asarray(cl), jnp.asarray(ql))
+    got = torch.from_numpy(cache.copy())
+    L.mixed_cache_update(got, torch.from_numpy(kv), torch.from_numpy(cl),
+                         torch.from_numpy(ql))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# The graph path, with a stand-in for the CUDA graph
+# ---------------------------------------------------------------------------
+class _ReplayedStep:
+    """A CUDA graph's stand-in: ``replay`` reruns the step it was captured
+    from (the closure of the first tick of its key, holding the tensors
+    that tick read) into the static output, as a graph reruns its kernels
+    on the pointers it captured, and sets back the counts the rerun moved
+    (a replay runs no Python). It then writes NaN over every other graph's
+    static logits, as a replay in a shared pool may."""
+
+    def __init__(self, step, static, graphs):
+        self.step, self.static, self.graphs = step, static, graphs
+        graphs.append(self)
+
+    def replay(self):
+        before = [m.snapshot() for m in tick_graph.COUNTERS]
+        self.static.copy_(self.step())
+        for m, b in zip(tick_graph.COUNTERS, before):
+            m.credit({k: b[k] - n for k, n in m.snapshot().items()})
+        for g in self.graphs:
+            if g is not self:
+                g.static.fill_(float("nan"))
+
+
+@pytest.fixture
+def stand_in_graphs(monkeypatch):
+    graphs = []
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(
+        tick_graph, "capture",
+        lambda step, pool: (lambda s: (_ReplayedStep(step, s, graphs), s))(
+            step()))
+    return graphs
+
+
+def _counts():
+    return {**dispatch.stats(), **pa.stats()}
+
+
+def _wave(eng, cfg, seed, lens, fmt):
+    before = _counts()
+    reqs = eng.generate(_requests(_prompts(cfg.vocab, seed, lens)),
+                        fmt_override=fmt)
+    after = _counts()
+    return ([r.out_tokens for r in reqs], [r.status for r in reqs],
+            _trace(eng.tick_trace),
+            {k: after[k] - before[k] for k in after})
+
+
+@pytest.mark.parametrize("name", ["dense-monolithic", "dense-chunk-mixed",
+                                  "paged-chunk-mixed",
+                                  "paged-chunk-sequential"])
+def test_graph_path_equals_eager_with_a_stand_in_graph(cpu_anchor,
+                                                       stand_in_graphs, name):
+    cfg, anchor = cpu_anchor
+    eager = _engine(cfg, anchor, **CONFIGS[name])
+    graphed = _engine(cfg, anchor, **CONFIGS[name])
+    graphed._graphs = tick_graph.TickGraphs()
+    for i, (seed, lens) in enumerate(WAVES + WAVES[:1]):
+        fmt = ("mxint8", "mxint4")[i % 2]
+        want = _wave(eager, cfg, seed, lens, fmt)
+        captures = graphed._graphs.captures
+        got = _wave(graphed, cfg, seed, lens, fmt)
+        assert got == want
+        if i == 2:                    # the first wave's keys again
+            assert graphed._graphs.captures == captures
+    st = graphed.stats()
+    # one decode or mixed step per decode-carrying tick (no guard replay):
+    # the first of each key captured, every other one replayed
+    assert st["graph_captures"] == len(stand_in_graphs) >= 2
+    assert st["graph_replays"] + st["graph_captures"] == st["ticks"]
+    assert st["graph_replays"] > st["graph_captures"]
+
+
+def test_poisoned_wave_escalates_once_with_a_stand_in_graph(
+        cpu_anchor, stand_in_graphs):
+    cfg, anchor = cpu_anchor
+    runs = {}
+    for mode in ("eager", "graph"):
+        eng = _engine(cfg, anchor, fault_injector=FaultInjector(
+            poison_logits={2: 0}))
+        if mode == "graph":
+            eng._graphs = tick_graph.TickGraphs()
+        reqs = eng.generate(_requests(_prompts(cfg.vocab, *WAVES[0])),
+                            fmt_override="mxint4")
+        st = eng.stats()
+        runs[mode] = ([r.out_tokens for r in reqs],
+                      [r.status for r in reqs], _trace(eng.tick_trace),
+                      [(e["tick"], e["from"], e["to"])
+                       for e in st["escalation_events"]])
+    assert runs["graph"] == runs["eager"]
+    assert runs["graph"][3] == [(2, "mxint4", "mxint6")]
+
+
+# ---------------------------------------------------------------------------
+# The switch
+# ---------------------------------------------------------------------------
+def test_cuda_graphs_on_the_cpu_is_refused(cpu_anchor):
+    cfg, anchor = cpu_anchor
+    with pytest.raises(ValueError, match="cuda_graphs=True needs a CUDA"):
+        _engine(cfg, anchor, cuda_graphs=True)
+    assert _engine(cfg, anchor).stats()["cuda_graphs"] is False
+    assert _engine(cfg, anchor, cuda_graphs=False).stats()["cuda_graphs"] \
+        is False
+
+
+# ---------------------------------------------------------------------------
+# On the card: CUDA graphs against eager launches
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def card_anchor():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the ticks run as CUDA graphs only "
+                    "there (the stand-in cases above hold the graph path's "
+                    "logic on the CPU)")
+    cfg = get_reduced("qwen3-4b")
+    params = init_params(cfg, 0, device="cuda")
+    return cfg, make_anchor(params, QATConfig(anchor="mxint8"),
+                            device="cuda")
+
+
+def _card_wave(eng, cfg, seed, lens, fmt):
+    mx_matmul.reset_launches()
+    pa.reset_launches()
+    reqs = eng.generate(_requests(_prompts(cfg.vocab, seed, lens)),
+                        fmt_override=fmt)
+    torch.cuda.synchronize()
+    st = eng.stats()
+    return ([r.out_tokens for r in reqs], [r.status for r in reqs],
+            _trace(eng.tick_trace), st["kernel_launches"],
+            [(e["tick"], e["from"], e["to"])
+             for e in st["escalation_events"]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["mxint8", "mxint4"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_graph_and_eager_engines_agree_on_the_card(card_anchor, name, fmt):
+    cfg, anchor = card_anchor
+    runs = {}
+    for graphs in (False, True):
+        eng = _engine(cfg, anchor, device="cuda", cuda_graphs=graphs,
+                      **CONFIGS[name])
+        runs[graphs] = _card_wave(eng, cfg, *WAVES[0], fmt)
+        st = eng.stats()
+        assert st["cuda_graphs"] is graphs
+        if graphs:
+            assert st["graph_captures"] + st["graph_replays"] == st["ticks"]
+            assert st["graph_replays"] > st["graph_captures"] >= 1
+        else:
+            assert st["graph_captures"] == st["graph_replays"] == 0
+    assert runs[True] == runs[False]
+    assert sum(runs[True][3].values()) > 0
+
+
+@pytest.mark.gpu
+def test_poisoned_wave_escalates_once_under_graphs_on_the_card(card_anchor):
+    cfg, anchor = card_anchor
+    runs = {}
+    for graphs in (False, True):
+        eng = _engine(cfg, anchor, device="cuda", cuda_graphs=graphs,
+                      fault_injector=FaultInjector(poison_logits={2: 0}),
+                      **CONFIGS["paged-chunk-mixed"])
+        runs[graphs] = _card_wave(eng, cfg, *WAVES[0], "mxint4")
+    assert runs[True] == runs[False]
+    assert runs[True][4] == [(2, "mxint4", "mxint6")]
+    assert all(s is RequestStatus.COMPLETED for s in runs[True][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dense-monolithic", "paged-chunk-mixed"])
+def test_a_second_wave_replays_without_capturing_on_the_card(card_anchor,
+                                                             name):
+    cfg, anchor = card_anchor
+    eng = _engine(cfg, anchor, device="cuda", **CONFIGS[name])
+    first = _card_wave(eng, cfg, *WAVES[0], "mxint8")
+    st = eng.stats()
+    again = _card_wave(eng, cfg, *WAVES[0], "mxint8")
+    st2 = eng.stats()
+    assert again == first
+    assert st2["graph_captures"] == st["graph_captures"] >= 1
+    assert st2["graph_replays"] - st["graph_replays"] == \
+        st2["ticks"] - st["ticks"]
