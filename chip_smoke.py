@@ -5,12 +5,16 @@ check them.
     python3 chip_smoke.py [--layers N] [--seed S]
     python3 chip_smoke.py --kernels-only [--src DIR]
     python3 chip_smoke.py --quant-only [--src DIR]
+    python3 chip_smoke.py --serve-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3 and stops, ``--quant-only`` phases 1,
-2, 5 and 8a (no result line either way): with ``--src`` naming another
-tree's ``src`` (one whose wrappers this script knows), the same
-measurement of that tree's kernels, for an A/B of two trees in one call on
-one card.
+2, 5 and 8a, ``--serve-only`` phases 1 and 2 and then greedy waves of the
+dense and the paged graph engine (qwen3-4b, 36 layers) at mxint8 and
+mxint4, a capturing wave and three timed ones each, printing the median
+tick wall per kind of tick and a digest of the streams (no result line in
+any of them): with ``--src`` naming another tree's ``src`` (one whose
+wrappers this script knows), the same measurement of that tree, for an
+A/B of two trees in one call on one card.
 
 Phases (any failure exits non-zero before the result line):
   1. the card: name, power limit, device count; TF32 off for matmuls and
@@ -159,6 +163,9 @@ FUSED_TOL = 0.05   # max|fused - densify| <= 5% of max|densify| (bf16 rounds
 ATTN_H, ATTN_HKV, ATTN_D, PAGE, POOL_PAGES, SLOTS, MAX_LEN = \
     32, 8, 128, 16, 129, 4, 512
 N_REQ, MAX_NEW, CHUNK = 8, 16, 64
+# the sampled waves: the engine's parameters, and two requests with their own
+SAMPLE = dict(seed=0, temperature=0.8, top_p=0.95)
+OWN_TEMPERATURE, OWN_TOP_P = (1, 1.2), (2, 0.8)      # (rid, value)
 
 
 def log(msg: str) -> None:
@@ -1436,26 +1443,30 @@ def build_anchor(cfg, seed: int, save: bool = True):
     return anchor
 
 
-def _eager_twin(eng, **kw):
-    """An engine with ``eng``'s model, anchor and knobs that runs every
-    tick eagerly (``cuda_graphs=False``) and serves ``eng``'s own weight
-    trees: no second format build, so the count of builds stands."""
+def _twin(eng, **kw):
+    """An engine with ``eng``'s model, anchor and knobs, and ``kw`` on top,
+    that serves ``eng``'s own weight trees: no second format build, so the
+    count of builds stands (a build it needs, it adds to them all)."""
     from repro_torch.serve.engine import ElasticEngine
     twin = ElasticEngine(eng.api, eng.anchor, batch_slots=eng.slots,
                          max_len=eng.max_len, kv_layout=eng.kv_layout,
                          kv_page_size=eng.kv_page_size,
-                         prefill_chunk=eng.prefill_chunk, cuda_graphs=False,
-                         device="cuda", **kw)
+                         prefill_chunk=eng.prefill_chunk, device="cuda", **kw)
     twin._weights = eng._weights
     return twin
 
 
-def _timed_wave(eng, reqs, fmt: str) -> float:
+def _eager_twin(eng, **kw):
+    """``_twin`` that runs every tick eagerly (``cuda_graphs=False``)."""
+    return _twin(eng, cuda_graphs=False, **kw)
+
+
+def _timed_wave(eng, reqs, fmt: str, greedy: bool = True) -> float:
     """``eng.generate(reqs)``, host seconds to a synchronize."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    eng.generate(reqs, fmt_override=fmt)
+    eng.generate(reqs, greedy=greedy, fmt_override=fmt)
     torch.cuda.synchronize()
     return time.perf_counter() - t0
 
@@ -1464,7 +1475,7 @@ def _check_same_streams(what: str, got, want) -> None:
     a = [r.out_tokens for r in got]
     b = [r.out_tokens for r in want]
     if a != b:
-        fail(f"{what}: greedy streams differ under CUDA graphs and eagerly: "
+        fail(f"{what}: streams differ under CUDA graphs and eagerly: "
              f"{a} vs {b}")
 
 
@@ -1560,8 +1571,10 @@ def _graph_vs_eager(label, geng, greqs, make_reqs, fmt, picks):
                  f"captures and {replays} replays over {ticks} ticks")
         trace = list(eng.tick_trace)
         total = sum(len(r.out_tokens) for r in reqs)
+        t_prof = time.perf_counter()
         events = _profile_events(
             lambda: eng.generate(make_reqs(), fmt_override=fmt))
+        t_prof = time.perf_counter() - t_prof
         idle = []
         for kind, pick in picks.items():
             share, n, mean_ms = _idle_share(events, eng.tick_trace, pick)
@@ -1573,7 +1586,8 @@ def _graph_vs_eager(label, geng, greqs, make_reqs, fmt, picks):
             for kind, pick in picks.items())
             + f"; wave {total} tokens in {wall:.3f} s = {total / wall:.1f} "
             f"tok/s, TTFT s {[round(r.ttft_s, 3) for r in reqs]}; card "
-            "idle (torch.profiler): " + "; ".join(idle))
+            "idle (torch.profiler): " + "; ".join(idle)
+            + f"; profiled wave and trace read in {t_prof:.1f} s")
         del events
     log(f"{label} {fmt}: graph-vs-eager A/B in "
         f"{time.perf_counter() - t_ab:.1f} s")
@@ -1698,10 +1712,12 @@ def phase_serving(cfg, anchor, seed: int):
             f"GB; greedy tokens equal to the densify contract: "
             f"{same}/{total} ({100 * same / total:.1f}%)")
         streams[fmt] = [r.out_tokens for r in reqs]
+        picks = {"decode": lambda t: t["decode"] and not t["prefill_tokens"]}
         _graph_vs_eager("dense", fused, reqs,
-                        lambda: _requests(cfg.vocab, seed), fmt,
-                        {"decode": lambda t: t["decode"]
-                         and not t["prefill_tokens"]})
+                        lambda: _requests(cfg.vocab, seed), fmt, picks)
+        for k, n in _sampled_waves("dense", fused, cfg, fmt, seed,
+                                   streams[fmt], picks).items():
+            launches[k] = launches.get(k, 0) + n
     for kernel, n in _poisoned_wave(api, anchor, cfg, seed,
                                     streams["mxint4"]).items():
         launches[kernel] += n
@@ -1831,7 +1847,8 @@ def _first_mixed_tick(api, weights, vocab: int, seed: int):
 
 def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
     """The paged layout under chunked admission and the mixed scheduler,
-    every attention read through B3/B4; returns their launch counts."""
+    every attention read through B3/B4, greedy and sampled, then the chaos
+    phase on its trees; returns the launch counts of B1-B4."""
     import numpy as np
     import torch
     from repro_torch.kernels import mx_matmul
@@ -1850,6 +1867,7 @@ def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
     if (eng.scheduler, eng.attn_impl) != ("mixed", "paged_kernel"):
         fail(f"paged engine resolved to {eng.scheduler}/{eng.attn_impl}")
     totals = {k: 0 for k in pa.launches}
+    streams = {}
     for fmt, kernel in (("mxint8", "mx_matmul"),
                         ("mxint4", "mx_matmul_int4")):
         weights = eng.weights_for(fmt)             # build outside the timing
@@ -1928,11 +1946,399 @@ def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
             f"{st['attn_read_bytes'] - before['attn_read_bytes']}; peak "
             f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; "
             f"greedy tokens equal to the dense layout: {share}")
-        _graph_vs_eager(
-            "paged", eng, reqs, lambda: _requests(cfg.vocab, seed), fmt,
-            {"pure decode": lambda t: t["decode"] and not t["prefill_chunks"],
-             "mixed": lambda t: t["decode"] and t["prefill_chunks"]})
+        picks = {"pure decode": lambda t: t["decode"]
+                 and not t["prefill_chunks"],
+                 "mixed": lambda t: t["decode"] and t["prefill_chunks"]}
+        _graph_vs_eager("paged", eng, reqs,
+                        lambda: _requests(cfg.vocab, seed), fmt, picks)
+        streams[fmt] = [r.out_tokens for r in reqs]
+        for k, n in _sampled_waves("paged", eng, cfg, fmt, seed,
+                                   streams[fmt], picks).items():
+            totals[k] = totals.get(k, 0) + n
+    for k, n in phase_chaos(eng, cfg, seed).items():
+        totals[k] = totals.get(k, 0) + n
     return totals
+
+
+def _check_launches(what: str, trace, n_layers: int, mm, at=None) -> None:
+    """B1 + B2 launches = 7 x layers x the wave's executables (guard
+    replays included, a crashed attempt launches nothing); on the paged
+    layout B3 = layers x the executables of its pure decode ticks and B4
+    of its mixed ticks."""
+    execs = sum(t["execs"] for t in trace)
+    if sum(mm.values()) != PROJ_PER_LAYER * n_layers * execs:
+        fail(f"{what}: B1/B2 launches {mm}, want {PROJ_PER_LAYER} x "
+             f"{n_layers} x {execs} executables")
+    if at is None:
+        return
+    pure = sum(t["execs"] for t in trace
+               if t["decode"] and not t["prefill_chunks"])
+    mixed = sum(t["execs"] for t in trace
+                if t["decode"] and t["prefill_chunks"])
+    if at["paged_attention"] != n_layers * pure or \
+            at["paged_attention_mq"] != n_layers * mixed:
+        fail(f"{what}: paged-attention launches {at}, want {n_layers} x "
+             f"{pure} pure and {n_layers} x {mixed} mixed executables")
+
+
+def _sampled_requests(vocab: int, seed: int):
+    """``_requests``, two of them with their own temperature / top-p."""
+    reqs = _requests(vocab, seed)
+    reqs[OWN_TEMPERATURE[0]].temperature = OWN_TEMPERATURE[1]
+    reqs[OWN_TOP_P[0]].top_p = OWN_TOP_P[1]
+    return reqs
+
+
+def _draw_cost(seed: int):
+    """One batch draw (``sampling.sample_batch``) over SLOTS x 151,936
+    logits: host-driven wall (eager launches, to a synchronize) and device
+    time (a CUDA graph of 10 draws between CUDA events); its keys equal the
+    CPU's bit for bit. Returns (host ms, device ms)."""
+    import torch
+    from repro_torch.serve.sampling import prng_key, sample_batch, split
+    vocab = 151936
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn((SLOTS, vocab), generator=gen, device="cuda") * 3
+    keys = split(prng_key(seed), SLOTS).cuda()
+    temps = torch.full((SLOTS,), SAMPLE["temperature"], device="cuda")
+    tops = torch.full((SLOTS,), SAMPLE["top_p"], device="cuda")
+    nxt, toks = sample_batch(keys, logits, temps, tops)
+    cnxt, ctoks = sample_batch(keys.cpu(), logits.cpu(), temps.cpu(),
+                               tops.cpu())
+    if not torch.equal(nxt.cpu(), cnxt):
+        fail("the draw's advanced keys differ between the card and the CPU")
+    same = int((toks.cpu() == ctoks).sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        sample_batch(keys, logits, temps, tops)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 20
+    dev_ms = cuda_time_ms(lambda i: sample_batch(keys, logits, temps, tops),
+                          10)
+    log(f"draw (sample_batch, {SLOTS} x {vocab} logits, T "
+        f"{SAMPLE['temperature']}, top-p {SAMPLE['top_p']}): eager "
+        f"host-driven {host_ms:.3f} ms, device {dev_ms:.3f} ms per draw "
+        f"(CUDA graph of 10 draws, CUDA events); keys equal to the CPU's, "
+        f"tokens equal in {same}/{SLOTS} rows")
+    return host_ms, dev_ms
+
+
+def _sampled_waves(label, geng, cfg, fmt: str, seed: int, greedy_streams,
+                   picks):
+    """Sampled serving on ``geng``'s layout and weight trees at ``fmt``:
+    a graph engine (``SAMPLE``) serves ``_sampled_requests`` — launches as
+    the structure predicts, every request complete, the draw captured once
+    — then an eager twin serves them to the same streams; the graph engine
+    again (no capture, one tick and one draw replay per tick) to the same
+    streams, timed, and greedily, timed, to ``greedy_streams``; seed 1
+    changes a stream; top_p 1e-6 gives ``greedy_streams``. Logs the
+    sampled tick wall beside the greedy one of the same engine, per kind
+    of tick in ``picks``. Returns the first wave's launches."""
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+
+    what = f"{label} sampled {fmt}"
+    t_all = time.perf_counter()
+    paged = geng.kv_layout == "paged"
+    make = lambda: _sampled_requests(cfg.vocab, seed)
+    eng = _twin(geng, **SAMPLE)
+    reqs = make()
+    mx_matmul.reset_launches()
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    eng.generate(reqs, greedy=False, fmt_override=fmt)
+    torch.cuda.synchronize()
+    mm, at = dict(mx_matmul.launches), dict(pa.launches)
+    _check_launches(what, eng.tick_trace, cfg.n_layers, mm,
+                    at if paged else None)
+    if not paged and any(at.values()):
+        fail(f"{what}: paged-attention launches {at} on the dense layout")
+    st = eng.stats()
+    bad = [r.rid for r in reqs if r.status.value != "completed"
+           or len(r.out_tokens) != MAX_NEW]
+    if bad or st["faults_detected"] or st["draw_graph_captures"] != 1:
+        fail(f"{what}: requests {bad} incomplete, guard faults "
+             f"{st['faults_detected']} or draw captures "
+             f"{st['draw_graph_captures']}")
+    streams = [r.out_tokens for r in reqs]
+    if streams == greedy_streams:
+        fail(f"{what}: every sampled stream equals the greedy one")
+    twin = _eager_twin(geng, **SAMPLE)
+    twin_reqs = make()
+    twin.generate(twin_reqs, greedy=False, fmt_override=fmt)
+    _check_same_streams(what, twin_reqs, reqs)
+
+    before = eng.stats()
+    again = make()
+    wall = _timed_wave(eng, again, fmt, greedy=False)
+    after = eng.stats()
+    if [r.out_tokens for r in again] != streams:
+        fail(f"{what}: the same seed twice gave other streams")
+    ticks = after["ticks"] - before["ticks"]
+    if after["graph_captures"] != before["graph_captures"] \
+            or after["draw_graph_captures"] != 1 \
+            or after["graph_replays"] - before["graph_replays"] != ticks \
+            or after["draw_graph_replays"] - before["draw_graph_replays"] \
+            != ticks:
+        fail(f"{what}: a wave of known keys captured or missed replays "
+             f"({before} -> {after})")
+    strace = list(eng.tick_trace)
+    greedy = _requests(cfg.vocab, seed)
+    gwall = _timed_wave(eng, greedy, fmt)
+    if [r.out_tokens for r in greedy] != greedy_streams:
+        fail(f"{what}: a greedy wave on the sampling engine differs from "
+             "the greedy engine's")
+    gtrace = list(eng.tick_trace)
+
+    other = _twin(geng, **dict(SAMPLE, seed=1))
+    reqs1 = make()
+    other.generate(reqs1, greedy=False, fmt_override=fmt)
+    changed = sum(r.out_tokens != s for r, s in zip(reqs1, streams))
+    if not changed:
+        fail(f"{what}: seed 1 drew the same streams as seed 0")
+    collapse = _twin(geng, **dict(SAMPLE, top_p=1e-6))
+    reqs_c = _requests(cfg.vocab, seed)
+    collapse.generate(reqs_c, greedy=False, fmt_override=fmt)
+    if [r.out_tokens for r in reqs_c] != greedy_streams:
+        fail(f"{what}: top_p 1e-6 differs from the greedy streams")
+    total = sum(len(r.out_tokens) for r in again)
+    log(f"{what} (seed 0, T {SAMPLE['temperature']}, top-p "
+        f"{SAMPLE['top_p']}; rid {OWN_TEMPERATURE[0]} T "
+        f"{OWN_TEMPERATURE[1]}, rid {OWN_TOP_P[0]} top-p {OWN_TOP_P[1]}): "
+        f"launches {mm}{' ' + str(at) if paged else ''}; graph == eager, "
+        "seed 0 twice equal, seed 1 changed "
+        f"{changed}/{len(reqs1)} streams, top-p 1e-6 == greedy; "
+        + "; ".join(f"{kind} tick sampled {_tick_wall(strace, pick)} vs "
+                    f"greedy {_tick_wall(gtrace, pick)}"
+                    for kind, pick in picks.items())
+        + f"; wave {total / wall:.1f} tok/s sampled vs "
+        f"{sum(len(r.out_tokens) for r in greedy) / gwall:.1f} greedy "
+        f"(same engine); draw replays {after['draw_graph_replays']}; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    del eng, twin, other, collapse
+    torch.cuda.empty_cache()
+    return {k: v for k, v in {**mm, **at}.items() if v}
+
+
+def _chaos_injector(**plan):
+    """A ``FaultInjector`` whose targets are picked when the wave gets
+    there: ``cancel_from`` cancels the lowest rid decoding at the first
+    tick from then on with no request queued or mid-prefill (from there on
+    every tick is a pure decode tick, cancellation or not, so no other
+    request's schedule moves); ``raise_from`` crashes the first decode or
+    mixed step at that tick or after; ``poison_at`` NaN-fills, before that
+    tick, the first page of the lowest slot that maps one (``rows``: the
+    slots that map it). ``engine`` and ``reqs`` are set by the caller."""
+    from repro_torch.runtime.fault import FaultInjector
+
+    class Chaos(FaultInjector):
+        engine = reqs = cancel_from = raise_from = poison_at = rows = None
+
+        def cancel_rid(self, tick):
+            if self.cancel_from is not None and tick >= self.cancel_from \
+                    and not self.cancel_at:
+                state = [(r.status.value, bool(r.out_tokens))
+                         for r in self.reqs]
+                live = [r.rid for r, st in zip(self.reqs, state)
+                        if st == ("running", True)]
+                if live and ("queued", False) not in state \
+                        and ("running", False) not in state:
+                    self.cancel_at = {tick: live[0]}
+            return super().cancel_rid(tick)
+
+        def maybe_raise_step(self, tick):
+            if self.raise_from is not None and tick >= self.raise_from \
+                    and not self.raise_in_step:
+                self.raise_in_step = (tick,)
+            super().maybe_raise_step(tick)
+
+        def pool_poison_page(self, tick):
+            if tick == self.poison_at:
+                bt = self.engine._cache["block_table"].cpu().numpy()
+                row = next(i for i in range(len(bt)) if bt[i].any())
+                page = int(bt[row][bt[row] != 0][0])
+                self.rows = [i for i in range(len(bt))
+                             if (bt[i] == page).any()]
+                self.poison_pool = {tick: page}
+            return super().pool_poison_page(tick)
+
+    fi = Chaos(fail_allocs=plan.pop("fail_allocs", ()))
+    for k, v in plan.items():
+        setattr(fi, k, v)
+    return fi
+
+
+def _chaos_wave(peng, cfg, seed: int, fmt: str, plan, deadline_rid=None,
+                cuda_graphs=True):
+    """``peng``'s layout and trees under ``_chaos_injector(**plan)``,
+    greedy at ``fmt``: (engine, requests, injector, launches)."""
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    fi = _chaos_injector(**plan)
+    eng = _twin(peng, fault_injector=fi, cuda_graphs=cuda_graphs)
+    reqs = _requests(cfg.vocab, seed)
+    if deadline_rid is not None:
+        reqs[deadline_rid].deadline_s = 0.0
+    fi.engine, fi.reqs = eng, reqs
+    mx_matmul.reset_launches()
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    eng.generate(reqs, fmt_override=fmt)
+    torch.cuda.synchronize()
+    return eng, reqs, fi, {**mx_matmul.launches, **pa.launches}
+
+
+def phase_chaos(peng, cfg, seed: int):
+    """The paged graph engine's failure model at full width, greedy at
+    mxint4 (escalation has rungs to climb). Wave A: the first allocation
+    fails (an admission, requeued), a decode step crashes once (retried at
+    the same format), the lowest rid decoding once nothing is queued or
+    mid-prefill is cancelled, the last request has a zero deadline: each
+    request ends in its planned status and the survivors' streams equal
+    the clean wave's. On the card a row's numerics depend on its tick's
+    kind (a mixed tick runs B1/B2 at M = 256 and B4, a pure decode tick the
+    decode body and B3), so the clean wave keeps every survivor's
+    schedule: it leaves out the request that never gets in (the others'
+    ticks then fall as in wave A, one tick later there: the failed
+    allocation delays everything by one), and the cancellation lands
+    where every later tick is pure decode either way. Wave B: a page a row
+    maps is NaN-filled before tick 6: the format climbs to the anchor,
+    the rows that map it retire FAILED_NUMERIC, the rest complete. Pages
+    balance in both; an eager twin under the same plans ends the same.
+    Returns the graph waves' launches."""
+    import torch
+    fmt = "mxint4"
+    last = N_REQ - 1
+    totals = {}
+    t_phase = time.perf_counter()
+    log(f"chaos phase: paged graph engine, {cfg.n_layers} layers, greedy "
+        f"at {fmt}")
+    clean_eng = _twin(peng)
+    clean_reqs = _requests(cfg.vocab, seed)[:last]
+    clean_eng.generate(clean_reqs, fmt_override=fmt)
+    clean = [r.out_tokens for r in clean_reqs]
+    del clean_eng
+    waves = {
+        "A": (dict(fail_allocs=(0,), cancel_from=0, raise_from=12), last),
+        "B": (dict(poison_at=6), None)}
+    for name, (plan, deadline_rid) in waves.items():
+        t0 = time.perf_counter()
+        eng, reqs, fi, counts = _chaos_wave(peng, cfg, seed, fmt,
+                                            dict(plan), deadline_rid)
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        what = f"chaos wave {name}"
+        _check_launches(what, eng.tick_trace, cfg.n_layers,
+                        {k: counts[k] for k in ("mx_matmul",
+                                                "mx_matmul_int4")},
+                        counts)
+        statuses = [r.status.value for r in reqs]
+        kinds = [e["kind"] for e in fi.events]
+        events = [(e["tick"], e["from"], e["to"])
+                  for e in st["escalation_events"]]
+        log(f"{what}: {wall:.2f} s; statuses {statuses}; injector events "
+            f"{fi.events}; escalations {events}; faults "
+            f"{st['faults_detected']}, replays {st['ticks_replayed']}, "
+            f"requeues {st['admission_requeues']}; pages "
+            f"{st['kv_pages_alloc']} alloc / {st['kv_pages_freed']} freed; "
+            f"graph captures {st['graph_captures']}, replays "
+            f"{st['graph_replays']}; launches {counts}")
+        if name == "A":
+            cancelled = next(iter(fi.cancel_at.values()), None)
+            want = ["completed"] * N_REQ
+            want[last] = "timed_out"
+            if cancelled is not None:
+                want[cancelled] = "cancelled"
+            if statuses != want or sorted(kinds) != sorted(
+                    ["fail_alloc", "cancel", "raise_in_step"]) \
+                    or st["fmt_escalations"] or not st["ticks_replayed"] \
+                    or not st["admission_requeues"]:
+                fail(f"{what}: statuses {statuses} (want {want}), events "
+                     f"{kinds}, escalations {events}, replays "
+                     f"{st['ticks_replayed']}, requeues "
+                     f"{st['admission_requeues']}")
+            bad = [r.rid for r in reqs if r.status.value == "completed"
+                   and r.out_tokens != clean[r.rid]]
+            if bad:
+                fail(f"{what}: survivors {bad} differ from the clean wave")
+        else:
+            hit = len(fi.rows or [])
+            failed = statuses.count("failed_numeric")
+            if not hit or failed != hit \
+                    or statuses.count("completed") != N_REQ - hit \
+                    or [e[1:] for e in events] != [("mxint4", "mxint6"),
+                                                   ("mxint6", "mxint8")]:
+                fail(f"{what}: {hit} row(s) mapped the poisoned page; "
+                     f"statuses {statuses}, escalations {events}")
+        if st["kv_pages_alloc"] != st["kv_pages_freed"]:
+            fail(f"{what}: pages alloc {st['kv_pages_alloc']} != freed "
+                 f"{st['kv_pages_freed']}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        twin, twin_reqs, tfi, _ = _chaos_wave(peng, cfg, seed, fmt,
+                                              dict(plan), deadline_rid,
+                                              cuda_graphs=False)
+        tst = twin.stats()
+        if [r.status for r in twin_reqs] != [r.status for r in reqs] \
+                or tfi.events != fi.events \
+                or tst["escalation_events"] != st["escalation_events"]:
+            fail(f"{what}: the eager twin ended "
+                 f"{[r.status.value for r in twin_reqs]} with events "
+                 f"{tfi.events}")
+        _check_same_streams(what, twin_reqs, reqs)
+        del eng, twin
+        torch.cuda.empty_cache()
+    log(f"chaos phase: the eager twin ended both waves the same way; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def phase_serve_walls(seed: int):
+    """Greedy graph ticks for a same-call A/B of two trees: the dense and
+    the paged (mixed scheduler) engine, qwen3-4b at 36 layers, 4 slots, at
+    mxint8 and mxint4; a capturing wave, then three timed waves; the
+    median tick wall (and quartiles) per kind over the three, and a digest
+    of the streams."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+    cfg = qwen3_4b(36)
+    anchor = build_anchor(cfg, seed, save=False)
+    api = make_model(cfg)
+    layouts = {
+        "dense": ({}, {"decode": lambda t: t["decode"]
+                       and not t["prefill_tokens"]}),
+        "paged": (dict(kv_layout="paged", kv_page_size=PAGE,
+                       prefill_chunk=CHUNK),
+                  {"pure decode": lambda t: t["decode"]
+                   and not t["prefill_chunks"],
+                   "mixed": lambda t: t["decode"] and t["prefill_chunks"]})}
+    for label, (kw, picks) in layouts.items():
+        eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                            device="cuda", **kw)
+        for fmt in ("mxint8", "mxint4"):
+            reqs = _requests(cfg.vocab, seed)
+            eng.generate(reqs, fmt_override=fmt)
+            digest = hashlib.sha1(str([r.out_tokens for r in reqs])
+                                  .encode()).hexdigest()[:12]
+            walls = {kind: [] for kind in picks}
+            for _ in range(3):
+                _timed_wave(eng, _requests(cfg.vocab, seed), fmt)
+                for kind, pick in picks.items():
+                    walls[kind] += [1e3 * t["wall_s"] for t in eng.tick_trace
+                                    if pick(t)]
+            log(f"{label} {fmt} greedy graph: streams {digest}; " + "; ".join(
+                f"{kind} tick median {np.median(ms):.2f} ms (quartiles "
+                f"{np.percentile(ms, 25):.2f}-{np.percentile(ms, 75):.2f}, "
+                f"n {len(ms)})" for kind, ms in walls.items()))
+        del eng
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1947,6 +2353,9 @@ def main() -> int:
                     help="card, build, quantize / fake-quant / "
                          "Slice-and-Scale and format-build phases only; no "
                          "result line")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="card, build and the greedy graph ticks' walls "
+                         "only; no result line")
     ap.add_argument("--src", default=os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "src"),
         help="the tree whose repro_torch to measure (default: this one's)")
@@ -1961,6 +2370,11 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_card()
     phase_build()
+    if args.serve_only:
+        phase_serve_walls(args.seed)
+        log(f"greedy graph ticks only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if args.quant_only:
         phase_quant_kernels(args.seed)
         cfg = qwen3_4b(36)
@@ -1997,6 +2411,7 @@ def main() -> int:
     add(counts)
     add(phase_format_build(cfg, anchor))
     _reset_quant_launches()
+    _draw_cost(args.seed)
     if args.layers != cfg.n_layers:
         dense_cfg = qwen3_4b(args.layers)
         launches, _ = phase_serving(dense_cfg, build_anchor(dense_cfg,
@@ -2007,18 +2422,21 @@ def main() -> int:
         launches, streams = phase_serving(cfg, anchor, args.seed)
     torch.cuda.empty_cache()
     # B1/B2 launches: the dense waves' and the paged waves' (prefill chunks,
-    # mixed and pure decode ticks); B3/B4: the paged waves'
+    # mixed and pure decode ticks), greedy, sampled and chaos; B3/B4: the
+    # paged waves'
     for k, v in phase_paged_serving(cfg, anchor, args.seed, streams).items():
         launches[k] = launches.get(k, 0) + v
     counts = _quant_launches()
     # make_anchor of the dense phase's own anchor when it is cut in depth (7
-    # leaves, one B6 launch each); five format builds — the dense phase's
+    # leaves, one B6 launch each); six format builds — the dense phase's
     # fused, unfused and poisoned engines at mxint4, the poisoned one's
-    # mxint6, the paged engine's mxint4 — one B5 launch per leaf each; the
-    # mxint8 builds are the anchor itself and launch nothing
+    # mxint6, the paged engine's mxint4, and its mxint6 when chaos wave B
+    # escalates — one B5 launch per leaf each (the sampling and chaos
+    # engines serve their phase engine's trees); the mxint8 builds are the
+    # anchor itself and launch nothing
     n_anchors = 0 if args.layers == cfg.n_layers else 1
     want = {"mx_quantize": PROJ_PER_LAYER * n_anchors,
-            "ss_convert": PROJ_PER_LAYER * 5, "fake_quant": 0}
+            "ss_convert": PROJ_PER_LAYER * 6, "fake_quant": 0}
     log(f"qwen3-4b serving phases (every format build): "
         f"launches {counts} (want {want})")
     if counts != want:

@@ -3,9 +3,9 @@ straggler monitor for the training loop, and the serving engine's chaos
 plan.
 
 The classes are the port's copies of ``repro/runtime/fault.py``'s.
-``FaultInjector`` carries the logit poison only (``poison_logits``,
-``poison_fmt``); its other primitives are refused when an engine is handed
-them (``refuse_unported``).
+``FaultInjector`` carries every primitive of the reference's chaos plan
+but ``preempt_at``, which an engine refuses (``refuse_unported``):
+snapshot and resume are not ported yet.
   - PreemptionGuard: SIGTERM/SIGINT -> set a flag; the train loop checks it
     every step and checkpoints-then-exits cleanly. Re-entry resumes from
     LATEST.
@@ -28,6 +28,7 @@ import time
 from typing import (Callable, Dict, FrozenSet, List, Optional, Tuple,
                     Union)
 
+import numpy as np
 import torch
 
 
@@ -146,24 +147,37 @@ class StragglerMonitor:
         return statistics.median(self.times) if self.times else None
 
 
+class InjectedFault(RuntimeError):
+    """An injector-raised fault. A ``RuntimeError`` on purpose: an injected
+    page-allocation failure rides the engine's real pool-exhaustion paths
+    (requeue, victim retirement), and an injected step crash is caught by
+    the tick's retry loop — chaos drives the production error paths."""
+
+
 @dataclasses.dataclass
 class FaultInjector:
     """Deterministic chaos plan for ``ElasticEngine(fault_injector=...)``.
 
     Keyed by the engine's per-``generate`` scheduler tick (0-based loop
-    iterations, not decode ticks). A poison fires once per tick and is
-    recorded in ``events``, except one restricted by ``poison_fmt``, which
-    fires again on every replay still running a listed format: the fault
-    follows the format, so escalation, not replay, clears it.
+    iterations, not decode ticks), except ``fail_allocs``, keyed by the
+    0-based index of the page-allocation call since the engine was built.
+    Each primitive fires once per key and is recorded in ``events``, except
+    a logit poison restricted by ``poison_fmt``, which fires again on every
+    replay still running a listed format: the fault follows the format, so
+    escalation, not replay, clears it.
 
       - ``poison_logits``: {tick: row} — overwrite one row's (row None:
         every row's) logits with NaN after the step runs.
       - ``poison_fmt``: restrict the poison to these serving formats.
-
-    The reference's other primitives (``fail_allocs``, ``raise_in_step``,
-    ``preempt_at``, ``poison_pool``, ``cancel_at``) are fields here so that
-    one plan reads the same in both packages; an engine refuses a plan that
-    sets any of them.
+      - ``poison_pool``: {tick: physical page} — the engine fills that page
+        of every layer's K/V pool with NaN before the tick (persistent:
+        a replay reads it again).
+      - ``fail_allocs``: allocation-call indices that raise
+        ``InjectedFault`` out of the page allocator.
+      - ``raise_in_step``: ticks whose decode or mixed step raises
+        ``InjectedFault`` before dispatch (transient: the retry runs clean).
+      - ``cancel_at``: {tick: rid} — cancel that request at the tick.
+      - ``preempt_at``: the reference's preemption tick; refused here.
     """
     poison_logits: Dict[int, Optional[int]] = \
         dataclasses.field(default_factory=dict)
@@ -176,20 +190,12 @@ class FaultInjector:
     events: List[dict] = dataclasses.field(default_factory=list, init=False)
     _fired: set = dataclasses.field(default_factory=set, init=False)
 
-    _UNPORTED = ("fail_allocs", "raise_in_step", "preempt_at", "poison_pool",
-                 "cancel_at")
-
     def refuse_unported(self) -> None:
-        """Raise ``NotImplementedError`` if a primitive the port's engine
-        does not carry is set."""
-        for name in self._UNPORTED:
-            value = getattr(self, name)
-            if value not in (None, (), {}):
-                raise NotImplementedError(
-                    f"FaultInjector({name}={value!r}): only the logit poison "
-                    "is ported yet; page-pool poison, allocation failures, "
-                    "step crashes, preemption and cancellation are not "
-                    "ported yet")
+        """Raise ``NotImplementedError`` if the plan sets ``preempt_at``."""
+        if self.preempt_at is not None:
+            raise NotImplementedError(
+                f"FaultInjector(preempt_at={self.preempt_at!r}): preemption "
+                "snapshots and resume() are not ported yet (ROADMAP A.3)")
 
     def _fmts(self) -> Optional[FrozenSet[str]]:
         if self.poison_fmt is None:
@@ -197,6 +203,27 @@ class FaultInjector:
         if isinstance(self.poison_fmt, str):
             return frozenset((self.poison_fmt,))
         return frozenset(self.poison_fmt)
+
+    def _record(self, kind: str, **kw) -> None:
+        self.events.append({"kind": kind, **kw})
+
+    # ---- engine hooks ------------------------------------------------------
+    def on_alloc(self, call_index: int) -> None:
+        """Raises for allocation-call indices listed in ``fail_allocs``."""
+        if call_index in self.fail_allocs \
+                and ("alloc", call_index) not in self._fired:
+            self._fired.add(("alloc", call_index))
+            self._record("fail_alloc", call=call_index)
+            raise InjectedFault(
+                f"injected page-allocation failure (call {call_index})")
+
+    def maybe_raise_step(self, tick: int) -> None:
+        """Raises once per tick listed in ``raise_in_step``; the retry of
+        the same tick runs clean."""
+        if tick in self.raise_in_step and ("step", tick) not in self._fired:
+            self._fired.add(("step", tick))
+            self._record("raise_in_step", tick=tick)
+            raise InjectedFault(f"injected step-fn crash at tick {tick}")
 
     def maybe_poison_logits(self, tick: int, fmt: str,
                             logits: torch.Tensor) -> torch.Tensor:
@@ -212,10 +239,58 @@ class FaultInjector:
             return logits           # transient: fires once, replay is clean
         self._fired.add(("logits", tick))
         row = self.poison_logits[tick]
-        self.events.append({"kind": "poison_logits", "tick": tick, "row": row,
-                            "fmt": fmt})
+        self._record("poison_logits", tick=tick, row=row, fmt=fmt)
         if row is None:
             return torch.full_like(logits, float("nan"))
         out = logits.clone()
         out[row] = float("nan")
         return out
+
+    def pool_poison_page(self, tick: int) -> Optional[int]:
+        """Physical page to NaN-fill before this tick (None = no-op)."""
+        if tick in self.poison_pool and ("pool", tick) not in self._fired:
+            self._fired.add(("pool", tick))
+            page = self.poison_pool[tick]
+            self._record("poison_pool", tick=tick, page=page)
+            return page
+        return None
+
+    def cancel_rid(self, tick: int) -> Optional[int]:
+        """The rid to cancel at this tick (None = no-op)."""
+        if tick in self.cancel_at and ("cancel", tick) not in self._fired:
+            self._fired.add(("cancel", tick))
+            rid = self.cancel_at[tick]
+            self._record("cancel", tick=tick, rid=rid)
+            return rid
+        return None
+
+
+def random_plan(seed: int, rate: float, horizon: int, slots: int,
+                kinds: Tuple[str, ...] = ("poison_row", "raise_step",
+                                          "fail_alloc")) -> FaultInjector:
+    """A reproducible ``FaultInjector`` from (seed, rate): each tick in
+    ``[0, horizon)`` draws a fault with probability ``rate``, its kind
+    uniformly from ``kinds`` and its row from ``slots`` (numpy's
+    ``default_rng``, as the reference draws it, so one (seed, rate,
+    horizon, slots) gives the same plan in both packages)."""
+    rng = np.random.default_rng(seed)
+    poison: Dict[int, Optional[int]] = {}
+    raises: List[int] = []
+    allocs: List[int] = []
+    for t in range(horizon):
+        if rng.random() >= rate:
+            continue
+        kind = kinds[int(rng.integers(len(kinds)))]
+        if kind == "poison_row":
+            poison[t] = int(rng.integers(slots))
+        elif kind == "poison_all":
+            poison[t] = None
+        elif kind == "raise_step":
+            raises.append(t)
+        elif kind == "fail_alloc":
+            allocs.append(t)        # alloc-call indices, not ticks
+        else:
+            raise ValueError(f"unknown chaos kind {kind!r}")
+    return FaultInjector(poison_logits=poison,
+                         raise_in_step=tuple(raises),
+                         fail_allocs=tuple(allocs))

@@ -11,12 +11,13 @@ use. Every projection of every step runs through ``kernels/dispatch.py``:
   densify          ``fused=False``: each leaf is dequantized at its point of
                    use and multiplied by ``torch.matmul`` (the reference).
 
-Slot lifecycle, greedy decoding:
+Slot lifecycle:
 
   admit   — a free slot takes the next queued request. Monolithic admission
             prefills the whole prompt alone into that slot
             (``ModelApi.prefill_slot``; prompts right-padded to power-of-two
-            buckets with exact masking). Chunked admission
+            buckets with exact masking, or at their own length with
+            ``bucket_prompts=False``). Chunked admission
             (``prefill_chunk``) streams it one chunk per tick, cursor on the
             host: under the mixed scheduler the chunk rides the decode batch
             (``ModelApi.mixed_step``, one executable per tick).
@@ -38,14 +39,34 @@ The format is batch-pinned: the policy picks when the engine goes from
 drained to busy, and every request admitted while a slot is live inherits
 it. The pseudo-format ``"bf16"`` serves dense anchor-precision weights.
 
+Sampling (``generate(greedy=False)``): temperature / top-p draws from
+per-slot key streams on JAX's threefry chain (``serve/sampling.py``), as
+the reference draws them. A completing admission reseeds its slot from
+``fold_in(engine key, rid)`` and draws the first token; every
+decode-carrying tick advances every slot's key once (free and mid-prefill
+slots included, their draws discarded), and under the mixed scheduler a
+completing admission reseeds after that batch draw. A request's stream is
+therefore a function of (seed, rid, its logits) alone — the JAX engine's
+stream, token for token. ``Request.temperature`` / ``top_p`` override the
+engine's per slot.
+
 The logit guard (``logit_guard=True``, the default): non-finite logits in a
 consumed row (a live decode row, or the row of a prompt's last chunk)
 escalate the pinned format one rung toward the anchor, quarantine the rung
 that misbehaved and replay the tick from its pre-tick state; at the anchor
 the dead rows alone retire FAILED_NUMERIC. The finite flags ride the tick's
 one device-to-host copy, so a clean tick pays nothing for the guard.
-``fault_injector`` (``runtime/fault.py::FaultInjector``) poisons logits to
-drive it.
+
+The rest of the per-request failure model is the reference's: at each tick
+boundary cancelled requests (``Request.cancel()``, the injector's
+``cancel_at``) retire CANCELLED and those past ``deadline_s`` TIMED_OUT,
+queued, mid-prefill or decoding, their pages freed. A decode or mixed step
+that raises ``InjectedFault`` before dispatch is retried at the same format
+up to ``max_step_retries`` times, then the fault escapes ``generate``.
+``fault_injector`` (``runtime/fault.py::FaultInjector``) drives all of it:
+poisoned logits, a NaN-filled pool page (written in place, before the
+tick), failed page allocations (they take the real exhaustion paths),
+step crashes and cancellations.
 
 On the card each decode tick (``serve_step``) and each mixed tick
 (``mixed_step``) runs as one CUDA graph (``serve/tick_graph.py``): the
@@ -54,12 +75,15 @@ eagerly and is then captured, and every later one is a replay — the
 counterpart of the reference's one jitted executable per tick. What a
 captured tick reads and writes keeps its storage for the engine's
 lifetime: the KV cache (zeroed at each wave), ``cache_len``, the tokens,
-the block table and one token / ``q_len`` buffer per mixed-tick width.
-Prefill executables run eagerly.
+the block table, one token / ``q_len`` buffer per mixed-tick width, and
+the slots' keys, temperatures and top-p values. A sampled tick's batch
+draw runs as a CUDA graph of its own, after the tick's. Prefill
+executables run eagerly.
 
-Left out of this slice (each refused with a clear error): speculative
-decoding, sampling, the injector's other primitives and step retries,
-cancellation, deadlines, snapshots, SLO tiers and tensor parallelism.
+Left out of this slice (each refused with ``NotImplementedError`` naming
+its ROADMAP item): speculative decoding, preemption snapshots and
+``resume()``, SLO tiers (``admission_order="slo"``) and tensor
+parallelism.
 """
 from __future__ import annotations
 
@@ -78,11 +102,13 @@ from repro_torch.kernels import mx_matmul, paged_attention
 from repro_torch.kernels.dispatch import make_qmm
 from repro_torch.kernels.paged_attention import pages_read, pages_read_mq
 from repro_torch.models.transformer import ModelApi
-from repro_torch.runtime.fault import FaultInjector
+from repro_torch.runtime.fault import FaultInjector, InjectedFault
 from repro_torch.serve.packed_params import (anchor_block_size,
                                              make_packed_params,
                                              weight_stream_bytes)
 from repro_torch.serve.policy import FormatPolicy
+from repro_torch.serve.sampling import (fold_in, prng_key, sample_batch,
+                                        split)
 from repro_torch.serve.tick_graph import TickGraphs
 
 DENSE_BF16 = "bf16"   # pseudo-format: dense anchor-precision weights
@@ -100,11 +126,19 @@ def _bucket_len(plen: int, cap: int) -> int:
 
 
 class RequestStatus(str, enum.Enum):
+    """Every request ends in exactly one terminal state; a non-COMPLETED
+    one carries ``Request.error`` and a record in ``stats()["failures"]``."""
     QUEUED = "queued"
     RUNNING = "running"
     COMPLETED = "completed"              # reached max_new / cache capacity
     FAILED_NUMERIC = "failed_numeric"    # non-finite logits at anchor rung
     FAILED_CAPACITY = "failed_capacity"  # unservable prompt / pool starved
+    TIMED_OUT = "timed_out"              # per-request deadline_s exceeded
+    CANCELLED = "cancelled"              # cancel() / injected cancellation
+
+    @property
+    def terminal(self) -> bool:
+        return self not in (RequestStatus.QUEUED, RequestStatus.RUNNING)
 
 
 @dataclasses.dataclass
@@ -116,15 +150,41 @@ class Request:
     fmt_used: Optional[str] = None
     done: bool = False
     ttft_s: Optional[float] = None  # generate() entry to first token
+    deadline_s: Optional[float] = None  # budget from generate() entry;
+    #                                     past it -> TIMED_OUT at the next
+    #                                     tick boundary
     status: RequestStatus = RequestStatus.QUEUED
     error: Optional[str] = None
+    cancel_requested: bool = False
+    temperature: Optional[float] = None  # None -> the engine's
+    top_p: Optional[float] = None        # None -> the engine's
+
+    def cancel(self) -> None:
+        """Retire this request as CANCELLED at the next tick boundary
+        (queued, mid-prefill or decoding); a terminal one is unaffected."""
+        self.cancel_requested = True
 
 
 _UNSUPPORTED = {
-    "speculative": (None, "speculative decoding is not ported yet"),
-    "mesh": (None, "tensor-parallel serving is not ported yet"),
-    "max_step_retries": (2, "step-crash retries are not ported yet"),
+    "speculative": (None, "speculative decoding is not ported yet "
+                          "(ROADMAP A.4)"),
+    "mesh": (None, "tensor-parallel serving is not ported yet "
+                   "(ROADMAP A.9)"),
 }
+
+
+@dataclasses.dataclass
+class _Drain:
+    """What one decode or mixed attempt brings back in its one host copy:
+    every row's next token and finite flag, and a mixed tick's completing
+    admission's first token; plus, when sampling, the advanced keys that
+    stay on the device until the guard settles."""
+    tokens: torch.Tensor                # (B,) next tokens, on the device
+    drained: np.ndarray                 # (B,) the same, on the host
+    finite: np.ndarray                  # (B,) 1 where the row is finite
+    first: Optional[int] = None         # the completing admission's token
+    keys: Optional[torch.Tensor] = None       # (B, 2) advanced slot keys
+    first_key: Optional[torch.Tensor] = None  # (2,) its reseeded key
 
 
 class ElasticEngine:
@@ -147,20 +207,31 @@ class ElasticEngine:
     default with chunks) runs that chunk inside the decode batch as one
     ``mixed_step``, ``"sequential"`` as its own executable before the
     decode step. ``logit_guard`` escalates and replays a tick whose consumed
-    logits are not finite (module docstring); ``fault_injector`` poisons
-    logits to exercise it. ``cuda_graphs`` (None = on where the device is
-    CUDA) runs decode and mixed ticks as CUDA graphs; False runs every
-    launch eagerly, as ``jax.disable_jit`` does for the reference.
+    logits are not finite (module docstring); ``max_step_retries`` bounds
+    the same-format retries of a step that crashed with ``InjectedFault``;
+    ``fault_injector`` drives both and the rest of the failure model.
+    ``seed``, ``temperature`` and ``top_p`` set the sampled streams of
+    ``generate(greedy=False)`` (temperature <= 0 decodes greedily);
+    ``bucket_prompts=False`` prefills each prompt (and final chunk) at its
+    own length instead of a power-of-two bucket; ``admission_order`` is
+    ``"fifo"`` (``"slo"`` is refused). ``cuda_graphs`` (None = on where the
+    device is CUDA) runs decode and mixed ticks, and a sampled tick's
+    draw, as CUDA graphs; False runs every launch eagerly, as
+    ``jax.disable_jit`` does for the reference.
     """
 
     def __init__(self, api: ModelApi, anchor: AnchorModel, *,
                  batch_slots: int = 4, max_len: int = 256,
                  policy: Optional[FormatPolicy] = None, packed: bool = True,
-                 fused: Optional[bool] = None, kv_layout: str = "dense",
+                 fused: Optional[bool] = None, seed: int = 0,
+                 temperature: float = 1.0, top_p: float = 1.0,
+                 bucket_prompts: bool = True, kv_layout: str = "dense",
                  kv_page_size: int = 16, kv_num_pages: Optional[int] = None,
                  attn_impl: Optional[str] = None, prefill_chunk=None,
                  scheduler: Optional[str] = None, logit_guard: bool = True,
+                 max_step_retries: int = 2,
                  fault_injector: Optional[FaultInjector] = None,
+                 admission_order: str = "fifo",
                  cuda_graphs: Optional[bool] = None, device="cuda",
                  **unsupported):
         for name, value in unsupported.items():
@@ -169,6 +240,14 @@ class ElasticEngine:
             default, why = _UNSUPPORTED[name]
             if value != default:
                 raise NotImplementedError(f"{name}={value!r}: {why}")
+        if admission_order not in ("fifo", "slo"):
+            raise ValueError(f"unknown admission_order {admission_order!r}; "
+                             "one of ('fifo', 'slo')")
+        if admission_order == "slo":
+            raise NotImplementedError(
+                "admission_order='slo': SLO tiers (Request.slo, serve/slo.py"
+                "::tier_rank) are not ported yet (ROADMAP A.5)")
+        self.admission_order = admission_order
         if fault_injector is not None:
             if not isinstance(fault_injector, FaultInjector):
                 raise TypeError("fault_injector must be a repro_torch."
@@ -176,6 +255,7 @@ class ElasticEngine:
                                 f"{type(fault_injector).__name__}")
             fault_injector.refuse_unported()
         self.logit_guard = logit_guard
+        self.max_step_retries = max_step_retries
         self._fault_injector = fault_injector
         self.device = resolve_device(device)
         if cuda_graphs is None:
@@ -185,6 +265,23 @@ class ElasticEngine:
                              f"{self.device}; the CPU path runs every tick "
                              "eagerly")
         self._graphs = TickGraphs() if cuda_graphs else None
+        # the sampled ticks' batch draw: a graph pool of its own, so a draw
+        # replay never overwrites a tick graph's static logits
+        self._draw_graphs = TickGraphs() if cuda_graphs else None
+        # Sampling: the engine key and one key, temperature and top-p lane
+        # per slot, kept for the engine's lifetime (a captured draw reads
+        # them where they lie). A completing admission reseeds its slot.
+        self.temperature = temperature
+        self.top_p = top_p
+        self._key = prng_key(seed)
+        self._keys = split(self._key, batch_slots).to(self.device)
+        self._temps = torch.full((batch_slots,), temperature,
+                                 dtype=torch.float32, device=self.device)
+        self._tops = torch.full((batch_slots,), top_p, dtype=torch.float32,
+                                device=self.device)
+        self._draw_in: Optional[torch.Tensor] = None   # the draw's logits
+        self._sampled = False           # this generate() call draws
+        self._bucket = bucket_prompts
         self.anchor = anchor
         self.slots = batch_slots
         self.max_len = max_len
@@ -257,6 +354,7 @@ class ElasticEngine:
         self._failures: List[dict] = []  # one per non-COMPLETED request
         self._status_counts: Dict[str, int] = {}
         self._admission_requeues = 0
+        self._alloc_calls = 0           # keys the injector's fail_allocs
         self._kv_pages_alloc = 0
         self._kv_pages_freed = 0
         self._kv_pages_hwm = 0
@@ -381,7 +479,12 @@ class ElasticEngine:
     def _alloc_pages(self, free: List[int], n: int, why: str) -> List[int]:
         """Pop ``n`` physical pages off the free list, or raise
         ``RuntimeError``; ``generate`` contains the exhaustion (requeue an
-        admission, or retire the largest page-holder)."""
+        admission, or retire the largest page-holder). The injector's
+        ``fail_allocs`` raises ``InjectedFault`` (a ``RuntimeError``) here,
+        keyed by this call's index, so chaos takes the same paths."""
+        self._alloc_calls += 1
+        if self._fault_injector is not None:
+            self._fault_injector.on_alloc(self._alloc_calls - 1)
         if len(free) < n:
             raise RuntimeError(
                 f"KV page pool exhausted at {why}: need {n} page(s), "
@@ -394,6 +497,16 @@ class ElasticEngine:
         in_use = self._kv_total_pages - 1 - len(free)
         self._kv_pages_hwm = max(self._kv_pages_hwm, in_use)
         return got
+
+    def _nan_pool_page(self, page: int) -> None:
+        """NaN-fill physical page ``page`` of every layer's K/V pool, in
+        place (captured ticks read these pools where they lie): injected
+        persistent corruption. A replay reads it again, so only escalation
+        or retiring the rows that map it clears it; a page no row maps is
+        harmless, and a recycled one is overwritten by its next prefill."""
+        for c in self._cache["blocks"]:
+            for name in ("k_pages", "v_pages"):
+                c[name][:, page] = float("nan")
 
     def _free_slot_pages(self, free: List[int], bt: np.ndarray,
                          slot: int) -> None:
@@ -427,7 +540,11 @@ class ElasticEngine:
         return self.max_len - 1
 
     def _prefill_batch(self, prompt: np.ndarray):
+        """Tokens (and, when bucketing, the true length) of one admission."""
         plen = prompt.size
+        if not self._bucket:
+            return {"tokens": torch.as_tensor(prompt[None],
+                                              device=self.device)}
         padded = np.zeros(_bucket_len(plen, self.prompt_capacity), np.int32)
         padded[:plen] = prompt
         return {"tokens": torch.as_tensor(padded[None], device=self.device),
@@ -454,10 +571,13 @@ class ElasticEngine:
         ps = self.kv_page_size
         chunk = self.prefill_chunk
         if chunk is None:
-            blen = _bucket_len(plen, self.prompt_capacity)
+            blen = _bucket_len(plen, self.prompt_capacity) if self._bucket \
+                else plen
             return max(-(-blen // ps), plen // ps + 1)
         start = ((plen - 1) // chunk) * chunk        # final chunk's cursor
-        end = min(start + _bucket_len(plen - start, chunk), self.max_len)
+        take = plen - start
+        padded = _bucket_len(take, chunk) if self._bucket else take
+        end = min(start + padded, self.max_len)
         return max(-(-end // ps), plen // ps + 1)
 
     def _admission_reject(self, r: Request) -> Optional[str]:
@@ -504,68 +624,144 @@ class ElasticEngine:
         self.set_format(nxt)
         return nxt
 
-    def _guarded_prefill(self, attempt, pinned: str, tick: int, what: str):
+    # ---- sampling -----------------------------------------------------------
+    def _first_draw(self, logits: torch.Tensor, r: Request):
+        """The first token of ``r`` from its prefill logits (V,): the argmax,
+        or, sampling, one draw with the slot's key reseeded from
+        ``fold_in(engine key, rid)`` at the request's temperature and top-p.
+        Returns (token (1,), the advanced key (2,) or None)."""
+        if not self._sampled:
+            return torch.argmax(logits, -1)[None], None
+        key = fold_in(self._key, r.rid).to(self.device)
+        keys, tok = sample_batch(
+            key[None], logits[None],
+            torch.tensor([self._temp_of(r)], dtype=torch.float32,
+                         device=self.device),
+            torch.tensor([self._top_of(r)], dtype=torch.float32,
+                         device=self.device))
+        return tok, keys[0]
+
+    def _temp_of(self, r: Request) -> float:
+        return self.temperature if r.temperature is None else r.temperature
+
+    def _top_of(self, r: Request) -> float:
+        return self.top_p if r.top_p is None else r.top_p
+
+    def _batch_draw(self, logits: torch.Tensor):
+        """Every row's next token from a tick's logits (B, V): the argmax,
+        or, sampling, one draw per slot from the slots' pre-tick keys (a
+        CUDA graph of its own where the ticks are graphs). Returns (tokens
+        (B,), the advanced keys (B, 2) or None); the keys are committed
+        once, after the guard settles."""
+        if not self._sampled:
+            return torch.argmax(logits, -1), None
+        if self._draw_graphs is None:
+            keys, toks = sample_batch(self._keys, logits, self._temps,
+                                      self._tops)
+            return toks, keys
+        if self._draw_in is None:
+            self._draw_in = torch.empty_like(logits)
+        self._draw_in.copy_(logits)
+        keys, lg, temps, tops = self._keys, self._draw_in, self._temps, \
+            self._tops
+
+        def step():
+            # (B, 3) int64: the advanced keys and the tokens, from the
+            # lifetime buffers alone
+            nxt, toks = sample_batch(keys, lg, temps, tops)
+            return torch.cat([nxt, toks[:, None]], dim=1)
+
+        out = self._draw_graphs.run("draw", step)
+        return out[:, 2], out[:, :2]
+
+    def _guarded_prefill(self, attempt, r: Request, pinned: str, tick: int,
+                         what: str):
         """Escalate-and-replay around one admission executable whose logits
         are consumed (a whole prompt, or a final chunk). ``attempt(fmt)``
-        returns ``(logits (V,), cache, new_len)``; its first token and
-        finite flag come back in one host transfer. Returns ``(first,
-        cache, new_len, pinned, fail_reason, execs)``."""
+        returns ``(logits (V,), cache, new_len)``; ``r``'s first token
+        (``_first_draw``) comes back with the finite flag in one host
+        transfer. Returns ``(first, key, cache, new_len, pinned,
+        fail_reason, execs)``."""
         execs = 0
         while True:
             logits, cache, new_len = attempt(pinned)
             execs += 1
-            first, finite = torch.stack([
-                torch.argmax(logits, -1),
-                torch.isfinite(logits).all().to(torch.int64)]).tolist()
+            tok, key = self._first_draw(logits, r)
+            first, finite = torch.cat([
+                tok, torch.isfinite(logits).all()[None].to(tok.dtype)]) \
+                .tolist()
             if finite:
-                return first, cache, new_len, pinned, None, execs
+                return first, key, cache, new_len, pinned, None, execs
             self._nonfinite_rows += 1
             if not self.logit_guard:
-                return first, cache, new_len, pinned, None, execs
+                return first, key, cache, new_len, pinned, None, execs
             self._faults_detected += 1
             nxt = self._escalate_or_none(pinned, tick, what)
             if nxt is None:
-                return first, cache, new_len, pinned, (
+                return first, key, cache, new_len, pinned, (
                     f"non-finite prefill logits at the anchor rung "
                     f"({pinned}) during {what}"), execs
             pinned = nxt
             self._ticks_replayed += 1
 
     def _guarded_step(self, attempt, pinned: str, consumed: List[int],
-                      tick: int):
+                      tick: int, admit=None):
         """Escalate-and-replay around one decode or mixed tick.
 
-        Every attempt is a function of the pre-tick ``(cache_len, tokens)``:
-        the caller commits the cache_len advance, the next tokens and the
-        drain only after this returns, and a replay overwrites whatever KV
-        an attempt wrote at positions >= cache_len, on either layout. The
-        tick's greedy tokens and every row's finite flag come back in one
-        host transfer per attempt. Returns ``(logits, nxt, drained, cache,
-        pinned, dead_rows, execs)``; ``dead_rows`` is non-empty only at the
-        anchor rung.
+        Every attempt is a function of the pre-tick ``(cache_len, tokens)``
+        and slot keys: the caller commits the cache_len advance, the next
+        tokens, the keys and the drain only after this returns, and a replay
+        overwrites whatever KV an attempt wrote at positions >= cache_len,
+        on either layout. An ``InjectedFault`` raised before dispatch is
+        retried at the same format, up to ``max_step_retries`` times, then
+        re-raised. ``admit``, (row, request), names a mixed tick's completing
+        admission, whose first token is drawn here too. Returns ``(drain,
+        cache, pinned, dead_rows, execs)``; ``dead_rows`` is non-empty only
+        at the anchor rung.
 
         Under CUDA graphs an attempt's logits are a graph's static output,
-        which the next replay of any graph of the engine may overwrite: each
-        attempt drains them here (the argmax and the finite flags, read off
-        the injector's poisoned copy when it fires) before the next one
-        runs, and the caller keeps only ``nxt`` and ``drained``.
+        which the next replay of any tick graph may overwrite: each attempt
+        drains them here — finite flags, the admission's first draw, then
+        the batch draw (read off the injector's poisoned copy when it
+        fires) — in one host copy before the next one runs.
         """
         execs = 0
+        retries = 0
+        b = self.slots
         while True:
-            logits, cache = attempt(pinned)
+            try:
+                logits, cache = attempt(pinned)
+            except InjectedFault:
+                self._faults_detected += 1
+                if retries >= self.max_step_retries:
+                    raise
+                retries += 1
+                self._ticks_replayed += 1
+                continue
             execs += 1
-            nxt = torch.argmax(logits, -1)
             finite = torch.isfinite(logits).all(-1)
-            drained, finite = torch.stack([nxt, finite.to(nxt.dtype)]) \
-                .cpu().numpy()
-            dead = [i for i in consumed if not finite[i]]
+            first_tok = first_key = None
+            if admit is not None and self._sampled:
+                first_tok, first_key = self._first_draw(logits[admit[0]],
+                                                        admit[1])
+            nxt, keys = self._batch_draw(logits)
+            parts = [nxt, finite.to(nxt.dtype)]
+            if first_tok is not None:
+                parts.append(first_tok)
+            host = torch.cat(parts).cpu().numpy()
+            drain = _Drain(nxt, host[:b], host[b:2 * b], keys=keys,
+                           first_key=first_key)
+            if admit is not None:
+                drain.first = int(host[2 * b]) if first_tok is not None \
+                    else int(host[admit[0]])
+            dead = [i for i in consumed if not drain.finite[i]]
             self._nonfinite_rows += len(dead)
             if not dead or not self.logit_guard:
-                return logits, nxt, drained, cache, pinned, [], execs
+                return drain, cache, pinned, [], execs
             self._faults_detected += 1
             fmt = self._escalate_or_none(pinned, tick, f"decode tick {tick}")
             if fmt is None:
-                return logits, nxt, drained, cache, pinned, dead, execs
+                return drain, cache, pinned, dead, execs
             pinned = fmt
             self._ticks_replayed += 1
 
@@ -574,7 +770,8 @@ class ElasticEngine:
     def generate(self, requests: List[Request], greedy: bool = True,
                  fmt_override: Optional[str] = None) -> List[Request]:
         """Serve requests to completion with slot-level continuous
-        batching, greedy decoding.
+        batching: greedy decoding, or (``greedy=False``) temperature /
+        top-p draws from per-slot streams (module docstring).
 
         Slot lifecycle: free -> prefilling (one whole prompt, or chunk by
         chunk with the cursor on the host) -> decoding -> retired. With
@@ -586,12 +783,13 @@ class ElasticEngine:
         admission, a decoding slot's next page just before the tick that
         writes into it, and all of a slot's pages return at retire.
         Executables whose logits are consumed run under the logit guard
-        (class docstring); a replay adds to the tick's ``execs``.
+        (class docstring); a replay adds to the tick's ``execs``. At each
+        tick boundary, before any executable runs, cancelled and expired
+        requests retire and an injected pool poison lands. An
+        ``InjectedFault`` past the step-retry budget escapes.
         ``tick_trace`` records each tick's work.
         """
-        if not greedy:
-            raise NotImplementedError("sampled decoding is not ported yet; "
-                                      "the port decodes greedily")
+        self._sampled = not greedy and self.temperature > 0
         b = self.slots
         paged = self.kv_layout == "paged"
         chunk = self.prefill_chunk
@@ -634,9 +832,16 @@ class ElasticEngine:
                     a.fmt_used = fmt
             return fmt
 
-        def complete_admission(i: int, r: Request, first: int) -> None:
+        def complete_admission(i: int, r: Request, first: int,
+                               key: Optional[torch.Tensor]) -> None:
             """prefilling -> decoding (or straight to retired): the first
-            token from the prefill logits, TTFT stamped."""
+            token from the prefill logits, TTFT stamped. Sampling, the
+            slot's key restarts from (seed, rid), already advanced past the
+            first draw, and its lanes take the request's parameters."""
+            if key is not None:
+                self._keys[i].copy_(key)
+                self._temps[i] = self._temp_of(r)
+                self._tops[i] = self._top_of(r)
             tokens[i, 0] = first
             r.fmt_used = pinned
             r.out_tokens.append(first)
@@ -660,6 +865,15 @@ class ElasticEngine:
             self._prefills += 1
             return out
 
+        def expired(r: Request, now: float):
+            if r.cancel_requested:
+                return RequestStatus.CANCELLED, "cancelled by client"
+            if r.deadline_s is not None and now > r.deadline_s:
+                return (RequestStatus.TIMED_OUT,
+                        f"deadline {r.deadline_s:.3f}s exceeded "
+                        f"({now:.3f}s into the wave)")
+            return None
+
         while pending or filling is not None \
                 or any(a is not None for a in active):
             t_tick = time.perf_counter()
@@ -669,6 +883,44 @@ class ElasticEngine:
             span.__enter__()
             tick_id = tick_no
             tick_no += 1
+            # ---- tick boundary: cancellations (client or injector) and
+            # deadlines over queued, mid-prefill and decoding requests; each
+            # is one terminal status with its pages freed
+            if fi is not None:
+                rid = fi.cancel_rid(tick_id)
+                if rid is not None:
+                    for r in pending + [a for a in active if a] + \
+                            ([filling] if filling is not None else []):
+                        if r.rid == rid:
+                            r.cancel_requested = True
+            now = time.perf_counter() - t0
+            for r in list(pending):
+                verdict = expired(r, now)
+                if verdict is not None:
+                    pending.remove(r)
+                    self._finish(r, *verdict)
+            if filling is not None:
+                verdict = expired(filling, now)
+                if verdict is not None:
+                    release_slot(fill_slot)
+                    self._finish(filling, *verdict)
+                    filling = None
+            for i, r in enumerate(active):
+                if r is not None:
+                    verdict = expired(r, now)
+                    if verdict is not None:
+                        active[i] = None
+                        release_slot(i)
+                        self._finish(r, *verdict)
+            if not (pending or filling is not None
+                    or any(a is not None for a in active)):
+                span.__exit__(None, None, None)
+                break               # the sweep drained the wave
+            # injected pool corruption lands before any executable runs
+            if fi is not None and paged:
+                page = fi.pool_poison_page(tick_id)
+                if page is not None:
+                    self._nan_pool_page(page)
             if pinned is None:          # engine drained: re-pick format
                 pinned = self.policy.pick(
                     queue_depth=len(pending),
@@ -698,14 +950,18 @@ class ElasticEngine:
                         try:
                             got = self._alloc_pages(
                                 free_pages, need, f"admission of rid={r.rid}")
-                        except RuntimeError:
+                        except RuntimeError as e:
                             # admission never outranks running work: requeue
                             # and wait for a retire (the whole-pool check in
-                            # _pop_admissible guarantees the wait ends); with
-                            # nothing running the free list leaked — raise
+                            # _pop_admissible guarantees the wait ends); an
+                            # injected failure retries next tick; a real one
+                            # with nothing running means the free list
+                            # leaked — raise
                             r.status = RequestStatus.QUEUED
                             pending.insert(0, r)
                             self._admission_requeues += 1
+                            if isinstance(e, InjectedFault):
+                                break
                             if not any(a is not None for a in active):
                                 raise
                             wait_pages = True
@@ -719,8 +975,8 @@ class ElasticEngine:
                             self.weights_for(fmt), pb, cache, slot)
                         return poisoned(lg, tick_id, fmt), c2, nl
 
-                    first, cache, new_len, new_pinned, fail, execs = \
-                        self._guarded_prefill(attempt, pinned, tick_id,
+                    first, key, cache, new_len, new_pinned, fail, execs = \
+                        self._guarded_prefill(attempt, r, pinned, tick_id,
                                               f"prefill of rid={r.rid}")
                     if new_pinned != pinned:
                         pinned = repin(new_pinned)
@@ -734,7 +990,7 @@ class ElasticEngine:
                         continue
                     cache_len[i] = new_len
                     slot_len[i] = prompt.size
-                    complete_admission(i, r, first)
+                    complete_admission(i, r, first, key)
             else:
                 # ---- chunked admission: claim the (single) mid-prefill
                 # request and allocate this chunk's pages
@@ -754,7 +1010,8 @@ class ElasticEngine:
                     start = fill_cursor
                     take = min(chunk, plen - start)
                     final = start + take >= plen
-                    padded = _bucket_len(take, chunk) if final else chunk
+                    padded = take if (final and not self._bucket) else \
+                        (_bucket_len(take, chunk) if final else chunk)
                     padded = min(padded, self.max_len - start)
                     ok = True
                     if paged:
@@ -767,19 +1024,23 @@ class ElasticEngine:
                                 free_pages, last_pg - first_pg,
                                 f"prefill chunk at {start} of rid={r.rid}")
                             bt[i, first_pg:last_pg] = got
-                        except RuntimeError:
+                        except RuntimeError as e:
                             # a partial admission must not starve the pool:
                             # release what it holds, requeue, retry after a
-                            # retire; with nothing running, raise
+                            # retire (an injected failure: next tick); with
+                            # nothing running, raise
                             self._free_slot_pages(free_pages, bt, i)
                             r.status = RequestStatus.QUEUED
                             pending.insert(0, r)
                             filling = None
                             self._admission_requeues += 1
                             ok = False
-                            if not any(a is not None for a in active):
+                            if isinstance(e, InjectedFault):
+                                pass
+                            elif any(a is not None for a in active):
+                                wait_pages = True
+                            else:
                                 raise
-                            wait_pages = True
                         sync_table()
                     if ok:
                         ctoks = np.zeros(padded, np.int32)
@@ -809,10 +1070,10 @@ class ElasticEngine:
 
                     fail = None
                     if final:
-                        first, cache, new_len, new_pinned, fail, execs = \
-                            self._guarded_prefill(
-                                attempt, pinned, tick_id,
-                                f"final chunk of rid={r.rid}")
+                        (first, key, cache, new_len, new_pinned, fail,
+                         execs) = self._guarded_prefill(
+                            attempt, r, pinned, tick_id,
+                            f"final chunk of rid={r.rid}")
                         if new_pinned != pinned:
                             pinned = repin(new_pinned)
                     else:
@@ -831,7 +1092,7 @@ class ElasticEngine:
                         fill_cursor = start + take
                         if final:
                             slot_len[i] = plen
-                            complete_admission(i, r, first)
+                            complete_admission(i, r, first, key)
                             filling = None
                     chunk_tok = None
 
@@ -917,6 +1178,8 @@ class ElasticEngine:
                 mbatch["q_len"].copy_(torch.from_numpy(q_len))
 
                 def attempt(fmt):
+                    if fi is not None:
+                        fi.maybe_raise_step(tick_id)    # before dispatch
                     lg = self._tick("mixed_step", fmt, padded, mbatch, cache,
                                     cache_len)
                     return poisoned(lg, tick_id, fmt), cache
@@ -927,6 +1190,8 @@ class ElasticEngine:
                 tick["prefill_chunks"] += 1
             else:
                 def attempt(fmt):
+                    if fi is not None:
+                        fi.maybe_raise_step(tick_id)    # before dispatch
                     lg = self._tick("serve_step", fmt, 1, {"tokens": tokens},
                                     cache, cache_len)
                     return poisoned(lg, tick_id, fmt), cache
@@ -934,14 +1199,25 @@ class ElasticEngine:
                 adv = mask
             # escalate-and-replay against the pre-tick state; the commits
             # below happen once, after the guard settles
-            logits, nxt, drained, cache, new_pinned, dead, execs = \
-                self._guarded_step(attempt, pinned, consumed, tick_id)
+            admit = (fill_slot, filling) \
+                if chunk_tok is not None and chunk_tok[3] else None
+            try:
+                drain, cache, new_pinned, dead, execs = self._guarded_step(
+                    attempt, pinned, consumed, tick_id, admit)
+            except InjectedFault:
+                span.__exit__(None, None, None)    # past the retry budget
+                raise
             if new_pinned != pinned:
                 pinned = repin(new_pinned)
             tick["execs"] += execs
             tick["rows"] += b * execs
             cache_len.add_(torch.as_tensor(adv, device=dev))
-            tokens.copy_(nxt[:, None])
+            tokens.copy_(drain.tokens[:, None])
+            if drain.keys is not None:
+                # every slot's key advanced once; a completing admission
+                # reseeds its own below
+                self._keys.copy_(drain.keys)
+            drained = drain.drained
             self._decode_s += time.perf_counter() - t_dec
             self._ticks += 1
 
@@ -1003,8 +1279,8 @@ class ElasticEngine:
                 fill_cursor = start + take
                 if final and filling is not None:
                     slot_len[fill_slot] = plen
-                    complete_admission(fill_slot, filling,
-                                       int(drained[fill_slot]))
+                    complete_admission(fill_slot, filling, drain.first,
+                                       drain.first_key)
                     filling = None
             self._record_tick(tick, 1, t_tick, span,
                               decode_rows=int(mask.sum()))
@@ -1040,6 +1316,10 @@ class ElasticEngine:
             "graph_replays": self._graphs.replays if self._graphs else 0,
             "graph_capture_s": self._graphs.capture_s if self._graphs
             else 0.0,
+            "draw_graph_captures": self._draw_graphs.captures
+            if self._draw_graphs else 0,
+            "draw_graph_replays": self._draw_graphs.replays
+            if self._draw_graphs else 0,
             "fmt_swaps": self._fmt_swaps,
             "ticks": self._ticks,
             "prefills": self._prefills,
@@ -1059,6 +1339,7 @@ class ElasticEngine:
             "device": str(self.device),
             "request_statuses": dict(self._status_counts),
             "prefill_chunk": self.prefill_chunk,
+            "admission_order": self.admission_order,
             "admission_requeues": self._admission_requeues,
             "kv_layout": self.kv_layout,
             "kv_cache_bytes": self._kv_cache_bytes,

@@ -116,19 +116,16 @@ def test_oversized_prompt_fails_alone(served):
     assert len(reqs[1].out_tokens) == 3
 
 
-@pytest.mark.parametrize("kw", [
-    {"mesh": object()},
-    {"fault_injector": FaultInjector(raise_in_step=(1,))},
-    {"speculative": object()},
-    {"fault_injector": FaultInjector(poison_pool={1: 1})},
-    {"fault_injector": FaultInjector(fail_allocs=(0,))},
-    {"fault_injector": FaultInjector(preempt_at=2)},
-    {"fault_injector": FaultInjector(cancel_at={1: 0})},
-    {"max_step_retries": 0}])
-def test_unported_options_refuse_loudly(served, kw):
+@pytest.mark.parametrize("kw,item", [
+    ({"mesh": object()}, "A.9"),
+    ({"speculative": object()}, "A.4"),
+    ({"fault_injector": FaultInjector(preempt_at=2)}, "A.3"),
+    ({"admission_order": "slo"}, "A.5")])
+def test_unported_options_refuse_loudly(served, kw, item):
     _, _, _, path = served
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="not ported") as ei:
         _port_engine(path, **kw)
+    assert f"ROADMAP {item}" in str(ei.value)
 
 
 def test_guard_is_on_by_default_and_takes_only_the_ports_injector(served):
@@ -141,11 +138,18 @@ def test_guard_is_on_by_default_and_takes_only_the_ports_injector(served):
 
 
 def test_sampling_and_missing_card_refuse_loudly(served):
+    """Sampled decoding runs (``tests/test_torch_sampling.py`` holds its
+    streams against JAX); unknown knobs and a missing card still refuse."""
     _, _, _, path = served
-    eng = _port_engine(path)
-    with pytest.raises(NotImplementedError, match="greedily"):
-        eng.generate([Request(0, np.arange(3, dtype=np.int32), 2)],
-                     greedy=False)
+    eng = _port_engine(path, temperature=0.8, top_p=0.95)
+    out = eng.generate([Request(0, np.arange(3, dtype=np.int32), 2)],
+                       greedy=False)
+    assert out[0].status is RequestStatus.COMPLETED
+    assert len(out[0].out_tokens) == 2
+    assert all(0 <= t < eng.api.cfg.vocab for t in out[0].out_tokens)
+    assert eng.stats()["admission_order"] == "fifo"
+    with pytest.raises(ValueError, match="admission_order"):
+        _port_engine(path, admission_order="lifo")
     with pytest.raises(TypeError, match="unexpected argument"):
         _port_engine(path, bogus=1)
     if not torch.cuda.is_available():

@@ -14,12 +14,16 @@ CPU (reduced qwen3-4b, 2 layers, 2 slots) these tests hold:
   ragged rows;
 - the engine's graph path with a stand-in for the CUDA graph whose replay
   reruns the step captured at the first tick — with the tensors that step
-  read then — and writes NaN over every other graph's static logits: the
-  streams, traces and path counts must equal the eager engine's;
+  read then — and writes garbage over every other graph's static output:
+  the streams, traces and path counts must equal the eager engine's, for
+  greedy waves, sampled waves (the batch draw's graph and the slots' key,
+  temperature and top-p lanes) and a chaos wave (an in-place NaN pool
+  page, step crashes, a failed allocation, a cancellation);
 - ``cuda_graphs=True`` refused on the CPU.
 
-The ``gpu`` cases run the same engines on the card, graph against eager
-(the JAX package is not needed there); they skip on a host without one.
+The ``gpu`` cases run the same engines on the card, graph against eager,
+greedy, sampled and under chaos (the JAX package is not needed there);
+they skip on a host without one.
 """
 import dataclasses
 
@@ -226,8 +230,9 @@ class _ReplayedStep:
     from (the closure of the first tick of its key, holding the tensors
     that tick read) into the static output, as a graph reruns its kernels
     on the pointers it captured, and sets back the counts the rerun moved
-    (a replay runs no Python). It then writes NaN over every other graph's
-    static logits, as a replay in a shared pool may."""
+    (a replay runs no Python). It then writes garbage over every other
+    graph's static output (NaN, or -1 in an integer one: a sampled tick's
+    draw), as a replay in a shared pool may."""
 
     def __init__(self, step, static, graphs):
         self.step, self.static, self.graphs = step, static, graphs
@@ -240,7 +245,8 @@ class _ReplayedStep:
             m.credit({k: b[k] - n for k, n in m.snapshot().items()})
         for g in self.graphs:
             if g is not self:
-                g.static.fill_(float("nan"))
+                g.static.fill_(float("nan") if g.static.is_floating_point()
+                               else -1)
 
 
 @pytest.fixture
@@ -311,6 +317,113 @@ def test_poisoned_wave_escalates_once_with_a_stand_in_graph(
                        for e in st["escalation_events"]])
     assert runs["graph"] == runs["eager"]
     assert runs["graph"][3] == [(2, "mxint4", "mxint6")]
+
+
+SAMPLED = dict(seed=1, temperature=0.8, top_p=0.95)
+CHAOS = dict(kv_layout="paged", kv_page_size=PS, attn_impl="gather",
+             prefill_chunk=8)
+# tick 6 is the wave's first decode-carrying tick: the eager tick before
+# its key's capture
+CHAOS_PLAN = dict(poison_pool={3: 1}, raise_in_step=(6, 8),
+                  cancel_at={5: 3}, fail_allocs=(1,))
+
+
+def _graphed(eng):
+    """``eng`` on the graph path: its ticks and its sampled draw."""
+    eng._graphs = tick_graph.TickGraphs()
+    eng._draw_graphs = tick_graph.TickGraphs()
+    return eng
+
+
+def _sampled_requests(prompts):
+    reqs = _requests(prompts)
+    reqs[1].temperature = 1.3               # per-request lanes
+    reqs[2].top_p = 0.7
+    return reqs
+
+
+@pytest.mark.parametrize("name", ["dense-monolithic", "paged-chunk-mixed",
+                                  "paged-chunk-sequential"])
+def test_sampled_waves_equal_eager_with_a_stand_in_graph(cpu_anchor,
+                                                         stand_in_graphs,
+                                                         name):
+    """The batch draw's graph reads the slots' keys, temperatures and
+    top-p values where they lay at its capture: the stand-in reruns the
+    captured closure, so a rebinding would change the streams. Three
+    sampled waves on one engine equal the eager engine's, the lanes keep
+    their storage, and the draw is captured once."""
+    cfg, anchor = cpu_anchor
+    eager = _engine(cfg, anchor, **SAMPLED, **CONFIGS[name])
+    graphed = _graphed(_engine(cfg, anchor, **SAMPLED, **CONFIGS[name]))
+    lanes = [t.data_ptr() for t in (graphed._keys, graphed._temps,
+                                    graphed._tops)]
+    for i, (seed, lens) in enumerate(WAVES + WAVES[:1]):
+        fmt = ("mxint8", "mxint4")[i % 2]
+        runs = []
+        for eng in (eager, graphed):
+            reqs = eng.generate(_sampled_requests(
+                _prompts(cfg.vocab, seed, lens)), greedy=False,
+                fmt_override=fmt)
+            runs.append(([r.out_tokens for r in reqs],
+                         [r.status for r in reqs], _trace(eng.tick_trace)))
+        assert runs[1] == runs[0]
+        assert all(s is RequestStatus.COMPLETED for s in runs[1][1])
+        assert [t.data_ptr() for t in (graphed._keys, graphed._temps,
+                                       graphed._tops)] == lanes
+    assert torch.equal(graphed._keys, eager._keys)
+    st = graphed.stats()
+    assert st["draw_graph_captures"] == 1
+    assert st["draw_graph_replays"] + 1 == st["ticks"]      # no replays
+    greedy = eager.generate(_requests(_prompts(cfg.vocab, *WAVES[0])),
+                            fmt_override="mxint8")
+    sampled = graphed.generate(_sampled_requests(
+        _prompts(cfg.vocab, *WAVES[0])), greedy=False, fmt_override="mxint8")
+    assert [r.out_tokens for r in sampled] != [r.out_tokens for r in greedy]
+    assert graphed.stats()["draw_graph_captures"] == 1
+
+
+def test_chaos_wave_equals_eager_with_a_stand_in_graph(cpu_anchor,
+                                                       stand_in_graphs):
+    """A NaN page written into the pools in place (the captured ticks read
+    them where they lie), a step crash on the first tick of a graph key
+    and another later, a failed allocation and a cancellation: the graph
+    path retires, retries and streams exactly as the eager engine, and the
+    pools keep their storage."""
+    cfg, anchor = cpu_anchor
+    runs = {}
+    for mode in ("eager", "graph"):
+        eng = _engine(cfg, anchor, fault_injector=FaultInjector(**CHAOS_PLAN),
+                      **CHAOS)
+        if mode == "graph":
+            _graphed(eng)
+        before = _counts()
+        reqs = eng.generate(_requests(_prompts(cfg.vocab, *WAVES[0])),
+                            fmt_override="mxint4")
+        after = _counts()
+        st = eng.stats()
+        runs[mode] = ([r.out_tokens for r in reqs], [r.status for r in reqs],
+                      [r.error for r in reqs], _trace(eng.tick_trace),
+                      eng._fault_injector.events, st["escalation_events"],
+                      st["ticks_replayed"], st["admission_requeues"],
+                      {k: after[k] - before[k] for k in after})
+        assert st["kv_pages_alloc"] == st["kv_pages_freed"]
+        if mode == "graph":
+            assert st["graph_captures"] == len(stand_in_graphs)
+            assert min(i for i, t in enumerate(eng.tick_trace)
+                       if t["decode"]) == 6
+            assert st["graph_captures"] + st["graph_replays"] == \
+                sum(t["execs"] for t in eng.tick_trace if t["decode"])
+            pools = [t.data_ptr() for t in _cache_tensors(eng._cache)]
+            eng._fault_injector = FaultInjector(**CHAOS_PLAN)
+            eng.generate(_requests(_prompts(cfg.vocab, *WAVES[0])),
+                         fmt_override="mxint4")
+            assert [t.data_ptr() for t in _cache_tensors(eng._cache)] == pools
+    assert runs["graph"] == runs["eager"]
+    statuses = runs["graph"][1]
+    assert statuses[3] is RequestStatus.CANCELLED
+    assert RequestStatus.FAILED_NUMERIC in statuses      # the poisoned page
+    assert {e["kind"] for e in runs["graph"][4]} == {
+        "poison_pool", "raise_in_step", "cancel", "fail_alloc"}
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +499,46 @@ def test_poisoned_wave_escalates_once_under_graphs_on_the_card(card_anchor):
     assert runs[True] == runs[False]
     assert runs[True][4] == [(2, "mxint4", "mxint6")]
     assert all(s is RequestStatus.COMPLETED for s in runs[True][1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dense-monolithic", "paged-chunk-mixed"])
+def test_sampled_graph_and_eager_engines_agree_on_the_card(card_anchor,
+                                                           name):
+    cfg, anchor = card_anchor
+    runs = {}
+    for graphs in (False, True):
+        eng = _engine(cfg, anchor, device="cuda", cuda_graphs=graphs,
+                      **SAMPLED, **CONFIGS[name])
+        for seed, lens in WAVES:
+            reqs = eng.generate(_sampled_requests(
+                _prompts(cfg.vocab, seed, lens)), greedy=False,
+                fmt_override="mxint4")
+        torch.cuda.synchronize()
+        st = eng.stats()
+        runs[graphs] = ([r.out_tokens for r in reqs],
+                        [r.status for r in reqs], _trace(eng.tick_trace),
+                        eng._keys.cpu().tolist())
+        assert st["draw_graph_captures"] == (1 if graphs else 0)
+    assert runs[True] == runs[False]
+
+
+@pytest.mark.gpu
+def test_chaos_wave_graph_and_eager_agree_on_the_card(card_anchor):
+    cfg, anchor = card_anchor
+    runs = {}
+    for graphs in (False, True):
+        eng = _engine(cfg, anchor, device="cuda", cuda_graphs=graphs,
+                      fault_injector=FaultInjector(**CHAOS_PLAN), **CHAOS)
+        reqs = eng.generate(_requests(_prompts(cfg.vocab, *WAVES[0])),
+                            fmt_override="mxint4")
+        st = eng.stats()
+        runs[graphs] = ([r.out_tokens for r in reqs],
+                        [r.status for r in reqs], _trace(eng.tick_trace),
+                        st["escalation_events"])
+        assert st["kv_pages_alloc"] == st["kv_pages_freed"]
+    assert runs[True] == runs[False]
+    assert runs[True][1][3] is RequestStatus.CANCELLED
 
 
 @pytest.mark.gpu
