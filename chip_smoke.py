@@ -23,8 +23,9 @@ Phases (any failure exits non-zero before the result line):
      nvcc for sm_90a into one library, one nvcc per source started
      together, and print the ptxas register / shared-memory / spill lines;
   3. dequant-GEMM kernels: at every qwen3-4b projection shape, at M = 4
-     (decode; the decode body) and 16, 32, 64, 128, 256 (the prefill
-     buckets and the mixed tick's 4 x 64; the tiled body), each tiled plan
+     (decode; the decode body) and 16, 20, 32, 64, 128, 256 (the prefill
+     buckets, the speculative verify's 4 x 5 and the mixed tick's 4 x 64;
+     the tiled body), each tiled plan
      logged, hold mx_matmul (mxint8, mxfp8) and mx_matmul_int4 (mxint4)
      against their plain PyTorch versions on the same card tensors (rtol
      1e-4, atol 1e-4 * max|plain|: both accumulate in f32, only the
@@ -38,14 +39,18 @@ Phases (any failure exits non-zero before the result line):
      D 128, page 16, bf16 pools of 129 pages, 4 slots, random page
      permutations): paged_attention (B3) at decode lengths, ragged lengths,
      a window, a zero-length row and a long context (cache_len 4096 x 4 on
-     its own pool of 1025 pages), paged_attention_mq (B4) at a mixed tick;
-     each case's split plan logged (splits, blocks, blocks with pages);
+     its own pool of 1025 pages), paged_attention_mq (B4) at a mixed tick
+     and at the speculative verify (4 rows at q_len 5); each case's split
+     plan logged (splits, blocks, blocks with pages);
      each held against its plain version (same tolerance), NaN in every
      dead page leaving the output bit-identical, a repeated call, eagerly
      and replayed from a CUDA graph, bit-identical, B4 at q_len 1 agreeing
      with B3; timed beside the plain version, the HBM bound and
      scaled_dot_product_attention on a contiguous copy of the live K/V
-     (timing only, not called by the port); then B3 and B4 at the head
+     (timing only, not called by the port); NaN in a live page of one row
+     through the single walk, the warps' merge and the cross-split merge,
+     for B3 and B4: that row exact zeros in kernel and plain version, the
+     others bit-identical to the clean call; then B3 and B4 at the head
      layouts no serving phase runs, G = 3 (9 / 3 heads, D 64, smollm-135m)
      and G = 12 (24 / 2, D 128, starcoder2-3b), held against the plain
      version and NaN-poisoned dead pages, and timed;
@@ -106,7 +111,27 @@ Phases (any failure exits non-zero before the result line):
      graphs — serves the same 8 requests at mxint8 and mxint4; launch
      counts, one executable per tick, balanced pages, the first mixed
      tick's logits against the gather contract, and the eager twin's A/B
-     as in 8, over the pure decode and the mixed ticks.
+     as in 8, over the pure decode and the mixed ticks; sampled waves, and
+     chaos at mxint4 (wave A: allocation failure, crash, cancellation,
+     deadline; wave B: a NaN page in a decoding row's live pages, which
+     B3/B4 turn into zeros, so every request completes, as in the JAX
+     engine);
+ 10. speculative: the dense and the paged graph engines pinned at mxint8
+     with SpecConfig(draft_fmt="mxint4", k=4): lane 0 of the first verify
+     within 5% of max|logit| of the plain decode tick on the same cache;
+     every request complete, pages balanced, 1 <= committed <= k_eff + 1
+     per slot and spec tick, launches per draft step and verify attempt,
+     an eager twin's streams equal; acceptance, spec ticks, tokens per
+     tick, the spec tick wall split into drafts and verify, wave tok/s
+     beside plain decode, the streams' agreement with plain decode
+     (reported: the verify's M = 20 bodies and B4 round differently from
+     the decode body and B3); every draft NaN: one abort, mxint4
+     quarantined, plain streams;
+ 11. preemption: the paged graph engine preempted with a slot
+     mid-prefill, snapshot to a temporary directory; a fresh engine's
+     resume and the original engine's (no new capture) both equal the
+     uninterrupted wave, pages balanced; snapshot bytes, save and resume
+     seconds.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -129,8 +154,9 @@ F32_FLOP_PER_S = 67e12           # H100 SXM f32 outside the tensor cores
 PROJ_SHAPES = {(2560, 4096): 1, (2560, 1024): 2, (4096, 2560): 1,
                (2560, 9728): 2, (9728, 2560): 1}
 PROJ_PER_LAYER = sum(PROJ_SHAPES.values())          # 7
-KERNEL_MS = (4, 16, 32, 64, 128, 256)   # decode (4 slots), then the
-#                  prefill buckets the tiled body serves (256 is also the
+KERNEL_MS = (4, 16, 20, 32, 64, 128, 256)   # decode (4 slots), then the
+#                  prefill buckets the tiled body serves (20 is the
+#                  speculative verify's 4 x (k + 1) at k = 4, 256 also the
 #                  mixed tick's 4 x 64)
 CROSSOVER_MS = (4, 8, 12, 16)   # both bodies, to place DECODE_MAX_M
 KERNEL_CASES = (("mx_matmul", "mxint8"), ("mx_matmul", "mxfp8"),
@@ -163,6 +189,9 @@ FUSED_TOL = 0.05   # max|fused - densify| <= 5% of max|densify| (bf16 rounds
 ATTN_H, ATTN_HKV, ATTN_D, PAGE, POOL_PAGES, SLOTS, MAX_LEN = \
     32, 8, 128, 16, 129, 4, 512
 N_REQ, MAX_NEW, CHUNK = 8, 16, 64
+SPEC_K = 4         # self-speculative decoding: mxint4 drafts, k per burst
+SPEC_TOL = 0.05    # lane 0 of the first verify vs the plain decode tick's
+#                    logits on the same cache: 5% of max|logit|
 # the sampled waves: the engine's parameters, and two requests with their own
 SAMPLE = dict(seed=0, temperature=0.8, top_p=0.95)
 OWN_TEMPERATURE, OWN_TOP_P = (1, 1.2), (2, 0.8)      # (rid, value)
@@ -570,9 +599,113 @@ def phase_paged_kernels(seed: int):
         sum(spans) * kv_token + live_q * ATTN_H * ATTN_D * 2
         + got.numel() * 4, 4 * ATTN_H * ATTN_D * pairs)
     del kp, vp, kp_p, vp_p
+
+    # ---- B4 at the speculative verify: 4 rows at q_len k + 1
+    case = f"verify 4x{SPEC_K + 1} at decode lengths"
+    rows = [(200, SPEC_K + 1), (150, SPEC_K + 1), (17, SPEC_K + 1),
+            (506, SPEC_K + 1)]
+    spans = [o + n for o, n in rows]
+    q, kp, vp, bt = _paged_inputs(gen, spans, SPEC_K + 1)
+    qo = torch.tensor([r[0] for r in rows], dtype=torch.int32, device="cuda")
+    ql = torch.tensor([r[1] for r in rows], dtype=torch.int32, device="cuda")
+    _log_plan(pa, case, q, bt, rows, None)
+    got = pa.paged_attention_mq(q, kp, vp, bt, qo, ql)
+    want = ref.ref_paged_attention_mq(q, kp, vp, bt, qo, ql)
+    kp_p, vp_p = _poison_dead(kp, vp, bt, spans)
+    if not torch.equal(got, pa.paged_attention_mq(q, kp_p, vp_p, bt, qo,
+                                                  ql)):
+        fail(f"paged_attention_mq [{case}]: NaN in dead pages changed the "
+             "output")
+    pairs = sum(o + i + 1 for o, n in rows for i in range(n))
+    rec = record(
+        "paged_attention_mq", case, got, want,
+        cuda_time_ms(lambda i: pa.paged_attention_mq(q, kp, vp, bt, qo, ql),
+                     50),
+        cuda_time_ms(lambda i: ref.ref_paged_attention_mq(
+            q, kp, vp, bt, qo, ql), 5), _sdpa_ms(q, max(spans)),
+        sum(spans) * kv_token + q.numel() * 2 + got.numel() * 4,
+        4 * ATTN_H * ATTN_D * pairs)
+    out["paged_attention_mq"]["verify_q_len_5"] = {
+        k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms",
+                            "bound_ms", "bound_by")}
+    del kp, vp, kp_p, vp_p
+    _nan_live_page(gen, pa, ref)
     _paged_other_heads(gen, pa, ref)
     torch.cuda.empty_cache()
     return out
+
+
+def _nan_live_page(gen, pa, ref):
+    """NaN in the first page of one row (every live query of the row sees
+    it: its sum is NaN), through each epilogue that divides by the sum —
+    the single walk (one key slice per warp: more than 32 query rows,
+    here 64 heads over 1 kv head, D 64), the warps' merge (qwen3-4b heads,
+    a short row in one split) and the cross-split merge (cache_len 4096) —
+    for B3 and for B4 at q_len 5: that row exact zeros in every head and
+    lane, as the plain version and the Pallas kernels give (where(l > 0,
+    out, 0)); every other row bit-identical to the clean call and within
+    tolerance of the plain version."""
+    import torch
+    c = SPEC_K + 1
+    for case, heads, spans, victim, max_len, pool in (
+            ("single walk", (64, 1, 64), [200, 40, 17, 100], 1, MAX_LEN,
+             POOL_PAGES),
+            ("warp merge", (ATTN_H, ATTN_HKV, ATTN_D), [200, 40, 17, 100], 1,
+             MAX_LEN, POOL_PAGES),
+            ("split merge", (ATTN_H, ATTN_HKV, ATTN_D), [4096, 300, 40, 3001],
+             0, 4096, 4 * 4096 // PAGE + 1)):
+        h, hkv, d = heads
+        q, kp, vp, bt = _paged_inputs(gen, spans, c, pool, max_len, heads)
+        kp_n, vp_n = kp.clone(), vp.clone()
+        page = int(bt[victim, 0])
+        kp_n[page] = float("nan")
+        vp_n[page] = float("nan")
+        q1 = q[:, 0].contiguous()
+        cl = torch.tensor(spans, dtype=torch.int32, device="cuda")
+        qo = cl - c
+        ql = torch.full_like(cl, c)
+        for name, lanes, run, plain in (
+                ("paged_attention", 1,
+                 lambda k, v: pa.paged_attention(q1, k, v, bt, cl),
+                 lambda k, v: ref.ref_paged_attention(q1, k, v, bt, cl)),
+                ("paged_attention_mq", c,
+                 lambda k, v: pa.paged_attention_mq(q, k, v, bt, qo, ql),
+                 lambda k, v: ref.ref_paged_attention_mq(q, k, v, bt, qo,
+                                                         ql))):
+            plan = pa.split_plan(len(spans), lanes, h, hkv, d, PAGE,
+                                 bt.shape[1], q.element_size())
+            first, last = pa.walk(spans[victim] - lanes, lanes, 0, plan.tq,
+                                  lanes, PAGE, bt.shape[1])
+            rows = plan.tq * (h // hkv)
+            n_splits = sum(1 for s in range(plan.splits)
+                           if pa.split_pages(plan, first, last, s, rows))
+            if (n_splits > 1) != (case == "split merge") \
+                    or (rows > 32) != (case == "single walk") or first:
+                fail(f"{name} NaN live page [{case}]: the case runs "
+                     f"{n_splits} split(s) of {rows} query rows")
+            clean, got, want = run(kp, vp), run(kp_n, vp_n), plain(kp_n,
+                                                                   vp_n)
+            torch.cuda.synchronize()
+            others = [i for i in range(len(spans)) if i != victim]
+            if not (torch.equal(got[victim], torch.zeros_like(got[victim]))
+                    and torch.equal(want[victim],
+                                    torch.zeros_like(want[victim]))):
+                fail(f"{name} NaN live page [{case}]: the row is not exact "
+                     f"zeros (kernel: {int(got[victim].isnan().sum())} NaN, "
+                     f"max {float(got[victim].nan_to_num().abs().max()):.3g})")
+            if not torch.equal(got[others], clean[others]):
+                fail(f"{name} NaN live page [{case}]: another row changed")
+            scale = float(want[others].abs().max())
+            err = float((got[others] - want[others]).abs().max())
+            if not torch.allclose(got[others], want[others], rtol=1e-4,
+                                  atol=1e-4 * scale):
+                fail(f"{name} NaN live page [{case}]: max abs err {err:.3g} "
+                     f"vs max|plain| {scale:.3g}")
+            log(f"{name} NaN in a live page [{case}, {n_splits} split(s), "
+                f"{rows} query rows]: the row exact zeros in kernel and "
+                f"plain; other rows bit-identical to the clean call, max abs "
+                f"err {err:.3g}")
+        del q, kp, vp, kp_n, vp_n
 
 
 def _paged_other_heads(gen, pa, ref):
@@ -1595,7 +1728,7 @@ def _graph_vs_eager(label, geng, greqs, make_reqs, fmt, picks):
 
 def phase_serving(cfg, anchor, seed: int):
     """Dense KV layout, monolithic admission; returns the B1/B2 launch
-    counts and each format's greedy streams."""
+    counts, each format's greedy streams and the graph engine."""
     import torch
     from repro_torch.kernels import mx_matmul
     from repro_torch.kernels.dispatch import make_qmm
@@ -1721,7 +1854,7 @@ def phase_serving(cfg, anchor, seed: int):
     for kernel, n in _poisoned_wave(api, anchor, cfg, seed,
                                     streams["mxint4"]).items():
         launches[kernel] += n
-    return launches, streams
+    return launches, streams, fused
 
 
 def _poisoned_wave(api, anchor, cfg, seed: int, clean):
@@ -1848,7 +1981,8 @@ def _first_mixed_tick(api, weights, vocab: int, seed: int):
 def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
     """The paged layout under chunked admission and the mixed scheduler,
     every attention read through B3/B4, greedy and sampled, then the chaos
-    phase on its trees; returns the launch counts of B1-B4."""
+    phase on its trees; returns the launch counts of B1-B4, the graph
+    engine and its greedy streams per format."""
     import numpy as np
     import torch
     from repro_torch.kernels import mx_matmul
@@ -1957,24 +2091,26 @@ def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
             totals[k] = totals.get(k, 0) + n
     for k, n in phase_chaos(eng, cfg, seed).items():
         totals[k] = totals.get(k, 0) + n
-    return totals
+    return totals, eng, streams
 
 
 def _check_launches(what: str, trace, n_layers: int, mm, at=None) -> None:
     """B1 + B2 launches = 7 x layers x the wave's executables (guard
-    replays included, a crashed attempt launches nothing); on the paged
-    layout B3 = layers x the executables of its pure decode ticks and B4
-    of its mixed ticks."""
+    replays included, a crashed attempt launches nothing; a speculative
+    tick's draft steps and verify attempts each count); on the paged
+    layout B3 = layers x the executables of its pure decode ticks (a
+    speculative tick's draft steps) and B4 of its mixed ticks and verify
+    attempts."""
     execs = sum(t["execs"] for t in trace)
     if sum(mm.values()) != PROJ_PER_LAYER * n_layers * execs:
         fail(f"{what}: B1/B2 launches {mm}, want {PROJ_PER_LAYER} x "
              f"{n_layers} x {execs} executables")
     if at is None:
         return
-    pure = sum(t["execs"] for t in trace
+    pure = sum(t["execs"] - t["verify_execs"] for t in trace
                if t["decode"] and not t["prefill_chunks"])
-    mixed = sum(t["execs"] for t in trace
-                if t["decode"] and t["prefill_chunks"])
+    mixed = sum(t["execs"] if t["prefill_chunks"] else t["verify_execs"]
+                for t in trace if t["decode"])
     if at["paged_attention"] != n_layers * pure or \
             at["paged_attention_mq"] != n_layers * mixed:
         fail(f"{what}: paged-attention launches {at}, want {n_layers} x "
@@ -2204,11 +2340,13 @@ def phase_chaos(peng, cfg, seed: int):
     schedule: it leaves out the request that never gets in (the others'
     ticks then fall as in wave A, one tick later there: the failed
     allocation delays everything by one), and the cancellation lands
-    where every later tick is pure decode either way. Wave B: a page a row
-    maps is NaN-filled before tick 6: the format climbs to the anchor,
-    the rows that map it retire FAILED_NUMERIC, the rest complete. Pages
-    balance in both; an eager twin under the same plans ends the same.
-    Returns the graph waves' launches."""
+    where every later tick is pure decode either way. Wave B: the first
+    page of a decoding row is NaN-filled before tick 6: B3/B4 give that
+    row exact zeros (its sum is NaN; the reference's kernels do the same),
+    so its logits stay finite and every request completes with no fault
+    and no escalation, as in the JAX engine. Pages balance in both; an
+    eager twin under the same plans ends the same. Returns the graph
+    waves' launches."""
     import torch
     fmt = "mxint4"
     last = N_REQ - 1
@@ -2266,13 +2404,12 @@ def phase_chaos(peng, cfg, seed: int):
                 fail(f"{what}: survivors {bad} differ from the clean wave")
         else:
             hit = len(fi.rows or [])
-            failed = statuses.count("failed_numeric")
-            if not hit or failed != hit \
-                    or statuses.count("completed") != N_REQ - hit \
-                    or [e[1:] for e in events] != [("mxint4", "mxint6"),
-                                                   ("mxint6", "mxint8")]:
+            if not hit or statuses != ["completed"] * N_REQ or events \
+                    or st["faults_detected"]:
                 fail(f"{what}: {hit} row(s) mapped the poisoned page; "
-                     f"statuses {statuses}, escalations {events}")
+                     f"statuses {statuses} (want all completed), "
+                     f"escalations {events}, faults "
+                     f"{st['faults_detected']} (want none)")
         if st["kv_pages_alloc"] != st["kv_pages_freed"]:
             fail(f"{what}: pages alloc {st['kv_pages_alloc']} != freed "
                  f"{st['kv_pages_freed']}")
@@ -2294,6 +2431,384 @@ def phase_chaos(peng, cfg, seed: int):
     log(f"chaos phase: the eager twin ended both waves the same way; "
         f"{time.perf_counter() - t_phase:.1f} s")
     return totals
+
+
+def _first_verify(eng, seed: int):
+    """From one cache state — 4 slots decoding after their prompts — the
+    plain mxint8 decode tick's logits and lane 0 of a verify's at q_len
+    k + 1 (seeded draft tokens) on a copy of the same cache, on ``eng``'s
+    layout and trees: (lane 0, plain)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.dispatch import make_qmm
+
+    dev, api, vocab = eng.device, eng.api, eng.api.cfg.vocab
+    weights = eng.weights_for("mxint8")
+    paged = eng.kv_layout == "paged"
+    kapi = api.with_serving(make_qmm("kernel"),
+                            "paged_kernel" if paged else "gather")
+    rng = np.random.default_rng(seed + 3)
+    lens = [40, 64, 17, 150]
+    layout = dict(kv_layout="paged", page_size=PAGE) if paged else {}
+    cache = kapi.init_cache(SLOTS, MAX_LEN, device=dev, **layout)
+    if paged:
+        per_row = 12                              # 192 positions per slot
+        perm = rng.permutation(np.arange(1, POOL_PAGES))
+        bt = np.zeros(tuple(cache["block_table"].shape), np.int32)
+        for i in range(SLOTS):
+            bt[i, :per_row] = perm[i * per_row:(i + 1) * per_row]
+        cache["block_table"].copy_(torch.from_numpy(bt))
+    tokens = torch.zeros((SLOTS, 1), dtype=torch.int32, device=dev)
+    for i, n in enumerate(lens):
+        prompt = rng.integers(0, vocab, size=n).astype(np.int32)
+        lg, cache, _ = kapi.prefill_slot(
+            weights, {"tokens": torch.as_tensor(prompt[None], device=dev)},
+            cache, i)
+        tokens[i, 0] = torch.argmax(lg)
+    twin = {k: ([{n: t.clone() for n, t in c.items()} for c in v]
+                if k == "blocks" else v.clone()) for k, v in cache.items()}
+    cache_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    plain, _ = kapi.serve_step(weights, {"tokens": tokens}, cache, cache_len)
+    tok2d = torch.as_tensor(rng.integers(0, vocab, size=(SLOTS, SPEC_K + 1))
+                            .astype(np.int32), device=dev)
+    tok2d[:, :1] = tokens
+    q_len = torch.full((SLOTS,), SPEC_K + 1, dtype=torch.int32, device=dev)
+    got, _ = kapi.verify_step(weights, {"tokens": tok2d, "q_len": q_len},
+                              twin, cache_len)
+    return got[:, 0].float(), plain.float()
+
+
+def _agreement(got, want):
+    """Tokens equal between two sets of streams, and each stream's first
+    position of difference (None where equal)."""
+    same = sum(x == y for g, w in zip(got, want) for x, y in zip(g, w))
+    first = [next((i for i, (x, y) in enumerate(zip(g, w)) if x != y),
+                  None if len(g) == len(w) else min(len(g), len(w)))
+             for g, w in zip(got, want)]
+    return same, sum(len(w) for w in want), first
+
+
+def phase_speculative(label: str, base, cfg, seed: int, plain_streams):
+    """Self-speculative decoding on ``base``, the dense or the paged graph
+    engine of a serving phase (its trees), pinned mxint8, drafting k = 4
+    at mxint4: lane 0 of the first verify within SPEC_TOL of
+    max|logit| of the plain decode tick on the same cache; a graph wave
+    (drafts and verifies captured) — every request complete, pages
+    balanced, 1 <= committed <= k_eff + 1 per live slot and spec tick,
+    launches as the structure predicts (B2 7 x layers per draft step, B1
+    per verify attempt and prefill, on the paged layout B3 per draft step
+    and B4 per verify attempt and mixed tick); an eager twin to the same
+    streams; the graph wave again, timed (spec tick wall split into drafts
+    and the verify), beside a plain graph wave of the same engine; the
+    streams' agreement with plain decode, reported, not gated (the verify
+    runs B1/B2 at M = 20 and B4, plain decode the decode body and B3); a
+    wave whose every draft is NaN: the burst aborts once, mxint4 is
+    quarantined and the wave finishes on plain decode with the plain
+    streams. Returns the first graph wave's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.runtime.fault import FaultInjector
+    from repro_torch.serve import engine as engine_mod
+    from repro_torch.serve.policy import SpecConfig
+
+    spec = SpecConfig(draft_fmt="mxint4", k=SPEC_K)
+    t_phase = time.perf_counter()
+    log(f"speculative phase, {label}: {cfg.n_layers} layers, pinned "
+        f"mxint8, SpecConfig(draft_fmt='mxint4', k={SPEC_K})")
+    accept = engine_mod.spec_accept_counts
+    paged = base.kv_layout == "paged"
+    what = f"speculative {label}"
+    got, want = _first_verify(base, seed)
+    diff = float((got - want).abs().max())
+    ref_max = float(want.abs().max())
+    same = int((got.argmax(-1) == want.argmax(-1)).sum())
+    log(f"{what} first verify: max|lane 0 - plain decode tick| = "
+        f"{diff:.4g}, max|plain| = {ref_max:.4g}, argmax equal in "
+        f"{same}/{SLOTS} rows")
+    if not (torch.isfinite(got).all() and diff <= SPEC_TOL * ref_max):
+        fail(f"{what}: lane 0 of the verify differs from the plain "
+             f"decode tick by {diff:.4g} > {SPEC_TOL} * {ref_max:.4g}")
+
+    eng = _twin(base, speculative=spec)
+    commits, draft_s = [], []
+    burst = eng._draft_burst
+
+    def timed_burst(*a, burst=burst):
+        t0 = time.perf_counter()
+        out = burst(*a)                 # each step's host copy syncs
+        draft_s.append(time.perf_counter() - t0)
+        return out
+
+    def spy(drafts, anchor_toks, budgets):
+        out = accept(drafts, anchor_toks, budgets)
+        commits.append((drafts.shape[1], np.asarray(budgets).copy(),
+                        out.copy()))
+        return out
+
+    eng._draft_burst = timed_burst
+    engine_mod.spec_accept_counts = spy
+    try:
+        reqs = _requests(cfg.vocab, seed)
+        mx_matmul.reset_launches()
+        pa.reset_launches()
+        torch.cuda.synchronize()
+        eng.generate(reqs, fmt_override="mxint8")
+        torch.cuda.synchronize()
+        mm, at = dict(mx_matmul.launches), dict(pa.launches)
+        st = eng.stats()
+        trace = list(eng.tick_trace)
+        _check_launches(what, trace, cfg.n_layers, mm,
+                        at if paged else None)
+        if not paged and any(at.values()):
+            fail(f"{what}: paged-attention launches {at} on the dense "
+                 "layout")
+        drafts = sum(t["draft_execs"] for t in trace)
+        if mm["mx_matmul_int4"] != PROJ_PER_LAYER * cfg.n_layers * drafts:
+            fail(f"{what}: B2 launched {mm['mx_matmul_int4']} times for "
+                 f"{drafts} draft steps")
+        bad = [r.rid for r in reqs if r.status.value != "completed"
+               or len(r.out_tokens) != MAX_NEW]
+        spec_ticks = [t for t in trace if t["draft_execs"]]
+        if bad or st["faults_detected"] or not spec_ticks \
+                or st["spec_aborts"] \
+                or st["kv_pages_alloc"] != st["kv_pages_freed"] \
+                or len(spec_ticks) != st["spec_ticks"]:
+            fail(f"{what}: requests {bad} incomplete, faults "
+                 f"{st['faults_detected']}, {len(spec_ticks)} spec ticks "
+                 f"({st['spec_ticks']} counted, {st['spec_aborts']} "
+                 f"aborted), pages {st['kv_pages_alloc']} / "
+                 f"{st['kv_pages_freed']}")
+        for k_eff, budgets, commit in commits:
+            live = budgets > 0
+            if (commit[live] < 1).any() or (commit[live] > k_eff + 1).any():
+                fail(f"{what}: committed {commit} at k_eff {k_eff}")
+        rows = sum(int((b > 0).sum()) for _, b, _ in commits)
+        committed = sum(int(c.sum()) for _, _, c in commits)
+        streams = [r.out_tokens for r in reqs]
+
+        twin = _eager_twin(base, speculative=spec)
+        twin_reqs = _requests(cfg.vocab, seed)
+        t0 = time.perf_counter()
+        twin.generate(twin_reqs, fmt_override="mxint8")
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        _check_same_streams(what, twin_reqs, reqs)
+        tst = twin.stats()
+        if [tst[k] for k in ("spec_ticks", "spec_accepted")] != \
+                [st[k] for k in ("spec_ticks", "spec_accepted")]:
+            fail(f"{what}: the eager twin accepted differently")
+
+        before = eng.stats()
+        draft_s.clear()
+        again = _requests(cfg.vocab, seed)
+        wall = _timed_wave(eng, again, "mxint8")
+        after = eng.stats()
+        if [r.out_tokens for r in again] != streams \
+                or after["graph_captures"] != before["graph_captures"]:
+            fail(f"{what}: a wave of known keys gave other streams or "
+                 "captured")
+        strace = [t for t in eng.tick_trace if t["draft_execs"]]
+        tick_ms = [1e3 * t["wall_s"] for t in strace]
+        d_ms = [1e3 * x for x in draft_s]
+        if len(d_ms) != len(tick_ms):
+            fail(f"{what}: {len(d_ms)} bursts for {len(tick_ms)} spec "
+                 "ticks")
+        v_ms = [t - d for t, d in zip(tick_ms, d_ms)]
+        per_draft = [1e3 * x / t["draft_execs"]
+                     for x, t in zip(draft_s, strace)]
+    finally:
+        engine_mod.spec_accept_counts = accept
+    plain = _requests(cfg.vocab, seed)
+    pwall = _timed_wave(base, plain, "mxint8")
+    pure = "pure decode" if paged else "decode"
+    pick = (lambda t: t["decode"] and not t["prefill_chunks"]) if paged \
+        else (lambda t: t["decode"] and not t["prefill_tokens"])
+    eq, total, first = _agreement(streams, plain_streams)
+    if [r.out_tokens for r in plain] != plain_streams:
+        fail(f"{what}: the plain graph wave changed its streams")
+    log(f"{what}: acceptance {st['spec_acceptance_rate']:.3f} "
+        f"({st['spec_accepted']} accepted, {st['spec_rejected']} "
+        f"rejected), {st['spec_ticks']} spec ticks of {st['ticks']} "
+        f"decode-carrying ticks, {committed / rows:.2f} tokens per live "
+        f"slot per spec tick; graph == eager; launches {mm}"
+        f"{' ' + str(at) if paged else ''}; captures "
+        f"{st['graph_captures']} ({st['graph_capture_s']:.3f} s)")
+    log(f"{what}: spec tick wall median {np.median(tick_ms):.2f} ms "
+        f"({min(tick_ms):.2f}-{max(tick_ms):.2f}, n {len(tick_ms)}) = "
+        f"drafts {np.median(d_ms):.2f} ms ({np.median(per_draft):.2f} ms "
+        f"per draft step) + verify and commit {np.median(v_ms):.2f} ms; "
+        f"plain {pure} tick {_tick_wall(base.tick_trace, pick)}; wave "
+        f"{MAX_NEW * N_REQ / wall:.1f} tok/s speculative vs "
+        f"{MAX_NEW * N_REQ / pwall:.1f} plain (graph, same trees), "
+        f"{MAX_NEW * N_REQ / t_eager:.1f} eager speculative")
+    log(f"{what}: streams vs plain mxint8 decode: {eq}/{total} tokens "
+        f"equal, {sum(f is None for f in first)}/{len(first)} streams "
+        f"equal; first differing position per stream {first}")
+
+    fi = FaultInjector(poison_logits={t: None for t in range(4096)},
+                       poison_fmt="mxint4")
+    sick = _twin(base, speculative=spec, fault_injector=fi)
+    sick_reqs = _requests(cfg.vocab, seed)
+    sick.generate(sick_reqs, fmt_override="mxint8")
+    sst = sick.stats()
+    if any(r.status.value != "completed" for r in sick_reqs) \
+            or sst["spec_aborts"] != 1 or sst["spec_ticks"] \
+            or sst["quarantined_formats"] != ["mxint4"] \
+            or sst["fmt_escalations"] \
+            or sst["kv_pages_alloc"] != sst["kv_pages_freed"] \
+            or [r.out_tokens for r in sick_reqs] != plain_streams:
+        fail(f"{what}, every draft NaN: statuses "
+             f"{[r.status.value for r in sick_reqs]}, aborts "
+             f"{sst['spec_aborts']}, spec ticks {sst['spec_ticks']}, "
+             f"quarantined {sst['quarantined_formats']}, escalations "
+             f"{sst['fmt_escalations']}, or streams other than plain")
+    log(f"{what}, every draft NaN: the first burst aborted, mxint4 "
+        f"quarantined, the wave finished on plain decode with the plain "
+        f"streams; faults {sst['faults_detected']}")
+    del eng, twin, sick
+    torch.cuda.empty_cache()
+    log(f"speculative phase, {label}: {time.perf_counter() - t_phase:.1f} s")
+    return {**mm, **at}
+
+
+def phase_preemption(peng, cfg, seed: int):
+    """The paged graph engine's preemption at mxint8: an engine on the
+    paged phase's trees serves the wave once (every key captured; its
+    streams are the uninterrupted wave's), then again with a preemption
+    triggered at the first tick from 4 on that leaves a slot mid-prefill
+    and others decoding: a snapshot at the next tick boundary. A fresh
+    engine resumes it to the uninterrupted streams (pages balanced across
+    both engines, launches as the structure predicts); then the original
+    engine resumes the same snapshot with its graphs: the same streams and
+    no new capture. Logs snapshot bytes, save seconds, and resume seconds
+    up to the first tick (fresh: its first capture; original: its first
+    replay). Returns the fresh resume's launches."""
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.runtime.fault import FaultInjector, PreemptionGuard
+
+    class Preempt(FaultInjector):
+        """Triggers at the first tick from 4 on after which a request is
+        still mid-prefill (each tick runs one chunk of it: its chunks so
+        far, this tick's included, do not cover its prompt) while another
+        decodes."""
+        reqs = chunk = None
+        chunks: dict = {}
+
+        def maybe_preempt(self, tick, guard):
+            filling = [r for r in self.reqs if r.status.value == "running"
+                       and not r.out_tokens]
+            for r in filling:
+                self.chunks[r.rid] = self.chunks.get(r.rid, 0) + 1
+            if self.preempt_at is None and tick >= 4 and any(
+                    self.chunks[r.rid] * self.chunk < r.prompt.size
+                    for r in filling) and any(
+                    r.status.value == "running" and r.out_tokens
+                    for r in self.reqs):
+                self.preempt_at = tick
+            super().maybe_preempt(tick, guard)
+
+    def first_tick_timer(eng, t_start):
+        """Seconds from ``t_start`` to the end of ``eng``'s next graph
+        tick (synchronized), filled in when it runs."""
+        run, out = eng._graphs.run, {}
+
+        def timed(key, step):
+            replays = eng._graphs.replays
+            logits = run(key, step)
+            if not out:
+                torch.cuda.synchronize()
+                out["s"] = time.perf_counter() - t_start[0]
+                out["replay"] = eng._graphs.replays > replays
+            return logits
+        eng._graphs.run = timed
+        return out
+
+    t_phase = time.perf_counter()
+    fmt = "mxint8"
+    eng = _twin(peng)
+    want = _requests(cfg.vocab, seed)
+    eng.generate(want, fmt_override=fmt)
+    want = [r.out_tokens for r in want]
+    with tempfile.TemporaryDirectory() as tmp:
+        fi = Preempt()
+        reqs = _requests(cfg.vocab, seed)
+        fi.reqs, fi.chunk, fi.chunks = reqs, eng.prefill_chunk, {}
+        eng._fault_injector = fi
+        save, saved = eng._save_snapshot, []
+
+        def timed_save(*a):
+            t0 = time.perf_counter()
+            path = save(*a)
+            saved.append(time.perf_counter() - t0)
+            return path
+        eng._save_snapshot = timed_save
+        guard = PreemptionGuard()
+        eng.generate(reqs, fmt_override=fmt, guard=guard, snapshot_dir=tmp)
+        path = eng.last_snapshot
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        with open(os.path.join(path, "manifest.json")) as f:
+            meta = json.load(f)["meta"]
+        if not guard.preempted or meta["filling"] is None \
+                or all(r.done for r in reqs):
+            fail(f"preemption: preempted {guard.preempted} at tick "
+                 f"{fi.preempt_at}, mid-prefill rid {meta['filling']}")
+        eng._fault_injector = None
+
+        fresh = _twin(peng)
+        mx_matmul.reset_launches()
+        pa.reset_launches()
+        t_start = [time.perf_counter()]
+        fresh_first = first_tick_timer(fresh, t_start)
+        done = fresh.resume(tmp)
+        torch.cuda.synchronize()
+        t_fresh = time.perf_counter() - t_start[0]
+        counts = {**mx_matmul.launches, **pa.launches}
+        st = fresh.stats()
+        _check_launches("preemption: the fresh resume", fresh.tick_trace,
+                        cfg.n_layers, {k: counts[k] for k in (
+                            "mx_matmul", "mx_matmul_int4")}, counts)
+        if [r.out_tokens for r in done] != want \
+                or any(r.status.value != "completed" for r in done) \
+                or st["kv_pages_alloc"] != st["kv_pages_freed"] \
+                or st["resumes"] != 1:
+            fail(f"preemption: the fresh engine's resume ended "
+                 f"{[r.status.value for r in done]} with pages "
+                 f"{st['kv_pages_alloc']} / {st['kv_pages_freed']}, or "
+                 "streams other than the uninterrupted wave's")
+
+        captures = eng.stats()["graph_captures"]
+        t_start[0] = time.perf_counter()
+        own_first = first_tick_timer(eng, t_start)
+        again = eng.resume(tmp)
+        torch.cuda.synchronize()
+        t_own = time.perf_counter() - t_start[0]
+        ost = eng.stats()
+        if [r.out_tokens for r in again] != want \
+                or ost["graph_captures"] != captures \
+                or ost["kv_pages_alloc"] != ost["kv_pages_freed"] \
+                or not own_first.get("replay"):
+            fail(f"preemption: the original engine's resume gave other "
+                 f"streams, captured {ost['graph_captures'] - captures} "
+                 f"graph(s), or its first tick was not a replay")
+    log(f"preemption: at tick {fi.preempt_at} (rid {meta['filling']} "
+        f"mid-prefill at {meta['fill_cursor']}, active "
+        f"{meta['active']} (rid per slot), {len(meta['pending'])} queued); "
+        f"snapshot {nbytes / 1e9:.3f} GB saved in {saved[0]:.2f} s; fresh "
+        f"engine: resume to its first tick {fresh_first['s']:.2f} s (a "
+        f"capture), the wave in {t_fresh:.2f} s, {st['graph_captures']} "
+        f"captures; the original engine: resume to its first replayed tick "
+        f"{own_first['s']:.2f} s, the wave in {t_own:.2f} s, no new "
+        f"capture; both equal the uninterrupted wave; pages "
+        f"{st['kv_pages_alloc']} / {st['kv_pages_freed']}; launches "
+        f"{counts}; {time.perf_counter() - t_phase:.1f} s")
+    del eng, fresh
+    torch.cuda.empty_cache()
+    return counts
 
 
 def phase_serve_walls(seed: int):
@@ -2414,29 +2929,42 @@ def main() -> int:
     _draw_cost(args.seed)
     if args.layers != cfg.n_layers:
         dense_cfg = qwen3_4b(args.layers)
-        launches, _ = phase_serving(dense_cfg, build_anchor(dense_cfg,
-                                                            args.seed),
-                                    args.seed)
+        launches, dense_streams, dense_eng = phase_serving(
+            dense_cfg, build_anchor(dense_cfg, args.seed), args.seed)
         streams = None
     else:
-        launches, streams = phase_serving(cfg, anchor, args.seed)
+        dense_cfg = cfg
+        launches, streams, dense_eng = phase_serving(cfg, anchor, args.seed)
+        dense_streams = streams
     torch.cuda.empty_cache()
     # B1/B2 launches: the dense waves' and the paged waves' (prefill chunks,
-    # mixed and pure decode ticks), greedy, sampled and chaos; B3/B4: the
-    # paged waves'
-    for k, v in phase_paged_serving(cfg, anchor, args.seed, streams).items():
+    # mixed and pure decode ticks), greedy, sampled, chaos, speculative and
+    # resumed; B3/B4: the paged waves'
+    paged, paged_eng, paged_streams = phase_paged_serving(cfg, anchor,
+                                                          args.seed, streams)
+    for k, v in paged.items():
         launches[k] = launches.get(k, 0) + v
+    for phase_cfg, label, eng, plain in (
+            (dense_cfg, "dense", dense_eng, dense_streams["mxint8"]),
+            (cfg, "paged", paged_eng, paged_streams["mxint8"])):
+        for k, v in phase_speculative(label, eng, phase_cfg, args.seed,
+                                      plain).items():
+            launches[k] = launches.get(k, 0) + v
+    for k, v in phase_preemption(paged_eng, cfg, args.seed).items():
+        launches[k] = launches.get(k, 0) + v
+    del dense_eng, paged_eng
+    torch.cuda.empty_cache()
     counts = _quant_launches()
     # make_anchor of the dense phase's own anchor when it is cut in depth (7
-    # leaves, one B6 launch each); six format builds — the dense phase's
+    # leaves, one B6 launch each); five format builds — the dense phase's
     # fused, unfused and poisoned engines at mxint4, the poisoned one's
-    # mxint6, the paged engine's mxint4, and its mxint6 when chaos wave B
-    # escalates — one B5 launch per leaf each (the sampling and chaos
-    # engines serve their phase engine's trees); the mxint8 builds are the
-    # anchor itself and launch nothing
+    # mxint6 and the paged engine's mxint4 — one B5 launch per leaf each
+    # (the sampling, chaos, speculative and preemption engines serve their
+    # phase engine's trees, and chaos wave B no longer escalates); the
+    # mxint8 builds are the anchor itself and launch nothing
     n_anchors = 0 if args.layers == cfg.n_layers else 1
     want = {"mx_quantize": PROJ_PER_LAYER * n_anchors,
-            "ss_convert": PROJ_PER_LAYER * 6, "fake_quant": 0}
+            "ss_convert": PROJ_PER_LAYER * 5, "fake_quant": 0}
     log(f"qwen3-4b serving phases (every format build): "
         f"launches {counts} (want {want})")
     if counts != want:

@@ -198,8 +198,12 @@ __device__ __forceinline__ int small_div(int a, float inv_b) {
   return __float2int_rz((a + 0.5f) * inv_b);
 }
 
-// acc / l as acc * (1 / l), or exact zeros for a row that saw no live
-// position.
+// The factor of acc / l as acc * (1 / l), or 0 for a row whose sum is not
+// positive: a row that saw no live position, or one whose live keys hold
+// NaN (the sum is NaN, and NaN > 0 is false). A factor of 0 marks the row
+// dead, and its epilogue selects exact zeros (the Pallas kernels' where(l >
+// 0, out, 0)); it never multiplies by the 0, since 0 * NaN is NaN. For a
+// live row 1 / l is far from 0: l is at most the row's key count.
 __device__ __forceinline__ float inv_sum(float l) {
   return l > 0.0f ? 1.0f / fmaxf(l, 1e-30f) : 0.0f;
 }
@@ -209,6 +213,13 @@ __device__ __forceinline__ void scale4(float4& v, float f) {
   v.y *= f;
   v.z *= f;
   v.w *= f;
+}
+
+// v * f, or exact zeros where f is 0 (a dead row, inv_sum).
+__device__ __forceinline__ float4 normalized4(float4 v, float f) {
+  if (f == 0.0f) return make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  scale4(v, f);
+  return v;
 }
 
 __device__ __forceinline__ void axpy(float4& acc, float4 v, float e) {
@@ -426,10 +437,9 @@ __device__ __forceinline__ void merge_splits(float* out, const int64_t* row_out,
 #pragma unroll
   for (int k = 0; k < kCols; ++k) {
     const int idx = e0 + k * kThreads;
-    if (idx < E) {
-      scale4(A[k], inv_sum(L[k]));
-      *reinterpret_cast<float4*>(out + row_out[r[k]] + idx % d4 * 4) = A[k];
-    }
+    if (idx < E)
+      *reinterpret_cast<float4*>(out + row_out[r[k]] + idx % d4 * 4) =
+          normalized4(A[k], inv_sum(L[k]));
   }
 }
 
@@ -678,8 +688,9 @@ paged_attention_kernel(Args a) {
         const float f = single ? inv_sum(st.l[i]) : 1.0f;
 #pragma unroll
         for (int n = 0; n < D / 8; ++n)
-          *reinterpret_cast<float2*>(dst + n * 8 + 2 * t4) =
-              make_float2(st.acc[n][2 * i] * f, st.acc[n][2 * i + 1] * f);
+          *reinterpret_cast<float2*>(dst + n * 8 + 2 * t4) = f == 0.0f
+              ? make_float2(0.0f, 0.0f)
+              : make_float2(st.acc[n][2 * i] * f, st.acc[n][2 * i + 1] * f);
         if (!single && t4 == 0) {
           pml[(2 * s) * rows + r] = st.m[i];
           pml[(2 * s + 1) * rows + r] = st.l[i];
@@ -739,10 +750,9 @@ paged_attention_kernel(Args a) {
           axpy(A, *reinterpret_cast<const float4*>(mg + (w * rw + r) * kMg
                                                    + d),
                mg_m[w * rw + r]);
-      scale4(A, row_f[r]);
       *reinterpret_cast<float4*>(single ? a.out + row_out[r] + d
                                  : pacc + s * stride_s + (int64_t)r * D + d)
-          = A;
+          = normalized4(A, row_f[r]);
     }
   }
   if (single) return;

@@ -7,13 +7,15 @@ it is dequantized at its point of use. MF-QAT training fake-quantizes the
 stacked projection leaves before the layer loop
 (``models/transformer.py::fake_quant_blocks``), so ``dense`` sees them
 already quantized. Weights are (d_in, d_out) with MX blocks along d_in, the
-contraction axis.
+contraction axis. ``spec_accept_counts`` is the speculative verify tick's
+acceptance rule.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.serve.packed_params import densify_leaf, is_packed_leaf
@@ -77,3 +79,27 @@ def is_paged_cache(cache) -> bool:
     table): its pool leaves have no batch axis, so slot surgery goes
     through the block table instead."""
     return isinstance(cache, dict) and "block_table" in cache
+
+
+def spec_accept_counts(drafts, anchor_toks, budgets) -> np.ndarray:
+    """Per-row commit counts of a speculative verify tick (host side).
+
+    ``drafts`` (B, k): the draft rung's greedy tokens of the burst.
+    ``anchor_toks`` (B, k+1): the argmax of ``ModelApi.verify_step``'s
+    logits — lane ``i`` is the verify format's own next token after input
+    token ``i`` (lane 0 after the last committed token, lane ``i > 0``
+    after draft ``i-1``). A row accepts the longest prefix where
+    ``drafts[:, i] == anchor_toks[:, i]`` and commits those ``m`` tokens
+    plus the bonus token at lane ``m``, clamped to its ``budgets`` entry
+    (max_new / cache-capacity headroom; 0 for a masked or dead row).
+    Returns (B,) int64 commit counts."""
+    drafts = np.asarray(drafts)
+    anchor_toks = np.asarray(anchor_toks)
+    b, k = drafts.shape
+    if anchor_toks.shape != (b, k + 1):
+        raise ValueError(
+            f"anchor_toks {anchor_toks.shape} vs drafts {drafts.shape}")
+    hit = drafts == anchor_toks[:, :k]
+    # the longest all-True prefix per row: the first miss (k if none)
+    m = np.where(hit.all(axis=1), k, hit.argmin(axis=1))
+    return np.minimum(m + 1, np.asarray(budgets)).astype(np.int64)

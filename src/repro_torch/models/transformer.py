@@ -11,7 +11,9 @@ Entry points (``ModelApi``): ``train_loss`` (the MF-QAT training loss, with
 autograd), ``prefill``, ``prefill_slot`` (one request into one slot of the
 batched cache), ``prefill_chunk`` / ``prefill_chunk_slot`` (one prompt chunk
 at a cursor), ``serve_step`` (one token for every slot), ``mixed_step``
-(decode rows and one prompt chunk in one step), ``with_serving`` /
+(decode rows and one prompt chunk in one step), ``verify_step`` (the same
+step with logits at every query position: the speculative verify),
+``with_serving`` /
 ``with_qmm`` (the same entry points with a dequant-GEMM hook and a paged
 read path, ``attn_impl``).
 
@@ -238,6 +240,8 @@ class ModelApi:
     #                               start_pos) -> (logits (V,), cache, len)
     mixed_step: Callable          # (params, batch{tokens (B,C), q_len (B,)},
     #                               cache, cache_len) -> (logits (B,V), cache)
+    verify_step: Callable         # mixed_step's batch -> (logits (B,C,V),
+    #                               cache): every query position's logits
     with_qmm: Callable            # (qmm) -> ModelApi routing packed leaves
     #                               through the dequant-GEMM hook, keeping
     #                               this api's attn_impl
@@ -402,6 +406,26 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         return _head_logits(ctx, params, cfg,
                             _last_hidden(hidden, q_len)), cache
 
+    @torch.no_grad()
+    def verify_step(params, batch, cache, cache_len):
+        """One speculative-verify tick: ``mixed_step``'s contract with
+        logits at every query position, (B, C, V). The K/V of all C tokens
+        land at each row's cursor before attention reads them, so a verify
+        overwrites what the draft steps wrote there: each attempt is a
+        function of the committed cache, and a guard replay is safe. Pad
+        lanes past a row's q_len give meaningless logits."""
+        tokens = batch["tokens"]
+        q_len = batch["q_len"].to(torch.int32)
+        b, c = tokens.shape
+        x = _embed(params, cfg, tokens)
+        positions = cache_len[:, None] + torch.arange(c, device=x.device)
+        hidden = forward_hidden(ctx, params, cfg, x, positions, cache,
+                                cache_len, prefill=False, q_len=q_len,
+                                attn_impl=attn_impl)
+        logits = _head_logits(ctx, params, cfg,
+                              hidden.reshape(b * c, hidden.shape[-1]))
+        return logits.reshape(b, c, -1), cache
+
     def with_serving(qmm=None, attn_impl="gather"):
         return make_model(cfg, qmm, attn_impl, qat)
 
@@ -416,6 +440,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         prefill_chunk=prefill_chunk,
         prefill_chunk_slot=prefill_chunk_slot,
         mixed_step=mixed_step,
+        verify_step=verify_step,
         # the derived api keeps this one's attn_impl: chaining composes
         with_qmm=lambda q: make_model(cfg, q, attn_impl, qat),
         with_serving=with_serving,

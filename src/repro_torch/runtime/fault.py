@@ -2,13 +2,13 @@
 straggler monitor for the training loop, and the serving engine's chaos
 plan.
 
-The classes are the port's copies of ``repro/runtime/fault.py``'s.
-``FaultInjector`` carries every primitive of the reference's chaos plan
-but ``preempt_at``, which an engine refuses (``refuse_unported``):
-snapshot and resume are not ported yet.
+The classes are the port's copies of ``repro/runtime/fault.py``'s;
+``FaultInjector`` carries every primitive of the reference's chaos plan.
   - PreemptionGuard: SIGTERM/SIGINT -> set a flag; the train loop checks it
-    every step and checkpoints-then-exits cleanly. Re-entry resumes from
-    LATEST.
+    every step and checkpoints-then-exits cleanly, and the serving engine
+    at every tick boundary, where it snapshots the wave and returns it
+    (``ElasticEngine.generate(guard=, snapshot_dir=)``, then
+    ``resume()``). Re-entry resumes from LATEST.
   - Watchdog: a step-duration heartbeat; if a step exceeds `timeout_s`, the
     registered callback fires. ``on_timeout`` runs on the watchdog's daemon
     thread, never on the caller's; the default callback records a
@@ -177,7 +177,9 @@ class FaultInjector:
       - ``raise_in_step``: ticks whose decode or mixed step raises
         ``InjectedFault`` before dispatch (transient: the retry runs clean).
       - ``cancel_at``: {tick: rid} — cancel that request at the tick.
-      - ``preempt_at``: the reference's preemption tick; refused here.
+      - ``preempt_at``: the tick at which to ``trigger()`` the guard passed
+        to ``generate`` — mid-tick, so the engine acts on it at the next
+        tick boundary.
     """
     poison_logits: Dict[int, Optional[int]] = \
         dataclasses.field(default_factory=dict)
@@ -189,13 +191,6 @@ class FaultInjector:
     cancel_at: Dict[int, int] = dataclasses.field(default_factory=dict)
     events: List[dict] = dataclasses.field(default_factory=list, init=False)
     _fired: set = dataclasses.field(default_factory=set, init=False)
-
-    def refuse_unported(self) -> None:
-        """Raise ``NotImplementedError`` if the plan sets ``preempt_at``."""
-        if self.preempt_at is not None:
-            raise NotImplementedError(
-                f"FaultInjector(preempt_at={self.preempt_at!r}): preemption "
-                "snapshots and resume() are not ported yet (ROADMAP A.3)")
 
     def _fmts(self) -> Optional[FrozenSet[str]]:
         if self.poison_fmt is None:
@@ -254,6 +249,14 @@ class FaultInjector:
             self._record("poison_pool", tick=tick, page=page)
             return page
         return None
+
+    def maybe_preempt(self, tick: int, guard) -> None:
+        """Triggers ``guard`` once, at tick ``preempt_at``."""
+        if self.preempt_at == tick and guard is not None \
+                and ("preempt", tick) not in self._fired:
+            self._fired.add(("preempt", tick))
+            self._record("preempt", tick=tick)
+            guard.trigger()
 
     def cancel_rid(self, tick: int) -> Optional[int]:
         """The rid to cancel at this tick (None = no-op)."""

@@ -68,21 +68,43 @@ poisoned logits, a NaN-filled pool page (written in place, before the
 tick), failed page allocations (they take the real exhaustion paths),
 step crashes and cancellations.
 
-On the card each decode tick (``serve_step``) and each mixed tick
-(``mixed_step``) runs as one CUDA graph (``serve/tick_graph.py``): the
-first tick of each (entry point, format, KV layout, chunk width) runs
-eagerly and is then captured, and every later one is a replay — the
-counterpart of the reference's one jitted executable per tick. What a
-captured tick reads and writes keeps its storage for the engine's
-lifetime: the KV cache (zeroed at each wave), ``cache_len``, the tokens,
-the block table, one token / ``q_len`` buffer per mixed-tick width, and
-the slots' keys, temperatures and top-p values. A sampled tick's batch
-draw runs as a CUDA graph of its own, after the tick's. Prefill
-executables run eagerly.
+Preemption (``generate(guard=, snapshot_dir=)``): a triggered
+``PreemptionGuard`` (a signal, or the injector's ``preempt_at`` mid-tick)
+is acted on at the next tick boundary, before any executable runs: the
+wave's whole state goes to ``snapshot_dir`` (``checkpoint/io.py``: the KV
+leaves, lengths, tokens, keys and sampling lanes, the block-table mirror,
+each request's prompt and tokens; queues, cursors, counters, statuses and
+quarantine in the manifest) and ``generate`` returns the wave incomplete.
+``resume(snapshot_dir)`` on an identically configured engine — a fresh
+one, or this one with its graphs captured — copies the arrays into the
+engine's buffers in place and finishes the wave with the streams of an
+uninterrupted run.
+
+Self-speculative decoding (``speculative=SpecConfig(draft_fmt, k)``): a
+pure decode tick drafts ``k_eff`` greedy tokens at ``draft_fmt`` (the same
+anchor through Slice-and-Scale, the same cache) against a draft cursor of
+its own, then one guarded ``verify_step`` at the pinned format scores the
+``k_eff + 1`` positions of every slot; each slot commits its longest
+matching draft prefix plus the verify's bonus token, and on the paged
+layout hands back the pages past its new frontier. Only verify-format
+argmaxes are committed, so the streams are plain pinned-format decode's at
+any acceptance rate. Greedy only.
+
+On the card each decode tick (``serve_step``), each mixed tick
+(``mixed_step``), each draft step and each verify runs as one CUDA graph
+(``serve/tick_graph.py``): the first tick of each (entry point, format,
+KV layout, width) runs eagerly and is then captured, and every later one
+is a replay — the counterpart of the reference's one jitted executable
+per tick. What a captured tick reads and writes keeps its storage for the
+engine's lifetime: the KV cache (zeroed at each wave, written in place by
+``resume``), ``cache_len``, the tokens, the block table, one token /
+``q_len`` buffer per mixed-tick and per verify width, the draft cursor and
+tokens, and the slots' keys, temperatures and top-p values. A sampled
+tick's batch draw runs as a CUDA graph of its own, after the tick's.
+Prefill executables run eagerly.
 
 Left out of this slice (each refused with ``NotImplementedError`` naming
-its ROADMAP item): speculative decoding, preemption snapshots and
-``resume()``, SLO tiers (``admission_order="slo"``) and tensor
+its ROADMAP item): SLO tiers (``admission_order="slo"``) and tensor
 parallelism.
 """
 from __future__ import annotations
@@ -90,23 +112,25 @@ from __future__ import annotations
 import dataclasses
 import enum
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core.anchor import AnchorModel, convert, materialize
 from repro_torch.core.formats import get_format
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import mx_matmul, paged_attention
 from repro_torch.kernels.dispatch import make_qmm
 from repro_torch.kernels.paged_attention import pages_read, pages_read_mq
+from repro_torch.models.common import spec_accept_counts
 from repro_torch.models.transformer import ModelApi
 from repro_torch.runtime.fault import FaultInjector, InjectedFault
 from repro_torch.serve.packed_params import (anchor_block_size,
                                              make_packed_params,
                                              weight_stream_bytes)
-from repro_torch.serve.policy import FormatPolicy
+from repro_torch.serve.policy import FormatPolicy, SpecConfig
 from repro_torch.serve.sampling import (fold_in, prng_key, sample_batch,
                                         split)
 from repro_torch.serve.tick_graph import TickGraphs
@@ -166,21 +190,26 @@ class Request:
 
 
 _UNSUPPORTED = {
-    "speculative": (None, "speculative decoding is not ported yet "
-                          "(ROADMAP A.4)"),
     "mesh": (None, "tensor-parallel serving is not ported yet "
                    "(ROADMAP A.9)"),
 }
 
+# A graph key's kind -> the ModelApi entry point it runs: a draft step is
+# a serve_step against the draft cursor and tokens, keyed apart from the
+# committed ones'.
+_ENTRY = {"draft_step": "serve_step"}
+
 
 @dataclasses.dataclass
 class _Drain:
-    """What one decode or mixed attempt brings back in its one host copy:
-    every row's next token and finite flag, and a mixed tick's completing
-    admission's first token; plus, when sampling, the advanced keys that
-    stay on the device until the guard settles."""
-    tokens: torch.Tensor                # (B,) next tokens, on the device
-    drained: np.ndarray                 # (B,) the same, on the host
+    """What one decode, mixed or verify attempt brings back in its one host
+    copy: every row's next token (a verify: every lane's argmax) and finite
+    flag, and a mixed tick's completing admission's first token; plus, when
+    sampling, the advanced keys that stay on the device until the guard
+    settles."""
+    tokens: Optional[torch.Tensor]      # (B,) next tokens, on the device
+    drained: np.ndarray                 # (B,) the same, on the host; a
+    #                                     verify's (B, C) lane argmaxes
     finite: np.ndarray                  # (B,) 1 where the row is finite
     first: Optional[int] = None         # the completing admission's token
     keys: Optional[torch.Tensor] = None       # (B, 2) advanced slot keys
@@ -214,10 +243,12 @@ class ElasticEngine:
     ``generate(greedy=False)`` (temperature <= 0 decodes greedily);
     ``bucket_prompts=False`` prefills each prompt (and final chunk) at its
     own length instead of a power-of-two bucket; ``admission_order`` is
-    ``"fifo"`` (``"slo"`` is refused). ``cuda_graphs`` (None = on where the
-    device is CUDA) runs decode and mixed ticks, and a sampled tick's
-    draw, as CUDA graphs; False runs every launch eagerly, as
-    ``jax.disable_jit`` does for the reference.
+    ``"fifo"`` (``"slo"`` is refused). ``speculative`` (a ``SpecConfig``)
+    turns pure decode ticks self-speculative (module docstring).
+    ``cuda_graphs`` (None = on where the device is CUDA) runs decode,
+    mixed, draft and verify ticks, and a sampled tick's draw, as CUDA
+    graphs; False runs every launch eagerly, as ``jax.disable_jit`` does
+    for the reference.
     """
 
     def __init__(self, api: ModelApi, anchor: AnchorModel, *,
@@ -231,6 +262,7 @@ class ElasticEngine:
                  scheduler: Optional[str] = None, logit_guard: bool = True,
                  max_step_retries: int = 2,
                  fault_injector: Optional[FaultInjector] = None,
+                 speculative: Optional[SpecConfig] = None,
                  admission_order: str = "fifo",
                  cuda_graphs: Optional[bool] = None, device="cuda",
                  **unsupported):
@@ -253,7 +285,6 @@ class ElasticEngine:
                 raise TypeError("fault_injector must be a repro_torch."
                                 "runtime.fault.FaultInjector, got "
                                 f"{type(fault_injector).__name__}")
-            fault_injector.refuse_unported()
         self.logit_guard = logit_guard
         self.max_step_retries = max_step_retries
         self._fault_injector = fault_injector
@@ -331,6 +362,33 @@ class ElasticEngine:
                 "scheduler='mixed' coalesces the prefill chunk into the "
                 "decode batch; set prefill_chunk (or 'auto')")
         self.scheduler = scheduler
+        if speculative is not None:
+            if getattr(api, "verify_step", None) is None:
+                raise ValueError(
+                    f"model family {cfg.family!r} has no verify_step entry "
+                    "point; speculative decoding needs the multi-query "
+                    "mixed-attention machinery (pure-attention stacks only)")
+            if cfg.family != "dense":
+                raise ValueError(
+                    "speculative decoding requires a pure-attention text "
+                    f"stack; family {cfg.family!r} cannot rewind recurrent "
+                    "state (or prepends vision embeds)")
+            if speculative.k < 1:
+                raise ValueError(
+                    f"SpecConfig.k ({speculative.k}) must be >= 1")
+            if speculative.draft_fmt == DENSE_BF16:
+                raise ValueError(
+                    "draft_fmt='bf16' drafts at anchor precision or above — "
+                    "drafting must be cheaper than verifying")
+        self.speculative = speculative
+        self._spec_ticks = 0        # decode ticks that ran draft + verify
+        self._spec_accepted = 0     # draft tokens committed to streams
+        self._spec_rejected = 0     # draft tokens rolled back
+        self._spec_aborts = 0       # bursts abandoned (draft fault, pages)
+        self._snapshots_saved = 0
+        self._resumes = 0
+        self._snap_step = 0
+        self.last_snapshot: Optional[str] = None
 
         # The serving entry points with both knobs baked in: the packed
         # contract's GEMM hook, and the paged read path.
@@ -366,6 +424,9 @@ class ElasticEngine:
         self._cache_len: Optional[torch.Tensor] = None
         self._tokens: Optional[torch.Tensor] = None
         self._mixed_bufs: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._verify_bufs: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._draft_len: Optional[torch.Tensor] = None   # the draft cursor
+        self._draft_tok: Optional[torch.Tensor] = None   # and tokens
 
         itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
         kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * itemsize
@@ -447,34 +508,54 @@ class ElasticEngine:
             self._tokens.zero_()
         return self._cache, self._cache_len, self._tokens
 
-    def _mixed_batch(self, width: int) -> Dict[str, torch.Tensor]:
-        """The mixed tick's inputs at chunk width ``width``: tokens (B,
+    def _batch_bufs(self, bufs: Dict[int, Dict[str, torch.Tensor]],
+                    width: int) -> Dict[str, torch.Tensor]:
+        """A multi-query tick's inputs at width ``width``: tokens (B,
         width) and q_len (B,), one pair per width for the engine's
         lifetime."""
-        if width not in self._mixed_bufs:
-            self._mixed_bufs[width] = {
+        if width not in bufs:
+            bufs[width] = {
                 "tokens": torch.zeros((self.slots, width), dtype=torch.int32,
                                       device=self.device),
                 "q_len": torch.zeros(self.slots, dtype=torch.int32,
                                      device=self.device)}
-        return self._mixed_bufs[width]
+        return bufs[width]
 
-    def _tick(self, entry: str, fmt: str, width: int, batch, cache,
+    def _mixed_batch(self, width: int) -> Dict[str, torch.Tensor]:
+        """The mixed tick's inputs at chunk width ``width``."""
+        return self._batch_bufs(self._mixed_bufs, width)
+
+    def _verify_batch(self, width: int) -> Dict[str, torch.Tensor]:
+        """The verify's inputs at width ``width`` = k_eff + 1."""
+        return self._batch_bufs(self._verify_bufs, width)
+
+    def _draft_state(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The draft cursor (B,) and tokens (B, 1), kept for the engine's
+        lifetime: a burst copies the committed ``cache_len`` / tokens in
+        and advances these, so the committed ones (which the decode
+        graphs read) never move during a burst."""
+        if self._draft_len is None:
+            self._draft_len = torch.zeros_like(self._cache_len)
+            self._draft_tok = torch.zeros_like(self._tokens)
+        return self._draft_len, self._draft_tok
+
+    def _tick(self, kind: str, fmt: str, width: int, batch, cache,
               cache_len) -> torch.Tensor:
-        """The logits of one decode (``entry="serve_step"``) or mixed
-        (``"mixed_step"``) tick at ``fmt``: eager launches, or a CUDA graph
-        keyed by (entry, format, KV layout, chunk width). A graph reads the
-        weight tree where it lies: trees stay in ``_weights`` for the
-        engine's lifetime."""
+        """The logits of one decode (``kind="serve_step"``), mixed
+        (``"mixed_step"``), draft (``"draft_step"``: a ``serve_step``
+        against the draft buffers) or verify (``"verify_step"``) tick at
+        ``fmt``: eager launches, or a CUDA graph keyed by (kind, format, KV
+        layout, width). A graph reads the weight tree where it lies: trees
+        stay in ``_weights`` for the engine's lifetime."""
         weights = self.weights_for(fmt)
-        fn = getattr(self._api_for(fmt), entry)
+        fn = getattr(self._api_for(fmt), _ENTRY.get(kind, kind))
 
         def step():
             return fn(weights, batch, cache, cache_len)[0]
 
         if self._graphs is None:
             return step()
-        return self._graphs.run((entry, fmt, self.kv_layout, width), step)
+        return self._graphs.run((kind, fmt, self.kv_layout, width), step)
 
     def _alloc_pages(self, free: List[int], n: int, why: str) -> List[int]:
         """Pop ``n`` physical pages off the free list, or raise
@@ -704,9 +785,43 @@ class ElasticEngine:
             pinned = nxt
             self._ticks_replayed += 1
 
+    def _drain_tick(self, logits: torch.Tensor, admit) -> _Drain:
+        """A decode or mixed attempt's logits (B, V) drained in one host
+        copy: finite flags, the completing admission's first draw, then the
+        batch draw (``_guarded_step``)."""
+        b = self.slots
+        finite = torch.isfinite(logits).all(-1)
+        first_tok = first_key = None
+        if admit is not None and self._sampled:
+            first_tok, first_key = self._first_draw(logits[admit[0]],
+                                                    admit[1])
+        nxt, keys = self._batch_draw(logits)
+        parts = [nxt, finite.to(nxt.dtype)]
+        if first_tok is not None:
+            parts.append(first_tok)
+        host = torch.cat(parts).cpu().numpy()
+        drain = _Drain(nxt, host[:b], host[b:2 * b], keys=keys,
+                       first_key=first_key)
+        if admit is not None:
+            drain.first = int(host[2 * b]) if first_tok is not None \
+                else int(host[admit[0]])
+        return drain
+
+    def _drain_verify(self, logits: torch.Tensor) -> _Drain:
+        """A verify attempt's logits (B, C, V) drained in one host copy:
+        every lane's argmax (B, C) and each row's finite flag over all its
+        lanes."""
+        b, c = logits.shape[:2]
+        host = torch.cat([
+            torch.argmax(logits, -1).reshape(-1),
+            torch.isfinite(logits).all(-1).all(-1).to(torch.int64)]) \
+            .cpu().numpy()
+        return _Drain(None, host[:b * c].reshape(b, c), host[b * c:])
+
     def _guarded_step(self, attempt, pinned: str, consumed: List[int],
-                      tick: int, admit=None):
-        """Escalate-and-replay around one decode or mixed tick.
+                      tick: int, admit=None, verify: bool = False):
+        """Escalate-and-replay around one decode, mixed or (``verify``)
+        speculative verify tick.
 
         Every attempt is a function of the pre-tick ``(cache_len, tokens)``
         and slot keys: the caller commits the cache_len advance, the next
@@ -715,19 +830,20 @@ class ElasticEngine:
         on either layout. An ``InjectedFault`` raised before dispatch is
         retried at the same format, up to ``max_step_retries`` times, then
         re-raised. ``admit``, (row, request), names a mixed tick's completing
-        admission, whose first token is drawn here too. Returns ``(drain,
-        cache, pinned, dead_rows, execs)``; ``dead_rows`` is non-empty only
-        at the anchor rung.
+        admission, whose first token is drawn here too. A verify attempt
+        overwrites every draft-written position before it attends, so its
+        replay is a function of the committed state too, and never re-runs
+        the drafts. Returns ``(drain, cache, pinned, dead_rows, execs)``;
+        ``dead_rows`` is non-empty only at the anchor rung.
 
         Under CUDA graphs an attempt's logits are a graph's static output,
         which the next replay of any tick graph may overwrite: each attempt
-        drains them here — finite flags, the admission's first draw, then
-        the batch draw (read off the injector's poisoned copy when it
-        fires) — in one host copy before the next one runs.
+        drains them here (``_drain_tick`` / ``_drain_verify``, read off the
+        injector's poisoned copy when it fires) in one host copy before the
+        next one runs.
         """
         execs = 0
         retries = 0
-        b = self.slots
         while True:
             try:
                 logits, cache = attempt(pinned)
@@ -739,21 +855,8 @@ class ElasticEngine:
                 self._ticks_replayed += 1
                 continue
             execs += 1
-            finite = torch.isfinite(logits).all(-1)
-            first_tok = first_key = None
-            if admit is not None and self._sampled:
-                first_tok, first_key = self._first_draw(logits[admit[0]],
-                                                        admit[1])
-            nxt, keys = self._batch_draw(logits)
-            parts = [nxt, finite.to(nxt.dtype)]
-            if first_tok is not None:
-                parts.append(first_tok)
-            host = torch.cat(parts).cpu().numpy()
-            drain = _Drain(nxt, host[:b], host[b:2 * b], keys=keys,
-                           first_key=first_key)
-            if admit is not None:
-                drain.first = int(host[2 * b]) if first_tok is not None \
-                    else int(host[admit[0]])
+            drain = self._drain_verify(logits) if verify \
+                else self._drain_tick(logits, admit)
             dead = [i for i in consumed if not drain.finite[i]]
             self._nonfinite_rows += len(dead)
             if not dead or not self.logit_guard:
@@ -768,7 +871,9 @@ class ElasticEngine:
     # ---- serving loop -----------------------------------------------------
     @torch.no_grad()
     def generate(self, requests: List[Request], greedy: bool = True,
-                 fmt_override: Optional[str] = None) -> List[Request]:
+                 fmt_override: Optional[str] = None, *, guard=None,
+                 snapshot_dir: Optional[str] = None,
+                 _state: Optional[dict] = None) -> List[Request]:
         """Serve requests to completion with slot-level continuous
         batching: greedy decoding, or (``greedy=False``) temperature /
         top-p draws from per-slot streams (module docstring).
@@ -784,11 +889,19 @@ class ElasticEngine:
         writes into it, and all of a slot's pages return at retire.
         Executables whose logits are consumed run under the logit guard
         (class docstring); a replay adds to the tick's ``execs``. At each
-        tick boundary, before any executable runs, cancelled and expired
+        tick boundary, before any executable runs, a triggered ``guard``
+        (a ``PreemptionGuard``) snapshots the wave to ``snapshot_dir`` (if
+        given) and returns it incomplete, then cancelled and expired
         requests retire and an injected pool poison lands. An
         ``InjectedFault`` past the step-retry budget escapes.
-        ``tick_trace`` records each tick's work.
+        ``tick_trace`` records each tick's work. ``_state`` is ``resume``'s
+        way back in; callers never pass it.
         """
+        if self.speculative is not None and not greedy:
+            raise ValueError(
+                "speculative decoding is greedy-only: the acceptance rule "
+                "compares greedy argmaxes token-for-token; build the "
+                "engine without speculative= for sampled decoding")
         self._sampled = not greedy and self.temperature > 0
         b = self.slots
         paged = self.kv_layout == "paged"
@@ -797,22 +910,41 @@ class ElasticEngine:
         window = self.api.cfg.sliding_window
         dev = self.device
         fi = self._fault_injector
-        pending = list(requests)
-        active: List[Optional[Request]] = [None] * b
-        slot_len = [0] * b              # host mirror of cache_len
-        cache, cache_len, tokens = self._wave_state()
-        pinned: Optional[str] = None    # format for this batch's lifetime
-        filling: Optional[Request] = None   # the (single) mid-prefill request
-        fill_slot, fill_cursor = -1, 0
-        wait_pages = False  # a requeued admission waits for a retire
-        tick_no = 0         # per-wave scheduler tick: keys the injector
-        if paged:
-            # page 0 is reserved scratch; allocatable pages 1..P-1
-            free_pages = list(range(self._kv_total_pages - 1, 0, -1))
-            bt = np.zeros(tuple(cache["block_table"].shape), np.int32)
+        if _state is None:
+            pending = list(requests)
+            active: List[Optional[Request]] = [None] * b
+            slot_len = [0] * b          # host mirror of cache_len
+            cache, cache_len, tokens = self._wave_state()
+            pinned: Optional[str] = None    # format for this batch's lifetime
+            filling: Optional[Request] = None   # the (single) mid-prefill
+            fill_slot, fill_cursor = -1, 0
+            wait_pages = False  # a requeued admission waits for a retire
+            elapsed0 = 0.0
+            tick_no = 0     # per-wave scheduler tick: keys the injector and
+            #                 survives snapshot / resume
+            if paged:
+                # page 0 is reserved scratch; allocatable pages 1..P-1
+                free_pages = list(range(self._kv_total_pages - 1, 0, -1))
+                bt = np.zeros(tuple(cache["block_table"].shape), np.int32)
+            else:
+                free_pages, bt = [], None
         else:
-            free_pages, bt = [], None
-        t0 = time.perf_counter()
+            # resume(): the arrays are already in the lifetime buffers
+            cache, cache_len, tokens = self._cache, self._cache_len, \
+                self._tokens
+            pending = _state["pending"]
+            active = _state["active"]
+            slot_len = _state["slot_len"]
+            pinned = _state["pinned"]
+            filling = _state["filling"]
+            fill_slot = _state["fill_slot"]
+            fill_cursor = _state["fill_cursor"]
+            wait_pages = _state["wait_pages"]
+            free_pages = _state["free_pages"]
+            bt = _state["bt"]
+            elapsed0 = _state["elapsed_s"]
+            tick_no = _state["tick_no"]
+        t0 = time.perf_counter() - elapsed0   # deadlines span resumes
         self.tick_trace = []
 
         def sync_table() -> None:
@@ -877,6 +1009,23 @@ class ElasticEngine:
         while pending or filling is not None \
                 or any(a is not None for a in active):
             t_tick = time.perf_counter()
+            # ---- tick boundary: a preemption (a signal, or the injector's
+            # mid-tick trigger) is acted on here, with nothing in flight and
+            # the host state consistent: snapshot, hand the wave back
+            if guard is not None and guard.preempted:
+                if snapshot_dir is not None:
+                    self.last_snapshot = self._save_snapshot(
+                        snapshot_dir, requests, dict(
+                            pending=pending, active=active,
+                            slot_len=slot_len, pinned=pinned,
+                            filling=filling, fill_slot=fill_slot,
+                            fill_cursor=fill_cursor, wait_pages=wait_pages,
+                            free_pages=free_pages, bt=bt,
+                            elapsed_s=time.perf_counter() - t0,
+                            tick_no=tick_no),
+                        greedy, fmt_override)
+                    self._snapshots_saved += 1
+                return requests
             # one profiler range per scheduler tick, closed by _record_tick:
             # a trace reads the card's busy share of each tick from it
             span = torch.profiler.record_function("ElasticEngine.tick")
@@ -1096,6 +1245,11 @@ class ElasticEngine:
                             filling = None
                     chunk_tok = None
 
+            # an injected preemption fires mid-tick; the guard is acted on
+            # at the next tick boundary, as a real signal is
+            if fi is not None and guard is not None:
+                fi.maybe_preempt(tick_id, guard)
+
             all_free = all(a is None for a in active)
             if all_free or (chunk_ran_alone and self.scheduler == "mixed"):
                 # No decode this tick. Under the mixed scheduler a chunk that
@@ -1164,6 +1318,179 @@ class ElasticEngine:
             if chunk_tok is not None and chunk_tok[3]:
                 consumed.append(fill_slot)
             t_dec = time.perf_counter()
+
+            # ---- speculative decode tick: k_eff draft steps at the cheap
+            # rung against the draft cursor, one guarded verify at the
+            # pinned format over the k_eff + 1 positions of every slot,
+            # commit the longest matching prefix plus the bonus token, and
+            # rewind the rest. Only on pure decode ticks, and only while the
+            # policy says drafting pays.
+            sc = self.speculative
+            spec_now = sc is not None and chunk_tok is None and bool(consumed)
+            if spec_now:
+                tot = self._spec_accepted + self._spec_rejected
+                rate = (self._spec_accepted / tot
+                        if self._spec_ticks >= sc.window and tot else None)
+                spec_now = self.policy.allow_speculation(
+                    sc.draft_fmt, pinned, rate, sc.min_acceptance)
+            if spec_now:
+                # the burst never writes past the cache (the verify's write
+                # frontier is slot_len + k_eff <= max_len - 1) and never
+                # drafts deeper than the hungriest slot can still commit
+                buds = {i: min(active[i].max_new - len(active[i].out_tokens),
+                               self.prompt_capacity - slot_len[i])
+                        for i in consumed}
+                k_eff = min(sc.k,
+                            self.max_len - 1
+                            - max(slot_len[i] for i in consumed),
+                            max(buds.values()) - 1)
+                spec_now = k_eff >= 1
+            if spec_now and paged:
+                # draft-ahead pages for positions slot_len .. slot_len +
+                # k_eff, beyond the decode page mapped above; speculation
+                # outranks nothing: on starvation they go back and the
+                # tick runs plain
+                spec_extra = []
+                try:
+                    for i in consumed:
+                        for pg in range(slot_len[i] // ps + 1,
+                                        (slot_len[i] + k_eff) // ps + 1):
+                            if bt[i, pg] == 0:
+                                bt[i, pg] = self._alloc_pages(
+                                    free_pages, 1, f"spec draft-ahead for "
+                                    f"rid={active[i].rid}")[0]
+                                spec_extra.append((i, pg))
+                except RuntimeError:
+                    for i, pg in spec_extra:
+                        free_pages.append(int(bt[i, pg]))
+                        bt[i, pg] = 0
+                        self._kv_pages_freed += 1
+                    spec_extra = []
+                    self._spec_aborts += 1
+                    spec_now = False
+                if spec_extra:
+                    sync_table()
+            if spec_now:
+                drafts, drafts_host, draft_execs = self._draft_burst(
+                    sc.draft_fmt, k_eff, consumed, mask, tick_id)
+                if drafts is None:
+                    self._spec_aborts += 1
+                    spec_now = False
+            if spec_now:
+                # ---- verify: one pinned-format executable scores [last
+                # committed token, d_1 .. d_k] per slot (q_len k_eff + 1;
+                # masked rows ride at q_len 1, as in a mixed tick)
+                cdim = k_eff + 1
+                vbatch = self._verify_batch(cdim)
+                vbatch["tokens"][:, :1].copy_(tokens)
+                vbatch["tokens"][:, 1:].copy_(drafts)
+                q_np = np.ones(b, np.int32)
+                q_np[mask.astype(bool)] = cdim
+                vbatch["q_len"].copy_(torch.from_numpy(q_np))
+
+                def vattempt(fmt):
+                    if fi is not None:
+                        fi.maybe_raise_step(tick_id)    # before dispatch
+                    lg = self._tick("verify_step", fmt, cdim, vbatch, cache,
+                                    cache_len)
+                    return poisoned(lg, tick_id, fmt), cache
+
+                try:
+                    drain, cache, new_pinned, dead, vexecs = \
+                        self._guarded_step(vattempt, pinned, consumed,
+                                           tick_id, verify=True)
+                except InjectedFault:
+                    span.__exit__(None, None, None)
+                    raise
+                if new_pinned != pinned:
+                    pinned = repin(new_pinned)
+                tick["execs"] += draft_execs + vexecs
+                tick["rows"] += b * (draft_execs + vexecs)
+
+                # ---- commit: every committed token is the verify format's
+                # own argmax (an accepted draft equals it by definition)
+                anchor_toks = drain.drained                      # (B, C)
+                budgets = np.zeros(b, np.int64)
+                for i in consumed:
+                    if i not in dead:
+                        budgets[i] = buds[i]
+                commit = spec_accept_counts(drafts_host, anchor_toks,
+                                            budgets)
+                cache_len.add_(torch.as_tensor(
+                    (commit * mask).astype(np.int32), device=dev))
+                nxt = anchor_toks[np.arange(b), np.maximum(commit - 1, 0)]
+                tokens.copy_(torch.as_tensor(
+                    nxt.astype(np.int32)[:, None], device=dev))
+                self._decode_s += time.perf_counter() - t_dec
+                self._ticks += 1
+                self._spec_ticks += 1
+                for i in consumed:
+                    if i not in dead:
+                        acc = int(commit[i]) - 1
+                        self._spec_accepted += acc
+                        self._spec_rejected += k_eff - acc
+
+                # attention-read accounting: k_eff single-query walks at a
+                # growing cursor plus vexecs multi-query walks per live slot
+                for i in range(b):
+                    if not (paged and self.attn_impl == "paged_kernel"):
+                        self._attn_tokens_read += \
+                            self._attn_read_span * (draft_execs + vexecs)
+                    elif active[i] is not None:
+                        for j in range(draft_execs):
+                            self._attn_tokens_read += pages_read(
+                                slot_len[i] + 1 + j, ps, window) * ps
+                        self._attn_tokens_read += vexecs * pages_read_mq(
+                            slot_len[i], cdim, ps, window) * ps
+                    elif filling is not None and i == fill_slot:
+                        self._attn_tokens_read += \
+                            (draft_execs + vexecs) * pages_read(
+                                fill_cursor + 1, ps, window) * ps
+                    else:
+                        self._attn_tokens_read += \
+                            (draft_execs + vexecs) * ps
+
+                # dead rows (non-finite verify logits at the anchor rung)
+                # retire before the drain; their budget was 0
+                for i in dead:
+                    r_dead = active[i]
+                    if r_dead is None:
+                        continue
+                    active[i] = None
+                    release_slot(i)
+                    self._finish(
+                        r_dead, RequestStatus.FAILED_NUMERIC,
+                        f"non-finite logits in this request's row at the "
+                        f"anchor rung ({pinned}), verify tick {tick_id}")
+
+                # ---- drain and rewind: commit[i] tokens enter the stream;
+                # pages past the new frontier go back to the free list (no
+                # data moves: cache_len masks the stale positions)
+                for i, r in enumerate(active):
+                    if r is None:
+                        continue
+                    n_c = int(commit[i])
+                    slot_len[i] += n_c
+                    r.out_tokens.extend(int(t) for t in anchor_toks[i, :n_c])
+                    self._tokens_out += n_c
+                    if paged:
+                        self._rollback_slot_pages(free_pages, bt, i,
+                                                  slot_len[i])
+                    if len(r.out_tokens) >= r.max_new or \
+                            slot_len[i] >= self.prompt_capacity:
+                        self._finish(r, RequestStatus.COMPLETED)
+                        active[i] = None
+                        release_slot(i)
+                if paged:
+                    sync_table()
+                self._record_tick(tick, 1, t_tick, span,
+                                  decode_rows=int(mask.sum()),
+                                  draft_execs=draft_execs,
+                                  verify_execs=vexecs)
+                if all(a is None for a in active) and filling is None:
+                    pinned = None
+                continue
+
             if chunk_tok is not None:
                 # ---- mixed tick: decode rows carry their token in column
                 # 0, the fill row its chunk at its cursor; one executable
@@ -1289,19 +1616,288 @@ class ElasticEngine:
         return requests
 
     def _record_tick(self, tick: Dict[str, int], decode: int, t_tick: float,
-                     span, decode_rows: int) -> None:
+                     span, decode_rows: int, draft_execs: int = 0,
+                     verify_execs: int = 0) -> None:
         """One scheduler-tick trace entry: padded prompt tokens and chunks
         prefilled, whether a decode (or mixed) step ran, the executables
         dispatched (the mixed scheduler's invariant: at most one, plus one
-        per guard replay), the batch
-        rows they processed, the live decoding rows, and the host wall
-        time. Closes the tick's profiler range ``span``."""
+        per guard replay), the batch rows they processed, the live decoding
+        rows, the host wall time, and a speculative tick's split of
+        ``execs`` into draft and verify executables (0 otherwise). Closes
+        the tick's profiler range ``span``."""
         self.tick_trace.append({
             "prefill_tokens": tick["prefill_tokens"],
             "prefill_chunks": tick["prefill_chunks"], "decode": decode,
             "wall_s": time.perf_counter() - t_tick, "execs": tick["execs"],
-            "rows": tick["rows"], "decode_rows": decode_rows})
+            "rows": tick["rows"], "decode_rows": decode_rows,
+            "draft_execs": draft_execs, "verify_execs": verify_execs})
         span.__exit__(None, None, None)
+
+    def _draft_burst(self, fmt: str, k_eff: int, consumed: List[int],
+                     mask: np.ndarray, tick: int):
+        """``k_eff`` greedy draft steps at ``fmt`` against the draft cursor
+        and tokens (``_draft_state``), which start as copies of the
+        committed ones: the committed ``cache_len`` / tokens never move,
+        so abandoning the burst needs no undo (the draft KV lies past every
+        committed cursor, masked, and the next write there overwrites it).
+        A step that crashes with ``InjectedFault`` abandons the burst; so
+        do non-finite draft logits in a consumed row under the guard, which
+        also quarantine ``fmt`` (``allow_speculation`` then vetoes drafting
+        for the rest of the wave). Returns (drafts (B, k_eff) on the
+        device, the same on the host, draft executables run); the drafts
+        are None when the burst was abandoned."""
+        fi = self._fault_injector
+        cache = self._cache
+        dlen, dtok = self._draft_state()
+        dlen.copy_(self._cache_len)
+        dtok.copy_(self._tokens)
+        adv = torch.as_tensor(mask, device=self.device)
+        cols, host_cols = [], []
+        execs = 0
+        for _ in range(k_eff):
+            try:
+                if fi is not None:
+                    fi.maybe_raise_step(tick)           # before dispatch
+                lg = self._tick("draft_step", fmt, 1, {"tokens": dtok},
+                                cache, dlen)
+            except InjectedFault:
+                # a transient crash mid-burst: drop the burst, decode plain
+                # this tick (the injector fires once per tick)
+                self._faults_detected += 1
+                return None, None, execs
+            if fi is not None:
+                lg = fi.maybe_poison_logits(tick, fmt, lg)
+            execs += 1
+            d = torch.argmax(lg, -1)
+            host = torch.cat([d, torch.isfinite(lg).all(-1).to(d.dtype)]) \
+                .cpu().numpy()
+            if self.logit_guard and not all(
+                    host[self.slots + i] for i in consumed):
+                self._faults_detected += 1
+                self.policy.quarantine(fmt)
+                return None, None, execs
+            cols.append(d)
+            host_cols.append(host[:self.slots])
+            dtok.copy_(d[:, None])
+            dlen.add_(adv)
+        return torch.stack(cols, 1), np.stack(host_cols, 1), execs
+
+    def _rollback_slot_pages(self, free: List[int], bt: np.ndarray,
+                             slot: int, frontier: int) -> None:
+        """Speculative rewind, page half: free this slot's pages past the
+        one holding position ``frontier - 1`` (its last committed token).
+        Earlier pages and every other slot's row are untouched; the freed
+        pages' stale draft KV is masked by ``cache_len`` until a later
+        occupant overwrites it. A slot then holds ``ceil(slot_len / page)``
+        pages between ticks, as under plain decode, so ``alloc == freed``
+        at retire whatever was accepted."""
+        keep = -(-frontier // self.kv_page_size)
+        tail = bt[slot, keep:]
+        drop = tail[tail != 0]
+        free.extend(int(p) for p in drop)
+        self._kv_pages_freed += drop.size
+        bt[slot, keep:] = 0
+
+    # ---- snapshot / resume ------------------------------------------------
+    def _cache_leaves(self) -> List[torch.Tensor]:
+        """The KV cache's tensors in the snapshot's fixed order: each
+        layer group's ``blocks`` dict by sorted key, then the block
+        table."""
+        leaves = [c[k] for c in self._cache["blocks"] for k in sorted(c)]
+        if "block_table" in self._cache:
+            leaves.append(self._cache["block_table"])
+        return leaves
+
+    def _snapshot_fingerprint(self) -> dict:
+        """The engine facts a snapshot's arrays and scheduler state only
+        mean something under, with the reference's keys; ``resume`` refuses
+        a snapshot whose fingerprint differs (resuming onto another layout
+        would corrupt streams, not fail)."""
+        sc = self.speculative
+        return {
+            "family": self.api.cfg.family,
+            "slots": self.slots,
+            "max_len": self.max_len,
+            "kv_layout": self.kv_layout,
+            "kv_page_size": self.kv_page_size,
+            "kv_total_pages": self._kv_total_pages,
+            "attn_impl": self.attn_impl,
+            "fused": bool(self.fused),
+            "packed": self.packed,
+            "prefill_chunk": self.prefill_chunk,
+            "scheduler": self.scheduler,
+            "bucket": self._bucket,
+            "temperature": self.temperature,
+            "top_p": self.top_p,
+            "admission_order": self.admission_order,
+            # string-encoded so the JSON manifest round-trips exactly
+            "speculative": (f"{sc.draft_fmt}:k{sc.k}" if sc is not None
+                            else None),
+            "mesh": None,               # one device: no tensor parallelism
+        }
+
+    def _save_snapshot(self, root: str, requests: List[Request], st: dict,
+                       greedy: bool, fmt_override: Optional[str]) -> str:
+        """The wave's whole state at a tick boundary, as one step of
+        ``checkpoint/io.py`` (atomic, manifest-driven). Arrays: the KV
+        leaves (``_cache_leaves``), cache_len, tokens, the engine and slot
+        keys, the temperature and top-p lanes, the block-table mirror, and
+        each request's prompt and emitted tokens; everything host-side
+        rides the manifest. ``resume`` rebuilds from these alone, so a
+        fresh engine of the same configuration finishes the wave."""
+        arrays: Dict[str, object] = {
+            f"cache_{n:04d}": t for n, t in enumerate(self._cache_leaves())}
+        arrays.update(cache_len=self._cache_len, tokens=self._tokens,
+                      slot_keys=self._keys, engine_key=self._key,
+                      slot_temp=self._temps, slot_topp=self._tops)
+        if st["bt"] is not None:
+            arrays["bt"] = st["bt"]
+        for r in requests:
+            arrays[f"prompt_{r.rid}"] = np.asarray(r.prompt, np.int32)
+            # int64 whatever the length: an empty list must not come back
+            # as float64
+            arrays[f"out_{r.rid}"] = np.asarray(r.out_tokens, np.int64)
+        meta = {
+            "kind": "elastic-engine-snapshot",
+            "fingerprint": self._snapshot_fingerprint(),
+            "greedy": bool(greedy),
+            "fmt_override": fmt_override,
+            "pinned": st["pinned"],
+            "elapsed_s": float(st["elapsed_s"]),
+            "tick_no": int(st["tick_no"]),
+            "requests": [{"rid": r.rid, "max_new": int(r.max_new),
+                          "status": r.status.value, "error": r.error,
+                          "fmt_used": r.fmt_used, "ttft_s": r.ttft_s,
+                          "deadline_s": r.deadline_s, "done": bool(r.done),
+                          "cancel_requested": bool(r.cancel_requested),
+                          "temperature": r.temperature, "top_p": r.top_p}
+                         for r in requests],
+            "pending": [r.rid for r in st["pending"]],
+            "active": [(a.rid if a is not None else None)
+                       for a in st["active"]],
+            "slot_len": [int(v) for v in st["slot_len"]],
+            "filling": (st["filling"].rid if st["filling"] is not None
+                        else None),
+            "fill_slot": int(st["fill_slot"]),
+            "fill_cursor": int(st["fill_cursor"]),
+            "wait_pages": bool(st["wait_pages"]),
+            "free_pages": [int(p) for p in st["free_pages"]],
+            "quarantined": sorted(self.policy.quarantined),
+            "counters": {
+                "ticks": self._ticks,
+                "prefills": self._prefills,
+                "tokens_out": self._tokens_out,
+                "nonfinite_logit_rows": self._nonfinite_rows,
+                "kv_pages_alloc": self._kv_pages_alloc,
+                "kv_pages_freed": self._kv_pages_freed,
+                "kv_pages_hwm": self._kv_pages_hwm,
+                "faults_detected": self._faults_detected,
+                "fmt_escalations": self._fmt_escalations,
+                "ticks_replayed": self._ticks_replayed,
+                "admission_requeues": self._admission_requeues,
+                "attn_tokens_read": self._attn_tokens_read,
+                "spec_ticks": self._spec_ticks,
+                "spec_accepted": self._spec_accepted,
+                "spec_rejected": self._spec_rejected,
+                "spec_aborts": self._spec_aborts,
+                "status_counts": self._status_counts,
+                "failures": self._failures,
+                "escalation_events": self._escalation_events,
+            },
+        }
+        self._snap_step += 1
+        return ckpt_io.save(root, self._snap_step, arrays,
+                            extra_meta=meta)
+
+    def resume(self, snapshot_dir: str, *, guard=None,
+               step: Optional[int] = None) -> List[Request]:
+        """Finish a preempted wave from its snapshot (the latest by
+        default): the requests, queues, counters, KV cache, keys and
+        sampling lanes of ``_save_snapshot`` come back, and ``generate``
+        goes on mid-wave with the streams of the uninterrupted run. The
+        arrays are copied into this engine's buffers in place (never
+        rebound: a captured tick graph reads them where they lie), so the
+        engine may be a fresh one or one whose graphs are captured. A
+        snapshot whose fingerprint differs from this engine's raises
+        ``ValueError`` naming the fields. Returns the rebuilt request
+        list, finished."""
+        arrays, manifest = ckpt_io.restore(snapshot_dir, step)
+        meta = manifest["meta"]
+        if meta.get("kind") != "elastic-engine-snapshot":
+            raise ValueError(f"{snapshot_dir} holds {meta.get('kind')!r}, "
+                             "not an elastic-engine-snapshot")
+        fp_saved, fp_now = meta["fingerprint"], self._snapshot_fingerprint()
+        if fp_saved != fp_now:
+            diff = {k: {"snapshot": fp_saved.get(k), "engine": fp_now.get(k)}
+                    for k in sorted(set(fp_saved) | set(fp_now))
+                    if fp_saved.get(k) != fp_now.get(k)}
+            raise ValueError(
+                "snapshot/engine fingerprint mismatch — resume requires an "
+                f"identically configured engine; differs on: {diff}")
+        self._wave_state()
+        for n, t in enumerate(self._cache_leaves()):
+            _copy_in(t, arrays[f"cache_{n:04d}"])
+        for name, t in (("cache_len", self._cache_len),
+                        ("tokens", self._tokens), ("slot_keys", self._keys),
+                        ("slot_temp", self._temps),
+                        ("slot_topp", self._tops)):
+            _copy_in(t, arrays[name])
+        self._key = torch.from_numpy(np.asarray(arrays["engine_key"],
+                                                np.int64).copy())
+        by_rid: Dict[int, Request] = {}
+        requests: List[Request] = []
+        for rd in meta["requests"]:
+            r = Request(rid=rd["rid"], prompt=arrays[f"prompt_{rd['rid']}"],
+                        max_new=rd["max_new"])
+            r.out_tokens = [int(t) for t in arrays[f"out_{rd['rid']}"]]
+            r.status = RequestStatus(rd["status"])
+            for f in ("error", "fmt_used", "ttft_s", "deadline_s", "done",
+                      "cancel_requested", "temperature", "top_p"):
+                setattr(r, f, rd[f])
+            by_rid[r.rid] = r
+            requests.append(r)
+        c = meta["counters"]
+        self._ticks = c["ticks"]
+        self._prefills = c["prefills"]
+        self._tokens_out = c["tokens_out"]
+        self._nonfinite_rows = c["nonfinite_logit_rows"]
+        self._kv_pages_alloc = c["kv_pages_alloc"]
+        self._kv_pages_freed = c["kv_pages_freed"]
+        self._kv_pages_hwm = c["kv_pages_hwm"]
+        self._faults_detected = c["faults_detected"]
+        self._fmt_escalations = c["fmt_escalations"]
+        self._ticks_replayed = c["ticks_replayed"]
+        self._admission_requeues = c["admission_requeues"]
+        self._attn_tokens_read = c["attn_tokens_read"]
+        self._spec_ticks = c["spec_ticks"]
+        self._spec_accepted = c["spec_accepted"]
+        self._spec_rejected = c["spec_rejected"]
+        self._spec_aborts = c["spec_aborts"]
+        self._status_counts = dict(c["status_counts"])
+        self._failures = list(c["failures"])
+        self._escalation_events = list(c["escalation_events"])
+        self.policy.quarantined |= set(meta["quarantined"])
+        self._resumes += 1
+        state = dict(
+            pending=[by_rid[rid] for rid in meta["pending"]],
+            active=[by_rid[rid] if rid is not None else None
+                    for rid in meta["active"]],
+            slot_len=[int(v) for v in meta["slot_len"]],
+            pinned=meta["pinned"],
+            filling=(by_rid[meta["filling"]]
+                     if meta["filling"] is not None else None),
+            fill_slot=meta["fill_slot"],
+            fill_cursor=meta["fill_cursor"],
+            wait_pages=meta["wait_pages"],
+            free_pages=list(meta["free_pages"]),
+            bt=(np.asarray(arrays["bt"], np.int32).copy()
+                if "bt" in arrays else None),
+            elapsed_s=meta["elapsed_s"],
+            tick_no=meta["tick_no"])
+        return self.generate(requests, greedy=meta["greedy"],
+                             fmt_override=meta["fmt_override"],
+                             guard=guard, snapshot_dir=snapshot_dir,
+                             _state=state)
 
     # ---- introspection ----------------------------------------------------
     def stats(self) -> Dict[str, object]:
@@ -1353,4 +1949,27 @@ class ElasticEngine:
             "attn_tokens_read": self._attn_tokens_read,
             "attn_read_bytes": self._attn_tokens_read
             * self._attn_token_bytes,
+            "speculative": (dataclasses.asdict(self.speculative)
+                            if self.speculative is not None else None),
+            "spec_ticks": self._spec_ticks,
+            "spec_accepted": self._spec_accepted,
+            "spec_rejected": self._spec_rejected,
+            "spec_aborts": self._spec_aborts,
+            "spec_acceptance_rate": (
+                self._spec_accepted
+                / (self._spec_accepted + self._spec_rejected)
+                if self._spec_accepted + self._spec_rejected else None),
+            "snapshots_saved": self._snapshots_saved,
+            "resumes": self._resumes,
         }
+
+
+def _copy_in(dst: torch.Tensor, a: np.ndarray) -> None:
+    """Write a snapshot array into ``dst`` in place (a bf16 tensor comes
+    back from the archive as 2-byte raw records)."""
+    a = np.asarray(a)
+    if dst.dtype == torch.bfloat16:
+        src = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        src = torch.from_numpy(a.copy())
+    dst.copy_(src.reshape(dst.shape))

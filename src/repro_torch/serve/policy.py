@@ -5,12 +5,33 @@ Counterpart of ``repro/serve/policy.py`` without the cost model: load
 a format ladder — deeper queues pick lower-precision formats, an idle
 server the anchor — with hysteresis against thrashing. ``escalate`` walks
 one rung toward the anchor and ``quarantine`` bars a misbehaving rung from
-``pick``; the anchor is exempt from both.
+``pick``; the anchor is exempt from both. ``SpecConfig`` and
+``allow_speculation`` decide self-speculative decoding.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import List, Optional, Set, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Self-speculative decoding knobs.
+
+    ``draft_fmt`` names the cheap rung that drafts ``k`` tokens per decode
+    tick; the batch-pinned format verifies them in one multi-query step.
+    Both come from the same anchor checkpoint by Slice-and-Scale: no
+    separate weights, no separate KV cache. Speculation never changes
+    tokens (the engine commits only the verify format's own greedy
+    choices); ``allow_speculation`` turns it off when the measured draft
+    acceptance rate falls below ``min_acceptance``, judged only after
+    ``window`` speculative ticks.
+    """
+
+    draft_fmt: str = "mxint4"
+    k: int = 4
+    min_acceptance: float = 0.0    # 0 = never disable on acceptance rate
+    window: int = 16               # spec ticks before the rate is trusted
 
 
 @dataclasses.dataclass
@@ -52,6 +73,20 @@ class FormatPolicy:
         checkpoint's native precision and the ladder's terminal rung."""
         if fmt != self.anchor:
             self.quarantined.add(fmt)
+
+    def allow_speculation(self, draft_fmt: str, pinned_fmt: str,
+                          acceptance_rate: Optional[float] = None,
+                          min_acceptance: float = 0.0) -> bool:
+        """Should the engine draft at ``draft_fmt`` this tick? Three
+        vetoes: a quarantined draft rung (it would poison every draft), a
+        draft rung equal to the pinned format (nothing cheaper to draft
+        with), and a measured ``acceptance_rate`` below ``min_acceptance``
+        (None while the sample is too small to judge). A veto runs plain
+        pinned-format decode: the streams are the same, only speed
+        changes."""
+        if draft_fmt in self.quarantined or draft_fmt == pinned_fmt:
+            return False
+        return acceptance_rate is None or acceptance_rate >= min_acceptance
 
     def pick(self, queue_depth: int, prefill_tokens: int = 0, *,
              override: Optional[str] = None) -> str:

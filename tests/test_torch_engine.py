@@ -118,8 +118,6 @@ def test_oversized_prompt_fails_alone(served):
 
 @pytest.mark.parametrize("kw,item", [
     ({"mesh": object()}, "A.9"),
-    ({"speculative": object()}, "A.4"),
-    ({"fault_injector": FaultInjector(preempt_at=2)}, "A.3"),
     ({"admission_order": "slo"}, "A.5")])
 def test_unported_options_refuse_loudly(served, kw, item):
     _, _, _, path = served

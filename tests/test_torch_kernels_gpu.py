@@ -454,6 +454,74 @@ def test_paged_kernels_bit_identical_eager_and_in_a_cuda_graph(dtype):
                                                    ql))
 
 
+# Which epilogue the row whose live page holds NaN goes through: the single
+# walk (one key slice per warp: more than 32 query rows, G 64), the warps'
+# merge (G 4, a short row in one split) or the cross-split merge (a row of
+# 4096 positions). (Hkv, G, D, spans, victim row).
+NAN_CASES = {
+    "single-walk": (1, 64, 64, [200, 40, 17, 100], 1),
+    "warp-merge": (8, 4, 128, [200, 40, 17, 100], 1),
+    "split-merge": (8, 4, 128, [4096, 300, 40, 3001], 0),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", list(NAN_CASES))
+@pytest.mark.parametrize("kernel", ["B3", "B4"])
+def test_nan_in_a_live_page_gives_zeros_in_that_row(kernel, case, dtype):
+    """NaN in the first page of one row, which every live query of the row
+    sees: the row's sum is NaN, and the kernel writes exact zeros in all
+    its heads (lanes), as the plain version and the Pallas kernels do
+    (where(l > 0, out, 0)); every other row is bit-identical to the clean
+    run and within tolerance of the plain version."""
+    dev = _card()
+    hkv, g, d, spans, victim = NAN_CASES[case]
+    ps, c = 16, 5
+    q, kp, vp, bt = _paged_case(dev, spans, ps, hkv, g, d, c=c, dtype=dtype,
+                                seed=8)
+    kp_n, vp_n = kp[0].clone(), vp[0].clone()
+    kp_n[bt[victim, 0]] = float("nan")
+    vp_n[bt[victim, 0]] = float("nan")
+    if kernel == "B3":
+        q1 = q[:, 0].contiguous()
+        cl = torch.tensor(spans, dtype=torch.int32, device=dev)
+
+        def run(kpool, vpool, fn=paged_attention.paged_attention):
+            return fn(q1, kpool, vpool, bt, cl)
+        plain = ref.ref_paged_attention
+        lanes, rows = 1, g
+    else:
+        qo = torch.tensor([n - c for n in spans], dtype=torch.int32,
+                          device=dev)
+        ql = torch.full((len(spans),), c, dtype=torch.int32, device=dev)
+
+        def run(kpool, vpool, fn=paged_attention.paged_attention_mq):
+            return fn(q, kpool, vpool, bt, qo, ql)
+        plain = ref.ref_paged_attention_mq
+        tq = min(c, max(1, paged_attention.QBLOCK_ROWS // g))
+        lanes, rows = c, tq * g
+    # the case reaches the epilogue it names
+    plan = paged_attention.split_plan(len(spans), lanes, hkv * g, hkv, d, ps,
+                                      bt.shape[1], q.element_size())
+    first, last = paged_attention.walk(spans[victim] - lanes, lanes, 0,
+                                       plan.tq, lanes, ps, bt.shape[1])
+    n_splits = sum(1 for s in range(plan.splits) if paged_attention
+                   .split_pages(plan, first, last, s, rows))
+    assert (n_splits > 1) == (case == "split-merge")
+    assert (rows > 32) == (case == "single-walk")
+    assert first == 0 and spans[victim] - lanes >= ps   # all lanes see it
+
+    clean = run(kp[0], vp[0])
+    got = run(kp_n, vp_n)
+    want = run(kp_n, vp_n, fn=plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got[victim], torch.zeros_like(got[victim]))
+    assert torch.equal(want[victim], torch.zeros_like(want[victim]))
+    others = [i for i in range(len(spans)) if i != victim]
+    assert torch.equal(got[others], clean[others])
+    _close(got[others], want[others])
+
+
 def test_layer_slice_of_stacked_pool_is_read_in_place():
     """A layer's pool is the view pool[g] of the stacked (G, P, ps, Hkv, D)
     tensor; the kernels read it at its data pointer."""

@@ -5,8 +5,10 @@ the engine keeps the KV cache, ``cache_len``, the tokens, the block table
 and each mixed-tick width's buffers in one storage for its lifetime. On the
 CPU (reduced qwen3-4b, 2 layers, 2 slots) these tests hold:
 
-- that storage, at every step call of two waves on one engine, on both KV
-  layouts, monolithic and chunked, under both schedulers;
+- that storage, at every step call of two waves on one engine and of a
+  third wave preempted and resumed on it (``resume`` copies the snapshot
+  into the buffers in place), on both KV layouts, monolithic and chunked,
+  under both schedulers;
 - the greedy streams and the tick trace of two consecutive waves on one
   engine against two waves of the JAX ``ElasticEngine`` (the second wave
   starts from the zeroed persistent cache);
@@ -17,8 +19,11 @@ CPU (reduced qwen3-4b, 2 layers, 2 slots) these tests hold:
   read then — and writes garbage over every other graph's static output:
   the streams, traces and path counts must equal the eager engine's, for
   greedy waves, sampled waves (the batch draw's graph and the slots' key,
-  temperature and top-p lanes) and a chaos wave (an in-place NaN pool
-  page, step crashes, a failed allocation, a cancellation);
+  temperature and top-p lanes), a chaos wave (an in-place NaN pool
+  page, step crashes, a failed allocation, a cancellation), speculative
+  waves (draft steps against the draft cursor, verifies per width) and
+  resumed waves (on the engine whose graphs are captured, and on a fresh
+  one);
 - ``cuda_graphs=True`` refused on the CPU.
 
 The ``gpu`` cases run the same engines on the card, graph against eager,
@@ -31,6 +36,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.configs import get_reduced
 from repro_torch.core.anchor import make_anchor
 from repro_torch.core.qat import QATConfig
@@ -38,9 +44,10 @@ from repro_torch.kernels import dispatch, mx_matmul
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import init_params, make_model
-from repro_torch.runtime.fault import FaultInjector
+from repro_torch.runtime.fault import FaultInjector, PreemptionGuard
 from repro_torch.serve import tick_graph
 from repro_torch.serve.engine import ElasticEngine, Request, RequestStatus
+from repro_torch.serve.policy import SpecConfig
 
 SLOTS, MAX_LEN, MAX_NEW, PS = 2, 48, 5, 8
 PAGED = dict(kv_layout="paged", kv_page_size=PS, attn_impl="paged_kernel")
@@ -101,6 +108,7 @@ class _Spy:
         eng._packed_api = dataclasses.replace(
             api, serve_step=self._wrap("serve_step", api.serve_step),
             mixed_step=self._wrap("mixed_step", api.mixed_step),
+            verify_step=self._wrap("verify_step", api.verify_step),
             prefill_slot=self._wrap("prefill_slot", api.prefill_slot),
             prefill_chunk_slot=self._wrap("prefill_chunk_slot",
                                           api.prefill_chunk_slot))
@@ -108,7 +116,7 @@ class _Spy:
     def _wrap(self, name, fn):
         def spy(params, batch, cache, *rest):
             rec = {"cache": _cache_tensors(cache)}
-            if name in ("serve_step", "mixed_step"):
+            if name in ("serve_step", "mixed_step", "verify_step"):
                 rec["cache_len"] = rest[0]
                 rec["batch"] = dict(batch)
             self.seen.setdefault(name, []).append(rec)
@@ -121,7 +129,8 @@ class _Spy:
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
-def test_tick_buffers_keep_their_storage_across_waves(cpu_anchor, name):
+def test_tick_buffers_keep_their_storage_across_waves(cpu_anchor, name,
+                                                      tmp_path):
     cfg, anchor = cpu_anchor
     eng = _engine(cfg, anchor, **CONFIGS[name])
     spy = _Spy(eng)
@@ -129,6 +138,19 @@ def test_tick_buffers_keep_their_storage_across_waves(cpu_anchor, name):
         reqs = eng.generate(_requests(_prompts(cfg.vocab, seed, lens)),
                             fmt_override="mxint8")
         assert all(r.status is RequestStatus.COMPLETED for r in reqs)
+    # a third wave, preempted at tick 3 and resumed on this engine: the
+    # snapshot goes back into the same buffers, and the streams are the
+    # uninterrupted eager engine's
+    prompts = _prompts(cfg.vocab, *WAVES[0])
+    want = _engine(cfg, anchor, **CONFIGS[name]).generate(
+        _requests(prompts), fmt_override="mxint8")
+    eng._fault_injector = FaultInjector(preempt_at=3)
+    cut = eng.generate(_requests(prompts), fmt_override="mxint8",
+                       guard=PreemptionGuard(), snapshot_dir=str(tmp_path))
+    assert not all(r.done for r in cut)
+    eng._fault_injector = None
+    got = eng.resume(str(tmp_path))
+    assert [r.out_tokens for r in got] == [r.out_tokens for r in want]
     cache = {tuple(t.data_ptr() for t in _cache_tensors(eng._cache))}
     for entry in spy.seen:
         assert spy.ptrs(entry, "cache") == cache, entry
@@ -426,6 +448,96 @@ def test_chaos_wave_equals_eager_with_a_stand_in_graph(cpu_anchor,
         "poison_pool", "raise_in_step", "cancel", "fail_alloc"}
 
 
+SPEC = SpecConfig(draft_fmt="mxint4", k=4)
+
+
+@pytest.mark.parametrize("name", ["dense-monolithic", "paged-monolithic",
+                                  "paged-chunk-mixed"])
+def test_speculative_waves_equal_eager_with_a_stand_in_graph(
+        cpu_anchor, stand_in_graphs, name):
+    """Draft steps read the draft cursor and tokens, verifies their own
+    per-width buffers: the stand-in reruns the closures captured at the
+    first tick of each key, so a rebinding would change the streams. Two
+    speculative waves on one engine equal the eager engine's (traces,
+    spec counters and path counts included) and plain decode's; the draft
+    buffers and the verify buffers keep their storage; the draft graph is
+    keyed apart from the committed serve_step's."""
+    cfg, anchor = cpu_anchor
+    eager = _engine(cfg, anchor, speculative=SPEC, **CONFIGS[name])
+    graphed = _graphed(_engine(cfg, anchor, speculative=SPEC,
+                               **CONFIGS[name]))
+    plain = _engine(cfg, anchor, **CONFIGS[name])
+    spy = _Spy(graphed)
+    for seed, lens in WAVES:
+        want = _wave(eager, cfg, seed, lens, "mxint8")
+        got = _wave(graphed, cfg, seed, lens, "mxint8")
+        assert got == want
+        assert got[0] == _wave(plain, cfg, seed, lens, "mxint8")[0]
+    st, est = graphed.stats(), eager.stats()
+    for key in ("spec_ticks", "spec_accepted", "spec_rejected", "ticks"):
+        assert st[key] == est[key], key
+    assert st["spec_ticks"] > 0
+    assert [(t["draft_execs"], t["verify_execs"])
+            for t in graphed.tick_trace] == \
+        [(t["draft_execs"], t["verify_execs"]) for t in eager.tick_trace]
+    keys = set(graphed._graphs._entries)
+    assert ("draft_step", "mxint4", graphed.kv_layout, 1) in keys
+    assert any(k[0] == "verify_step" for k in keys)
+    drafts = [r for r in spy.seen["serve_step"]
+              if r["cache_len"].data_ptr() != graphed._cache_len.data_ptr()]
+    assert drafts
+    assert {r["cache_len"].data_ptr() for r in drafts} == \
+        {graphed._draft_len.data_ptr()}
+    assert {r["batch"]["tokens"].data_ptr() for r in drafts} == \
+        {graphed._draft_tok.data_ptr()}
+    for r in spy.seen["verify_step"]:
+        buf = graphed._verify_bufs[r["batch"]["tokens"].shape[1]]
+        assert r["batch"]["tokens"].data_ptr() == buf["tokens"].data_ptr()
+        assert r["batch"]["q_len"].data_ptr() == buf["q_len"].data_ptr()
+        assert r["cache_len"].data_ptr() == graphed._cache_len.data_ptr()
+
+
+@pytest.mark.parametrize("name,preempt_at", [("dense-monolithic", 2),
+                                             ("paged-chunk-mixed", 9)])
+def test_resumed_waves_equal_eager_with_a_stand_in_graph(
+        cpu_anchor, stand_in_graphs, name, preempt_at, tmp_path):
+    """A graphed engine preempted mid-wave (tick 9 of the chunked wave
+    leaves a slot mid-prefill) resumes its own snapshot with its graphs
+    captured — no new capture for the keys it holds, every buffer in its
+    storage — and a fresh graphed engine resumes the same snapshot: both
+    finish with the uninterrupted eager engine's streams."""
+    cfg, anchor = cpu_anchor
+    prompts = _prompts(cfg.vocab, *WAVES[0])
+    want = [r.out_tokens for r in _engine(cfg, anchor, **CONFIGS[name])
+            .generate(_requests(prompts), fmt_override="mxint8")]
+    graphed = _graphed(_engine(cfg, anchor, **CONFIGS[name]))
+    graphed.generate(_requests(prompts), fmt_override="mxint8")
+    ptrs = [t.data_ptr() for t in _cache_tensors(graphed._cache)
+            + [graphed._cache_len, graphed._tokens]]
+    keys = set(graphed._graphs._entries)
+    captures = graphed._graphs.captures
+    graphed._fault_injector = FaultInjector(preempt_at=preempt_at)
+    cut = graphed.generate(_requests(prompts), fmt_override="mxint8",
+                           guard=PreemptionGuard(),
+                           snapshot_dir=str(tmp_path))
+    assert not all(r.done for r in cut)
+    if name == "paged-chunk-mixed":
+        _, manifest = ckpt_io.restore(str(tmp_path))
+        assert manifest["meta"]["filling"] is not None   # mid-prefill
+    graphed._fault_injector = None
+    got = [r.out_tokens for r in graphed.resume(str(tmp_path))]
+    assert got == want
+    assert set(graphed._graphs._entries) == keys
+    assert graphed._graphs.captures == captures
+    assert [t.data_ptr() for t in _cache_tensors(graphed._cache)
+            + [graphed._cache_len, graphed._tokens]] == ptrs
+    fresh = _graphed(_engine(cfg, anchor, **CONFIGS[name]))
+    assert [r.out_tokens for r in fresh.resume(str(tmp_path))] == want
+    st = fresh.stats()
+    assert st["resumes"] == 1 and st["graph_replays"] > 0
+    assert st["kv_pages_alloc"] == st["kv_pages_freed"]
+
+
 # ---------------------------------------------------------------------------
 # The switch
 # ---------------------------------------------------------------------------
@@ -555,3 +667,52 @@ def test_a_second_wave_replays_without_capturing_on_the_card(card_anchor,
     assert st2["graph_captures"] == st["graph_captures"] >= 1
     assert st2["graph_replays"] - st["graph_replays"] == \
         st2["ticks"] - st["ticks"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["dense-monolithic", "paged-monolithic"])
+def test_speculative_graph_and_eager_engines_agree_on_the_card(card_anchor,
+                                                               name):
+    """Pinned mxint8, drafting at mxint4: the graph engine's streams,
+    traces and spec counters equal the eager engine's, and pages
+    balance."""
+    cfg, anchor = card_anchor
+    runs = {}
+    for graphs in (False, True):
+        eng = _engine(cfg, anchor, device="cuda", cuda_graphs=graphs,
+                      speculative=SPEC, **CONFIGS[name])
+        wave = _card_wave(eng, cfg, *WAVES[0], "mxint8")
+        st = eng.stats()
+        runs[graphs] = (wave[:3], [(t["draft_execs"], t["verify_execs"])
+                                   for t in eng.tick_trace],
+                        [st[k] for k in ("spec_ticks", "spec_accepted",
+                                         "spec_rejected")])
+        assert st["kv_pages_alloc"] == st["kv_pages_freed"]
+        assert st["spec_ticks"] > 0
+    assert runs[True] == runs[False]
+
+
+@pytest.mark.gpu
+def test_resume_on_the_card(card_anchor, tmp_path):
+    """A paged graph engine runs a wave, then the same wave preempted
+    mid-prefill: a fresh graph engine's resume, and the original engine's
+    (every key captured by the first wave: no new capture), finish with
+    the uninterrupted graph wave's streams."""
+    cfg, anchor = card_anchor
+    kw = dict(device="cuda", **CONFIGS["paged-chunk-mixed"])
+    prompts = _prompts(cfg.vocab, *WAVES[0])
+    eng = _engine(cfg, anchor, **kw)
+    want = [r.out_tokens for r in eng.generate(_requests(prompts),
+                                               fmt_override="mxint8")]
+    eng._fault_injector = FaultInjector(preempt_at=9)
+    cut = eng.generate(_requests(prompts), fmt_override="mxint8",
+                       guard=PreemptionGuard(), snapshot_dir=str(tmp_path))
+    assert not all(r.done for r in cut)
+    fresh = _engine(cfg, anchor, **kw)
+    assert [r.out_tokens for r in fresh.resume(str(tmp_path))] == want
+    captures = eng.stats()["graph_captures"]
+    eng._fault_injector = None
+    assert [r.out_tokens for r in eng.resume(str(tmp_path))] == want
+    st = eng.stats()
+    assert st["graph_captures"] == captures
+    assert st["kv_pages_alloc"] == st["kv_pages_freed"]
