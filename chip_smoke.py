@@ -6,9 +6,13 @@ check them.
     python3 chip_smoke.py --kernels-only [--src DIR]
     python3 chip_smoke.py --quant-only [--src DIR]
     python3 chip_smoke.py --serve-only [--src DIR]
+    python3 chip_smoke.py --slo-only
+    python3 chip_smoke.py --family-only
 
-``--kernels-only`` runs phases 1-3 and stops, ``--quant-only`` phases 1,
-2, 5 and 8a, ``--serve-only`` phases 1 and 2 and then greedy waves of the
+``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
+2, 5 and 8a, ``--slo-only`` phases 1, 2 and 12, ``--family-only`` phases
+1, 2, 3b, 13 and 14, ``--serve-only`` phases 1 and 2 and then greedy
+waves of the
 dense and the paged graph engine (qwen3-4b, 36 layers) at mxint8 and
 mxint4, a capturing wave and three timed ones each, printing the median
 tick wall per kind of tick and a digest of the streams (no result line in
@@ -35,6 +39,11 @@ Phases (any failure exits non-zero before the result line):
      (the nearest library call; it streams 2x / 4x the weight bytes), one
      layer's sum per M; then both bodies at M = 4, 8, 12, 16 (held to the
      plain version and timed), where DECODE_MAX_M is chosen;
+ 3b. the same kernels at every starcoder2-3b and qwen2-72b projection
+     shape (N = 256 and 1024 for their k / v projections, 12288 and 29568
+     for their MLPs), at M = 4 and 256, held against the plain versions at
+     the same tolerance and timed beside torch's bf16 matmul and the
+     bound, one layer's sum per M;
   4. paged-attention kernels at qwen3-4b attention shapes (H 32, Hkv 8,
      D 128, page 16, bf16 pools of 129 pages, 4 slots, random page
      permutations): paged_attention (B3) at decode lengths, ragged lengths,
@@ -131,7 +140,31 @@ Phases (any failure exits non-zero before the result line):
      mid-prefill, snapshot to a temporary directory; a fresh engine's
      resume and the original engine's (no new capture) both equal the
      uninterrupted wave, pages balanced; snapshot bytes, save and resume
-     seconds.
+     seconds;
+ 12. SLO serving: a fresh paged graph engine (qwen3-4b, 36 layers) with
+     FormatPolicy(cost=CostModel.from_roofline(...)) over mxint4 / 6 / 8
+     and admission_order="slo" serves one seeded trace of 12 requests (4
+     latency-tier with TTFT and TPOT budgets, 4 throughput-tier, 4
+     best-effort; arrivals over ticks 0-20 with a burst of four) in
+     rounds (SLO_ROUNDS): first at a TPOT budget between the mxint8 and
+     mxint4 pure decode ticks, then at one below both. Gates: every
+     request complete, pages balanced, admission by tier rank among the
+     arrived, launches as the structure predicts, base_s x hbm ==
+     weight_bytes per built rung, every pinned rung measured. Printed:
+     picks and history, per-tier TTFT against the budget and tok/s, idle
+     ticks, each rung's predicted tick beside its measured median and
+     its factor;
+ 13. the rest of the dense family on the dense graph engine: starcoder2-3b
+     at full width and depth (gelu MLP, q/k/v and MLP biases) at mxint8
+     and mxint4, qwen2-72b at full width and depth QWEN2_LAYERS (q/k/v
+     biases) at mxint8: biases raw in the anchor; the prefill's and the
+     first decode tick's logits (that tick fed the same token on both
+     sides) within 5% of max|logit| of the densify contract; 8 greedy
+     requests, launches as the structure predicts, streams equal to an
+     eager twin's; tick wall and tok/s;
+ 14. the serving CLI: ``python3 -m repro_torch.launch.serve --arch
+     starcoder2-3b --no-reduced --fmt mxint4`` in a process of its own
+     exits 0 with four ``req`` lines.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -139,6 +172,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import gc
 import json
 import math
 import os
@@ -195,6 +229,20 @@ SPEC_TOL = 0.05    # lane 0 of the first verify vs the plain decode tick's
 # the sampled waves: the engine's parameters, and two requests with their own
 SAMPLE = dict(seed=0, temperature=0.8, top_p=0.95)
 OWN_TEMPERATURE, OWN_TOP_P = (1, 1.2), (2, 0.8)      # (rid, value)
+# The rest of the dense family: B1 / B2 held at its projection shapes at
+# these M, and served (qwen2-72b at a cut depth that is not a multiple of
+# 32, so its stacked (G, n) biases stay raw, as the JAX package keeps them).
+FAMILY = ("starcoder2-3b", "qwen2-72b")
+FAMILY_MS = (4, 256)
+QWEN2_LAYERS = 8
+# The SLO phase: the paged graph engine (qwen3-4b, 36 layers) with a cost
+# model, serving one seeded trace of 12 requests per round: rounds at a
+# latency-tier TPOT budget between the paged pure-decode ticks measured at
+# mxint8 and mxint4 (14.44 and 16.34 ms, NVIDIA H100 80GB HBM3, 700 W,
+# PERF.md), then rounds at one below both.
+SLO_ROUNDS = ((15.4, 3), (11.0, 4))     # (latency TPOT budget ms, rounds)
+SLO_TTFT_MS = {"latency": 250.0, "throughput": 2000.0}
+SLO_FMTS = ("mxint4", "mxint6", "mxint8")
 
 
 def log(msg: str) -> None:
@@ -1262,7 +1310,8 @@ def _train(label, cfg, qat, schedule, steps, seed):
     ms = [s.elapsed_time(e) for s, e in events]
     n_fmt = len(qat.formats)
     sched = make_schedule(schedule, n_fmt, steps)
-    leaves = sum(len(v) for v in PROJECTIONS.values()) * cfg.scan_group
+    leaves = sum(len(v) for v in PROJECTIONS[cfg.act].values()) \
+        * cfg.scan_group
     quantized = [int(i) for i in sched if i < n_fmt]
     if qat.anchor is None:
         want = {"fake_quant": leaves * len(quantized), "mx_quantize": 0,
@@ -2094,16 +2143,18 @@ def phase_paged_serving(cfg, anchor, seed: int, dense_streams):
     return totals, eng, streams
 
 
-def _check_launches(what: str, trace, n_layers: int, mm, at=None) -> None:
-    """B1 + B2 launches = 7 x layers x the wave's executables (guard
+def _check_launches(what: str, trace, n_layers: int, mm, at=None,
+                    per_layer: int = PROJ_PER_LAYER) -> None:
+    """B1 + B2 launches = ``per_layer`` (qwen3-4b: 7) projections x layers
+    x the wave's executables (guard
     replays included, a crashed attempt launches nothing; a speculative
     tick's draft steps and verify attempts each count); on the paged
     layout B3 = layers x the executables of its pure decode ticks (a
     speculative tick's draft steps) and B4 of its mixed ticks and verify
     attempts."""
     execs = sum(t["execs"] for t in trace)
-    if sum(mm.values()) != PROJ_PER_LAYER * n_layers * execs:
-        fail(f"{what}: B1/B2 launches {mm}, want {PROJ_PER_LAYER} x "
+    if sum(mm.values()) != per_layer * n_layers * execs:
+        fail(f"{what}: B1/B2 launches {mm}, want {per_layer} x "
              f"{n_layers} x {execs} executables")
     if at is None:
         return
@@ -2855,6 +2906,404 @@ def phase_serve_walls(seed: int):
         del eng
         torch.cuda.empty_cache()
 
+# ---------------------------------------------------------------------------
+_OTHER = {"mx_matmul": "mx_matmul_int4", "mx_matmul_int4": "mx_matmul"}
+
+
+def _proj_shapes(cfg):
+    """{(K, N): count} of one layer's projection weights."""
+    from repro_torch.models.transformer import PROJECTIONS, param_shapes
+    block = param_shapes(cfg)["blocks"][0]
+    out = {}
+    for sub, names in PROJECTIONS[cfg.act].items():
+        for name in names:
+            (_, k, n), _ = block[sub][name]
+            out[(k, n)] = out.get((k, n), 0) + 1
+    return out
+
+
+def phase_family_kernels(seed: int):
+    """B1 (mxint8, mxfp8) and B2 (mxint4) at every starcoder2-3b and
+    qwen2-72b projection shape, at M = 4 (the decode body) and 256 (the
+    tiled body), held against their plain versions (the tolerance of phase
+    3) and timed beside the plain version, torch.matmul of the densified
+    bf16 weight and the bound. Returns one record per case."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.mx import dequantize, quantize
+    from repro_torch.kernels import mx_matmul, ref
+    from repro_torch.serve.packed_params import pack_leaf_int4
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    rows = []
+    log("family kernel phase: B1 / B2 at the starcoder2-3b and qwen2-72b "
+        "projection shapes, device ms per call as in phase 3")
+    log(f"{'arch':14s}{'kernel':16s}{'fmt':8s}{'M':>4s}{'K':>6s}{'N':>6s}"
+        f"{'max_err':>11s}{'ms':>9s}{'plain':>9s}{'torch_bf16':>11s}"
+        f"{'bound':>9s} by")
+    for arch in FAMILY:
+        for (k, n), mult in _proj_shapes(get_config(arch)).items():
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            for name, fname in KERNEL_CASES:
+                int4 = name == "mx_matmul_int4"
+                t = quantize(w, get_format(fname, 32), axis=0)
+                if int4:
+                    codes = pack_leaf_int4(t).packed
+                    kern, plain = mx_matmul.mx_matmul_int4, \
+                        ref.ref_mx_matmul_int4
+                else:
+                    codes = t.codes
+                    kern, plain = mx_matmul.mx_matmul, ref.ref_mx_matmul
+                scales = t.scale_exp
+                wbytes = codes.numel() + scales.numel()
+                n_copy = max(1, min(64, math.ceil(128e6 / wbytes)))
+                copies = [(codes.clone(), scales.clone())
+                          for _ in range(n_copy)]
+                n_dense = max(1, min(16, math.ceil(128e6 / (2 * k * n))))
+                w_bf16 = dequantize(t, torch.bfloat16)
+                dense = [w_bf16.clone() for _ in range(n_dense)]
+                for m in FAMILY_MS:
+                    x = torch.randn((m, k), generator=gen,
+                                    device=dev).to(torch.bfloat16)
+                    got = kern(x, codes, scales, t.fmt)
+                    want = plain(x, codes, scales, t.fmt)
+                    torch.cuda.synchronize()
+                    scale = float(want.abs().max())
+                    err = float((got - want).abs().max())
+                    if not torch.allclose(got, want, rtol=1e-4,
+                                          atol=1e-4 * scale):
+                        fail(f"{arch} {name}[{fname}] M={m} K={k} N={n}: "
+                             f"max abs err {err:.3g} vs max|plain| "
+                             f"{scale:.3g}")
+                    ms = cuda_time_ms(lambda i: kern(
+                        x, copies[i % n_copy][0], copies[i % n_copy][1],
+                        t.fmt), 50)
+                    plain_ms = cuda_time_ms(
+                        lambda i: plain(x, codes, scales, t.fmt), 3)
+                    lib_ms = cuda_time_ms(
+                        lambda i: torch.matmul(x, dense[i % n_dense]), 50)
+                    t_bytes = (wbytes + m * k * 2 + m * n * 4) \
+                        / HBM_BYTES_PER_S * 1e3
+                    t_ops = 2 * m * k * n / BF16_FLOP_PER_S * 1e3
+                    by = "bytes" if t_bytes >= t_ops else "operations"
+                    rows.append(dict(
+                        arch=arch, kernel=name, format=fname, M=m, K=k, N=n,
+                        per_layer=mult, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=max(t_bytes, t_ops), bound_by=by))
+                    log(f"{arch:14s}{name:16s}{fname:8s}{m:4d}{k:6d}{n:6d}"
+                        f"{err:11.3g}{ms:9.4f}{plain_ms:9.4f}{lib_ms:11.4f}"
+                        f"{max(t_bytes, t_ops):9.4f} {by}")
+                del copies, dense, w_bf16, t, codes, scales
+            del w
+            torch.cuda.empty_cache()
+    for arch in FAMILY:
+        for name, fname in KERNEL_CASES:
+            for m in FAMILY_MS:
+                sel = [r for r in rows if (r["arch"], r["kernel"],
+                                           r["format"], r["M"])
+                       == (arch, name, fname, m)]
+                tot = {key: sum(r["per_layer"] * r[key] for r in sel)
+                       for key in ("ms", "plain_ms", "library_ms",
+                                   "bound_ms")}
+                log(f"one {arch} layer's {sum(r['per_layer'] for r in sel)} "
+                    f"projections at M={m}, {name}[{fname}]: "
+                    f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms, "
+                    f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of it; plain "
+                    f"{tot['plain_ms']:.4f} ms; torch bf16 "
+                    f"{tot['library_ms']:.4f} ms)")
+    return rows
+
+
+def _slo_trace(vocab: int, seed: int, tpot_ms: float):
+    """12 requests, 4 per tier, prompts of 16-64 tokens (one chunk each),
+    arrivals spread over ticks 0-20 with a burst of four at tick 12; the
+    latency tier carries the TPOT budget ``tpot_ms``."""
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.slo import SLOClass
+    rng = np.random.default_rng(seed + 22)
+    tiers = rng.permutation(["latency"] * 4 + ["throughput"] * 4
+                            + ["best_effort"] * 4).tolist()
+    arrivals = sorted(rng.integers(0, 21, size=8).tolist() + [12] * 4)
+    slos = {"latency": SLOClass.latency(ttft_ms=SLO_TTFT_MS["latency"],
+                                        tpot_ms=tpot_ms),
+            "throughput": SLOClass.throughput(
+                ttft_ms=SLO_TTFT_MS["throughput"]),
+            "best_effort": SLOClass.best_effort()}
+    return [Request(rid=i, prompt=rng.integers(
+        0, vocab, size=int(rng.integers(16, 65))).astype(np.int32),
+        max_new=MAX_NEW, slo=slos[tier], tenant=tier, arrival_tick=tick)
+        for i, (tier, tick) in enumerate(zip(tiers, arrivals))]
+
+
+def _check_tier_order(what: str, reqs) -> None:
+    """Among the requests that had arrived by a tick, none of a lower tier
+    was admitted at it while one of a higher tier waited."""
+    from repro_torch.serve.slo import tier_rank
+    for r in reqs:
+        for q in reqs:
+            if q.arrival_tick <= r.admitted_tick < q.admitted_tick and \
+                    tier_rank(q.slo) < tier_rank(r.slo):
+                fail(f"{what}: rid {r.rid} ({r.slo.tier}) admitted at tick "
+                     f"{r.admitted_tick} while rid {q.rid} ({q.slo.tier}, "
+                     f"arrived at {q.arrival_tick}) waited")
+
+
+def phase_slo(cfg, anchor, seed: int):
+    """SLO-tiered serving on the paged graph engine with a cost model
+    seeded from the roofline and calibrated online; returns the launches
+    of B1-B5 over its rounds."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+    from repro_torch.serve.policy import FormatPolicy
+    from repro_torch.serve.slo import TIERS, CostModel
+
+    cost = CostModel.from_roofline(cfg, SLO_FMTS, max_len=MAX_LEN,
+                                   kv_layout="paged", kv_page_size=PAGE)
+    log(f"SLO phase: {cfg.n_layers} layers, paged graph engine "
+        f"(admission_order='slo'), CostModel.from_roofline at "
+        f"{cost.hbm_bytes_per_s:.3g} B/s; raw roofline terms " + ", ".join(
+            f"{f} {1e3 * cost.terms[f].base_s:.3f} ms + "
+            f"{1e3 * cost.terms[f].per_row_s:.4f} ms/row" for f in SLO_FMTS))
+    eng = ElasticEngine(make_model(cfg), anchor, batch_slots=SLOTS,
+                        max_len=MAX_LEN, kv_layout="paged",
+                        kv_page_size=PAGE, prefill_chunk=CHUNK,
+                        policy=FormatPolicy(cost=cost),
+                        admission_order="slo", device="cuda")
+    _reset_quant_launches()
+    totals = {}
+    walls = {f: [] for f in SLO_FMTS}
+    pure = lambda t: t["decode"] and not t["prefill_chunks"]
+    rnd = 0
+    for tpot, n_rounds in SLO_ROUNDS:
+        for _ in range(n_rounds):
+            reqs = _slo_trace(cfg.vocab, seed, tpot)
+            h0 = len(eng.policy.history)
+            mx_matmul.reset_launches()
+            pa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.generate(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            what = f"SLO round {rnd} (TPOT {tpot} ms)"
+            trace = eng.tick_trace
+            _check_launches(what, trace, cfg.n_layers,
+                            dict(mx_matmul.launches), dict(pa.launches))
+            for k, v in {**mx_matmul.launches, **pa.launches}.items():
+                totals[k] = totals.get(k, 0) + v
+            bad = [r.rid for r in reqs if r.status.value != "completed"
+                   or len(r.out_tokens) != MAX_NEW]
+            if bad:
+                fail(f"{what}: requests {bad} incomplete")
+            _check_tier_order(what, reqs)
+            picks = eng.policy.history[h0:]
+            if len(set(picks)) == 1:
+                walls[picks[0]] += [1e3 * t["wall_s"] for t in trace
+                                    if pure(t)]
+            idle = sum(1 for t in trace if not t["execs"])
+            tiers = []
+            for tier in TIERS:
+                sel = [r for r in reqs if r.slo.tier == tier]
+                budget = SLO_TTFT_MS.get(tier)
+                ttft = [1e3 * (r.ttft_s - r.arrival_s) for r in sel]
+                met = "-" if budget is None else \
+                    f"{sum(v <= budget for v in ttft)}/{len(sel)}"
+                tiers.append(
+                    f"{tier}: TTFT ms {[round(v, 1) for v in ttft]} "
+                    f"(budget {budget}, met {met}), "
+                    f"{sum(len(r.out_tokens) for r in sel) / wall:.1f} "
+                    "tok/s")
+            log(f"{what}: picks {picks}, admitted ticks "
+                f"{[r.admitted_tick for r in reqs]} (arrivals "
+                f"{[r.arrival_tick for r in reqs]}), {len(trace)} ticks of "
+                f"which {idle} idle, pure decode tick "
+                f"{_tick_wall(trace, pure)}; {'; '.join(tiers)}; wave "
+                f"{sum(len(r.out_tokens) for r in reqs) / wall:.1f} tok/s")
+            rnd += 1
+    st = eng.stats()
+    if st["kv_pages_alloc"] != st["kv_pages_freed"]:
+        fail(f"SLO phase: pages alloc {st['kv_pages_alloc']} != freed "
+             f"{st['kv_pages_freed']}")
+    log(f"SLO phase: policy history {eng.policy.history}")
+    snap = st["cost_model"]
+    for f in SLO_FMTS:
+        term = snap[f]
+        med = f"{np.median(walls[f]):.2f} ms (n {len(walls[f])})" \
+            if walls[f] else "not pinned alone"
+        log(f"SLO cost model {f}: predict_ms at 1 / {SLOTS} rows "
+            f"{cost.predict_ms(f, 1):.3f} / {cost.predict_ms(f, SLOTS):.3f} "
+            f"ms; factor {term['factor']:.3f} over "
+            f"{term['ticks_observed']} ticks; raw "
+            f"{1e3 * cost.raw_predict_s(f, SLOTS):.4f} ms at {SLOTS} rows; "
+            f"measured median pure decode tick {med}")
+        if f in st["weight_bytes"]:
+            wb = st["weight_bytes"][f]
+            if not math.isclose(term["base_s"] * cost.hbm_bytes_per_s, wb,
+                                rel_tol=1e-12):
+                fail(f"SLO phase {f}: base_s x hbm = "
+                     f"{term['base_s'] * cost.hbm_bytes_per_s} != "
+                     f"weight_bytes {wb}")
+        if f in eng.policy.history and not cost.measured(f):
+            fail(f"SLO phase: {f} was pinned but never measured "
+                 f"({term['ticks_observed']} clean ticks)")
+    counts = _quant_launches()
+    builds = sum(1 for f in st["formats_cached"] if f != anchor.fmt_name)
+    want = {"mx_quantize": 0, "ss_convert": PROJ_PER_LAYER * builds,
+            "fake_quant": 0}
+    if counts != want:
+        fail(f"SLO phase: kernel launches {counts}, want {want}")
+    log(f"SLO phase: formats built {st['formats_cached']}, launches "
+        f"{totals} and {counts}")
+    del eng
+    torch.cuda.empty_cache()
+    return {**totals, **counts}
+
+
+def phase_dense_family(seed: int):
+    """starcoder2-3b at full width and depth on the dense graph engine at
+    mxint8 and mxint4, and qwen2-72b at full width and depth
+    ``QWEN2_LAYERS`` at mxint8; returns the launches of B1, B2, B5, B6."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels.dispatch import make_qmm
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+
+    totals = {}
+    for arch, depth, fmts in (("starcoder2-3b", None, ("mxint8", "mxint4")),
+                              ("qwen2-72b", QWEN2_LAYERS, ("mxint8",))):
+        cfg = get_config(arch)
+        if depth is not None:
+            log(f"DEPTH CUT: {arch} serves {depth} of {cfg.n_layers} layers "
+                "(widths unchanged; not a multiple of 32, so the stacked "
+                "biases stay raw)")
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        per_layer = sum(_proj_shapes(cfg).values())
+        _reset_quant_launches()
+        torch.cuda.reset_peak_memory_stats()
+        anchor = build_anchor(cfg, seed, save=False)
+        log(f"{arch}: anchor peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        biases = [k for k in list(anchor.raw) + list(anchor.quantized)
+                  if k.endswith(("['bq']", "['bk']", "['bv']", "['b_up']",
+                                 "['b_down']"))]
+        if not biases or any(k not in anchor.raw for k in biases):
+            fail(f"{arch}: bias leaves {biases} not all raw in the anchor")
+        api = make_model(cfg)
+        eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                            device="cuda")
+        for fmt in fmts:
+            kernel = "mx_matmul_int4" if fmt == "mxint4" else "mx_matmul"
+            weights = eng.weights_for(fmt)
+            # the prefill and the first decode tick through both contracts,
+            # the decode tick fed the same token (the kernel path's argmax):
+            # a near-tie in the prefill logits must not hand the two
+            # contracts different inputs
+            prompt = _requests(cfg.vocab, seed)[0].prompt
+            batch = {"tokens": torch.as_tensor(prompt[None], device="cuda")}
+            got, nxt = {}, None
+            for mode in ("kernel", "densify"):
+                mapi = api.with_qmm(make_qmm(mode))
+                cache = mapi.init_cache(1, MAX_LEN, device="cuda")
+                lg, cache, clen = mapi.prefill_slot(weights, batch, cache, 0)
+                if nxt is None:
+                    nxt = torch.argmax(lg)[None, None].to(torch.int32)
+                lg2, _ = mapi.serve_step(weights, {"tokens": nxt}, cache,
+                                         clen[None])
+                got[mode] = (lg.float(), lg2[0].float())
+                del cache
+            for step, (a, b) in enumerate(zip(got["kernel"],
+                                              got["densify"])):
+                diff = float((a - b).abs().max())
+                ref_max = float(b.abs().max())
+                log(f"{arch} {fmt} step {step} logits: max|kernel - "
+                    f"densify| = {diff:.4g}, max|densify| = {ref_max:.4g}, "
+                    f"argmax {int(a.argmax())} vs {int(b.argmax())}")
+                if not (torch.isfinite(a).all()
+                        and diff <= FUSED_TOL * ref_max):
+                    fail(f"{arch} {fmt} step {step}: kernel logits differ "
+                         f"from densify by {diff:.4g} > {FUSED_TOL} * "
+                         f"{ref_max:.4g}")
+            reqs = _requests(cfg.vocab, seed)
+            mx_matmul.reset_launches()
+            wall = _timed_wave(eng, reqs, fmt)
+            mm = dict(mx_matmul.launches)
+            _check_launches(f"{arch} {fmt}", eng.tick_trace, cfg.n_layers,
+                            mm, per_layer=per_layer)
+            if mm[_OTHER[kernel]]:
+                fail(f"{arch} {fmt}: launches {mm} ran the other kernel")
+            for k, v in mm.items():
+                totals[k] = totals.get(k, 0) + v
+            bad = [r.rid for r in reqs if r.status.value != "completed"
+                   or len(r.out_tokens) != MAX_NEW]
+            if bad:
+                fail(f"{arch} {fmt}: requests {bad} incomplete")
+            twin = _eager_twin(eng)
+            treqs = _requests(cfg.vocab, seed)
+            twin.generate(treqs, fmt_override=fmt)
+            _check_same_streams(f"{arch} {fmt}", reqs, treqs)
+            del twin
+            reqs = _requests(cfg.vocab, seed)
+            wall2 = _timed_wave(eng, reqs, fmt)
+            total = sum(len(r.out_tokens) for r in reqs)
+            st = eng.stats()
+            tick = _tick_wall(eng.tick_trace, lambda t: t["decode"]
+                              and not t["prefill_tokens"])
+            log(f"{arch} {fmt} dense graph engine, {cfg.n_layers} layers: "
+                f"capturing wave {wall:.2f} s; timed wave {total} tokens in "
+                f"{wall2:.3f} s = {total / wall2:.1f} tok/s; decode tick "
+                f"{tick}; weight-stream bytes {st['weight_bytes'][fmt]}; streams "
+                f"equal to the eager twin's; launches {mm} (want {per_layer}"
+                f" x {cfg.n_layers} x executables); peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        counts = _quant_launches()
+        want = {"mx_quantize": per_layer,
+                "ss_convert": per_layer * sum(f != "mxint8" for f in fmts),
+                "fake_quant": 0}
+        if counts != want:
+            fail(f"{arch}: anchor and format builds launched {counts}, "
+                 f"want {want}")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del eng, anchor, weights, api
+        torch.cuda.empty_cache()
+    return totals
+
+
+def phase_cli(src: str):
+    """The serving CLI at full width as a user runs it, in a process of its
+    own: ``python3 -m repro_torch.launch.serve --arch starcoder2-3b
+    --no-reduced --fmt mxint4`` prints four ``req`` lines and exits 0."""
+    import torch
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+           "starcoder2-3b", "--no-reduced", "--fmt", "mxint4"]
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith("req ")]
+    if proc.returncode != 0 or len(lines) != 4 or \
+            any("fmt=mxint4" not in line for line in lines):
+        fail(f"serving CLI exited {proc.returncode} with {len(lines)} req "
+             f"lines: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    log(f"serving CLI ({' '.join(cmd[1:])}): exit 0 in {wall:.1f} s")
+    for line in lines:
+        log(f"  {line}")
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2871,6 +3320,13 @@ def main() -> int:
     ap.add_argument("--serve-only", action="store_true",
                     help="card, build and the greedy graph ticks' walls "
                          "only; no result line")
+    ap.add_argument("--slo-only", action="store_true",
+                    help="card, build and the SLO phase only; no result "
+                         "line")
+    ap.add_argument("--family-only", action="store_true",
+                    help="card, build, B1/B2 at the starcoder2-3b and "
+                         "qwen2-72b shapes, their serving and the CLI only; "
+                         "no result line")
     ap.add_argument("--src", default=os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "src"),
         help="the tree whose repro_torch to measure (default: this one's)")
@@ -2890,6 +3346,19 @@ def main() -> int:
         log(f"greedy graph ticks only, {args.src}: "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    if args.slo_only:
+        cfg = qwen3_4b(36)
+        phase_slo(cfg, build_anchor(cfg, args.seed, save=False), args.seed)
+        log(f"SLO phase only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.family_only:
+        phase_family_kernels(args.seed)
+        phase_dense_family(args.seed)
+        phase_cli(args.src)
+        log(f"dense family only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
     if args.quant_only:
         phase_quant_kernels(args.seed)
         cfg = qwen3_4b(36)
@@ -2898,6 +3367,7 @@ def main() -> int:
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
     agg = phase_kernels(args.seed)
+    family_rows = phase_family_kernels(args.seed)
     if args.kernels_only:
         log(f"kernels only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
@@ -2970,6 +3440,23 @@ def main() -> int:
     if counts != want:
         fail(f"qwen3-4b serving: kernel launches {counts}, want {want}")
     add(counts)
+    # the SLO phase on the qwen3-4b anchor, then the rest of the dense
+    # family and the serving CLI; each phase reads its counts from 0
+    for k, v in phase_slo(cfg, anchor, args.seed).items():
+        if k in quant_launches:
+            quant_launches[k] += v
+        else:
+            launches[k] = launches.get(k, 0) + v
+    del anchor
+    gc.collect()        # what deleted engines may still hold, before the
+    #                     family's anchors (the largest of the run)
+    torch.cuda.empty_cache()
+    for k, v in phase_dense_family(args.seed).items():
+        if k in quant_launches:
+            quant_launches[k] += v
+        else:
+            launches[k] = launches.get(k, 0) + v
+    phase_cli(args.src)
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2994,6 +3481,7 @@ def main() -> int:
             "ms_by_body_at_m": a["crossover"],
             "library_ms_by_m": {m: per["library_ms"]
                                 for m, per in a["by_m"].items()},
+            "family_shapes": [r for r in family_rows if r["kernel"] == name],
         })
     for name, a in paged_rec.items():
         kernels.append({

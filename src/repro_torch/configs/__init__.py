@@ -8,8 +8,10 @@ from typing import List
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "qwen2-72b": "qwen2_72b",
     "qwen3-4b": "qwen3_4b",
     "smollm-135m": "smollm_135m",
+    "starcoder2-3b": "starcoder2_3b",
 }
 
 

@@ -1,0 +1,102 @@
+"""Analytic serving roofline: the terms the serving cost model is seeded
+from.
+
+Counterpart of the dense family's parameter counting and the serving terms
+of ``repro/launch/costmodel.py`` (``layer_param_macs``, ``total_params``,
+``_attn_layers``, ``serve_weight_stream_bytes``, ``serve_attn_read_span``,
+``serve_attn_bytes_per_row``, ``serve_roofline_terms``), with the same
+floats for the same config. They are a tested contract: the engine's
+measured ``stats()["weight_bytes"]`` and ``attn_read_bytes`` agree with
+them (``tests/test_torch_costmodel.py``). The training, dry-run and
+collective terms are not ported yet (ROADMAP A.10).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core.formats import get_format
+from repro_torch.models.common import ModelConfig
+
+
+def layer_param_macs(cfg: ModelConfig, j: int) -> Dict[str, float]:
+    """MAC-relevant weight sizes (= params in matmuls) of in-group layer
+    ``j``: attention and the MLP (SwiGLU: gate, up, down; gelu: up,
+    down)."""
+    del j       # the dense family: every layer is attention + MLP
+    d, hd = cfg.d_model, cfg.hd
+    return {"attn": d * (cfg.n_heads * hd) * 2 + d * (cfg.n_kv_heads * hd) * 2,
+            "mlp": (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff}
+
+
+def total_params(cfg: ModelConfig) -> float:
+    """Every matmul weight of the stack plus the embeddings (and the head
+    when untied)."""
+    per_group = 0.0
+    for j in range(cfg.scan_group):
+        for v in layer_param_macs(cfg, j).values():
+            per_group += v
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return per_group * cfg.n_groups + embed
+
+
+def _attn_layers(cfg: ModelConfig) -> int:
+    return cfg.scan_group * cfg.n_groups
+
+
+def _itemsize(cfg: ModelConfig) -> int:
+    return torch.empty((), dtype=cfg.compute_dtype).element_size()
+
+
+def serve_weight_stream_bytes(cfg: ModelConfig, fmt_name: str,
+                              block_size: int = 32) -> float:
+    """Bytes one decode tick streams for the packed serving tree at
+    ``fmt_name``: codes and E8M0 scales for the quantized stack, raw
+    embeddings at ``cfg.compute_dtype`` (the ``"bf16"`` pseudo-format is
+    the dense tree). Norm vectors and biases are dropped: O(d_model)."""
+    item = _itemsize(cfg)
+    embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    stack = total_params(cfg) - embed
+    if fmt_name == "bf16":
+        return (stack + embed) * item
+    fmt = get_format(fmt_name, block_size)
+    code_bytes = 0.5 if (fmt.kind == "int" and fmt.bits == 4) else 1.0
+    return stack * (code_bytes + 1.0 / block_size) + embed * item
+
+
+def serve_attn_read_span(cfg: ModelConfig, max_len: int,
+                         kv_layout: str = "dense",
+                         kv_page_size: int = 16) -> int:
+    """KV tokens one gather-path decode read spans per batch row: ``max_len``
+    on the dense layout, the block table's page span on the paged one (the
+    paged kernels read only the live pages; the engine counts those)."""
+    if kv_layout == "paged":
+        return -(-max_len // kv_page_size) * kv_page_size
+    return max_len
+
+
+def serve_attn_bytes_per_row(cfg: ModelConfig, span_tokens: int) -> float:
+    """Bytes one decode row's attention reads per tick over ``span_tokens``
+    KV positions: K and V at ``cfg.compute_dtype`` in every attention
+    layer (the engine's ``attn_read_bytes`` multiplier)."""
+    return float(span_tokens) * _attn_layers(cfg) * 2 \
+        * cfg.n_kv_heads * cfg.hd * _itemsize(cfg)
+
+
+def serve_roofline_terms(cfg: ModelConfig, formats,
+                         *, max_len: int, kv_layout: str = "dense",
+                         kv_page_size: int = 16, block_size: int = 32,
+                         n_model: int = 1) -> Dict[str, Dict[str, float]]:
+    """``{fmt: {"weight_bytes", "attn_bytes_per_row"}}`` per decode tick:
+    the weights stream once per tick, the attention read grows with the
+    live rows. ``n_model`` tensor-parallel shards divide both terms (the
+    roofline is per card)."""
+    if n_model < 1:
+        raise ValueError(f"n_model ({n_model}) must be >= 1")
+    span = serve_attn_read_span(cfg, max_len, kv_layout, kv_page_size)
+    attn = serve_attn_bytes_per_row(cfg, span) / n_model
+    return {f: {"weight_bytes":
+                serve_weight_stream_bytes(cfg, f, block_size) / n_model,
+                "attn_bytes_per_row": attn}
+            for f in formats}

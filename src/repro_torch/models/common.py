@@ -23,10 +23,12 @@ from repro_torch.serve.packed_params import densify_leaf, is_packed_leaf
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters of the dense decoder-only family as the
-    port serves it (SwiGLU MLP, no biases): the fields of
-    ``repro/models/common.py::ModelConfig`` that qwen3-4b and smollm-135m
-    set, and ``sliding_window`` (None for both: full attention)."""
+    """Architecture hyper-parameters of the dense decoder-only family: the
+    fields of ``repro/models/common.py::ModelConfig`` that qwen3-4b,
+    smollm-135m, starcoder2-3b and qwen2-72b set (``act``: the SwiGLU or
+    the tanh-gelu MLP; ``qkv_bias`` / ``mlp_bias``: biases on the q/k/v
+    projections and on the MLP's up and down projections), and
+    ``sliding_window`` (None for all four: full attention)."""
 
     name: str
     family: str                     # the port serves "dense"
@@ -39,8 +41,11 @@ class ModelConfig:
     head_dim: int = 0               # 0 -> d_model // n_heads
     rope_theta: float = 10000.0
     qk_norm: bool = False
+    qkv_bias: bool = False
+    mlp_bias: bool = False
     sliding_window: Optional[int] = None    # attention sees the last W
     norm_eps: float = 1e-5
+    act: str = "swiglu"             # swiglu | gelu
     tie_embeddings: bool = False
     compute_dtype: Any = torch.bfloat16
     scan_group: int = 1             # layers per stacked group
@@ -63,14 +68,17 @@ class QuantCtx:
     qmm: Optional[Any] = None
 
     def dense(self, x: torch.Tensor, w, name: str,
-              ) -> torch.Tensor:
-        """y = x @ w in the activation dtype."""
+              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """y = x @ w (+ b) in the activation dtype: the bias, raw in every
+        tree, is added after the product, as the JAX package adds it."""
         if self.qmm is not None and is_packed_leaf(w):
             y = self.qmm(x, w, name)
         else:
             if is_packed_leaf(w):
                 w = densify_leaf(w, None, x.dtype, serving_axis=True)
             y = torch.matmul(x, w.to(x.dtype))
+        if b is not None:
+            y = y + b.to(x.dtype)
         return y
 
 

@@ -249,9 +249,11 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     window = cfg.sliding_window
-    q = ctx.dense(x, p["wq"], name + ".wq").reshape(b, s, h, hd)
-    k = ctx.dense(x, p["wk"], name + ".wk").reshape(b, s, hkv, hd)
-    v = ctx.dense(x, p["wv"], name + ".wv").reshape(b, s, hkv, hd)
+    q = ctx.dense(x, p["wq"], name + ".wq", p.get("bq")).reshape(b, s, h, hd)
+    k = ctx.dense(x, p["wk"], name + ".wk", p.get("bk")).reshape(b, s, hkv,
+                                                                 hd)
+    v = ctx.dense(x, p["wv"], name + ".wv", p.get("bv")).reshape(b, s, hkv,
+                                                                 hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -303,8 +305,17 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     return out, new_kv
 
 
-def mlp_block(ctx: QuantCtx, x: torch.Tensor, p, name: str) -> torch.Tensor:
-    """SwiGLU MLP."""
-    gate = ctx.dense(x, p["w_gate"], name + ".w_gate")
-    up = ctx.dense(x, p["w_up"], name + ".w_up")
-    return ctx.dense(F.silu(gate) * up, p["w_down"], name + ".w_down")
+def mlp_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
+              name: str) -> torch.Tensor:
+    """SwiGLU MLP, or (``act="gelu"``) up -> gelu -> down. The gelu is the
+    tanh approximation, ``jax.nn.gelu``'s default: the exact erf form
+    differs by ~1e-3. Biases, where the config has them, as in JAX: on the
+    gelu MLP's up projection and on the down projection."""
+    if cfg.act == "swiglu":
+        gate = ctx.dense(x, p["w_gate"], name + ".w_gate")
+        up = ctx.dense(x, p["w_up"], name + ".w_up")
+        hidden = F.silu(gate) * up
+    else:
+        hidden = F.gelu(ctx.dense(x, p["w_up"], name + ".w_up",
+                                  p.get("b_up")), approximate="tanh")
+    return ctx.dense(hidden, p["w_down"], name + ".w_down", p.get("b_down"))

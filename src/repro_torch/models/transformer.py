@@ -42,8 +42,10 @@ from repro_torch.serve.packed_params import is_packed_leaf, layer_slice
 # Init
 # =============================================================================
 def param_shapes(cfg: ModelConfig) -> Dict:
-    """Nested {name: (shape, init)} with init "ones" or a truncated-normal
-    std — the shapes and stds of the JAX init."""
+    """Nested {name: (shape, init)} with init "ones", "zeros" or a
+    truncated-normal std — the shapes and stds of the JAX init. Biases
+    (``qkv_bias``: bq / bk / bv; ``mlp_bias``: b_up / b_down) are stacked
+    (G, n) like every block leaf and start at zero, as in JAX."""
     if cfg.family != "dense":
         raise ValueError(f"the port serves the dense family only, got "
                          f"{cfg.family!r}")
@@ -53,10 +55,19 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     down = 0.02 / cfg.n_layers ** 0.5
     attn = {"wq": ((g, d, h * hd), 0.02), "wk": ((g, d, hkv * hd), 0.02),
             "wv": ((g, d, hkv * hd), 0.02), "wo": ((g, h * hd, d), down)}
+    if cfg.qkv_bias:
+        attn.update(bq=((g, h * hd), "zeros"), bk=((g, hkv * hd), "zeros"),
+                    bv=((g, hkv * hd), "zeros"))
     if cfg.qk_norm:
         attn.update(q_norm=((g, hd), "ones"), k_norm=((g, hd), "ones"))
-    mlp = {"w_gate": ((g, d, f), 0.02), "w_up": ((g, d, f), 0.02),
-           "w_down": ((g, f, d), down)}
+    mlp = {"w_up": ((g, d, f), 0.02), "w_down": ((g, f, d), down)}
+    if cfg.act == "swiglu":
+        mlp["w_gate"] = ((g, d, f), 0.02)
+    elif cfg.act != "gelu":
+        raise ValueError(f"unknown act {cfg.act!r}; one of ('swiglu', "
+                         "'gelu')")
+    if cfg.mlp_bias:
+        mlp.update(b_up=((g, f), "zeros"), b_down=((g, d), "zeros"))
     block = {"mixer_norm": ((g, d), "ones"), "attn": attn,
              "ffn_norm": ((g, d), "ones"), "mlp": mlp}
     shapes = {"embed": ((cfg.vocab, d), 0.02),
@@ -79,8 +90,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
         if isinstance(node, list):
             return [build(v) for v in node]
         shape, init = node
-        if init == "ones":
-            return torch.ones(shape, dtype=torch.float32, device=dev)
+        if init in ("ones", "zeros"):
+            fill = torch.ones if init == "ones" else torch.zeros
+            return fill(shape, dtype=torch.float32, device=dev)
         t = torch.empty(shape, dtype=torch.float32, device=dev)
         torch.nn.init.trunc_normal_(t, std=1.0, a=-2.0, b=2.0, generator=gen)
         return t.mul_(init)
@@ -137,7 +149,7 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
                 vc[:, :s] = v_new.to(vc.dtype)
             x = x + out
             h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-            x = x + L.mlp_block(ctx, h, p["mlp"], f"blk{j}.mlp")
+            x = x + L.mlp_block(ctx, h, p["mlp"], cfg, f"blk{j}.mlp")
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -162,10 +174,14 @@ def _last_hidden(hidden, lengths):
     return hidden[rows, lengths.long() - 1]
 
 
-# Projection leaves of a block, by the names ``dense`` gives them
-# (``blk{j}.attn.wq``, ...): the weights MF-QAT fake-quantizes.
-PROJECTIONS = {"attn": ("wq", "wk", "wv", "wo"),
-               "mlp": ("w_gate", "w_up", "w_down")}
+# Projection weights of a block per MLP kind, by the names ``dense`` gives
+# them (``blk{j}.attn.wq``, ...): the leaves MF-QAT fake-quantizes. Weights
+# only: JAX's ``dense`` fake-quantizes ``w`` and adds the bias raw.
+PROJECTIONS = {
+    "swiglu": {"attn": ("wq", "wk", "wv", "wo"),
+               "mlp": ("w_gate", "w_up", "w_down")},
+    "gelu": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_up", "w_down")},
+}
 
 
 def fake_quant_blocks(qat: QATConfig, fmt_idx: int, params,
@@ -177,7 +193,7 @@ def fake_quant_blocks(qat: QATConfig, fmt_idx: int, params,
     blocks = []
     for j, blk in enumerate(params["blocks"]):
         blk = dict(blk)
-        for sub, names in PROJECTIONS.items():
+        for sub, names in PROJECTIONS[cfg.act].items():
             blk[sub] = dict(blk[sub])
             for n in names:
                 w = blk[sub][n]

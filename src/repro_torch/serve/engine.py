@@ -103,9 +103,21 @@ tokens, and the slots' keys, temperatures and top-p values. A sampled
 tick's batch draw runs as a CUDA graph of its own, after the tick's.
 Prefill executables run eagerly.
 
-Left out of this slice (each refused with ``NotImplementedError`` naming
-its ROADMAP item): SLO tiers (``admission_order="slo"``) and tensor
-parallelism.
+SLO serving (``serve/slo.py``): ``Request.slo`` carries a tier and TTFT /
+TPOT budgets, ``Request.arrival_tick`` the scheduler tick at which a request
+becomes visible to admission (a tick with nothing live and nothing arrived
+is an idle tick), and ``admission_order="slo"`` admits the arrived requests
+by (tier rank, queue position). A drained engine re-picks its format from
+the arrived requests, passing the wave's tightest TPOT budget and expected
+decode rows to ``FormatPolicy.pick``; with a ``CostModel`` attached, each
+format build re-seeds its weight term from the bytes the cached tree
+streams, and each clean pure-decode tick (no prefill work, one executable,
+no guard replay, not speculative) after a format's first is folded into
+that format's calibration. The first is skipped as the reference skips its
+jit warm-up: here it runs eagerly, or is the CUDA-graph capture.
+
+Left out of this slice (refused with ``NotImplementedError`` naming its
+ROADMAP item): tensor parallelism.
 """
 from __future__ import annotations
 
@@ -133,6 +145,7 @@ from repro_torch.serve.packed_params import (anchor_block_size,
 from repro_torch.serve.policy import FormatPolicy, SpecConfig
 from repro_torch.serve.sampling import (fold_in, prng_key, sample_batch,
                                         split)
+from repro_torch.serve.slo import SLOClass, tier_rank
 from repro_torch.serve.tick_graph import TickGraphs
 
 DENSE_BF16 = "bf16"   # pseudo-format: dense anchor-precision weights
@@ -180,6 +193,16 @@ class Request:
     status: RequestStatus = RequestStatus.QUEUED
     error: Optional[str] = None
     cancel_requested: bool = False
+    slo: Optional[SLOClass] = None  # tier + TTFT/TPOT budgets; None =
+    #                                 best-effort, no budgets
+    tenant: Optional[str] = None    # workload attribution
+    arrival_tick: int = 0           # scheduler tick this request becomes
+    #                                 visible to admission (0 = queued)
+    arrival_s: Optional[float] = None   # wave clock when it came due
+    #                                     (stamped by the engine; TTFT
+    #                                     against the SLO is ttft_s minus
+    #                                     this)
+    admitted_tick: Optional[int] = None  # tick admission claimed it
     temperature: Optional[float] = None  # None -> the engine's
     top_p: Optional[float] = None        # None -> the engine's
 
@@ -242,8 +265,9 @@ class ElasticEngine:
     ``seed``, ``temperature`` and ``top_p`` set the sampled streams of
     ``generate(greedy=False)`` (temperature <= 0 decodes greedily);
     ``bucket_prompts=False`` prefills each prompt (and final chunk) at its
-    own length instead of a power-of-two bucket; ``admission_order`` is
-    ``"fifo"`` (``"slo"`` is refused). ``speculative`` (a ``SpecConfig``)
+    own length instead of a power-of-two bucket; ``admission_order``
+    ``"fifo"`` admits arrived requests in queue order, ``"slo"`` by (tier
+    rank, queue position). ``speculative`` (a ``SpecConfig``)
     turns pure decode ticks self-speculative (module docstring).
     ``cuda_graphs`` (None = on where the device is CUDA) runs decode,
     mixed, draft and verify ticks, and a sampled tick's draw, as CUDA
@@ -275,10 +299,6 @@ class ElasticEngine:
         if admission_order not in ("fifo", "slo"):
             raise ValueError(f"unknown admission_order {admission_order!r}; "
                              "one of ('fifo', 'slo')")
-        if admission_order == "slo":
-            raise NotImplementedError(
-                "admission_order='slo': SLO tiers (Request.slo, serve/slo.py"
-                "::tier_rank) are not ported yet (ROADMAP A.5)")
         self.admission_order = admission_order
         if fault_injector is not None:
             if not isinstance(fault_injector, FaultInjector):
@@ -417,6 +437,8 @@ class ElasticEngine:
         self._kv_pages_freed = 0
         self._kv_pages_hwm = 0
         self._attn_tokens_read = 0
+        self._fmt_decode_ticks: Dict[str, int] = {}  # clean decode ticks
+        #                          per format (the first is not cost)
         self.tick_trace: List[Dict[str, float]] = []   # reset per generate
         # What a captured tick reads and writes, allocated at the first wave
         # and kept (``_wave_state``, ``_mixed_batch``).
@@ -459,6 +481,12 @@ class ElasticEngine:
                 w = self.dense_weights_for(fmt_name)
             self._weights[fmt_name] = w
             self._fmt_swaps += 1
+            if self.policy.cost is not None:
+                # the analytic weight term becomes the bytes the cached
+                # tree streams (seed() keeps a learned factor)
+                self.policy.cost.seed(
+                    fmt_name, weight_stream_bytes(w),
+                    self._attn_read_span * self._attn_token_bytes)
         return self._weights[fmt_name]
 
     def dense_weights_for(self, fmt_name: str):
@@ -678,16 +706,30 @@ class ElasticEngine:
                         f"{allocatable} allocatable")
         return None
 
-    def _pop_admissible(self, pending: List[Request]) -> Optional[Request]:
-        """Next servable request (FIFO); unservable ones end
-        FAILED_CAPACITY right here."""
-        while pending:
-            r = pending.pop(0)
+    def _pop_admissible(self, pending: List[Request],
+                        tick: int) -> Optional[Request]:
+        """Next servable request that has arrived by ``tick``
+        (``Request.arrival_tick``) off the queue, stamped with its
+        ``admitted_tick``; unservable ones end FAILED_CAPACITY right here.
+        ``"fifo"`` takes the earliest queued, ``"slo"`` the least (tier
+        rank, queue position): FIFO within a tier."""
+        while True:
+            best_key, idx = None, None
+            for j, r in enumerate(pending):
+                if r.arrival_tick > tick:
+                    continue
+                key = (tier_rank(r.slo), j) \
+                    if self.admission_order == "slo" else (0, j)
+                if best_key is None or key < best_key:
+                    best_key, idx = key, j
+            if idx is None:
+                return None
+            r = pending.pop(idx)
             reason = self._admission_reject(r)
             if reason is None:
+                r.admitted_tick = tick
                 return r
             self._finish(r, RequestStatus.FAILED_CAPACITY, reason)
-        return None
 
     # ---- the logit guard --------------------------------------------------
     def _escalate_or_none(self, fmt: str, tick: int,
@@ -1044,6 +1086,9 @@ class ElasticEngine:
                             r.cancel_requested = True
             now = time.perf_counter() - t0
             for r in list(pending):
+                if r.arrival_s is None and r.arrival_tick <= tick_id:
+                    r.arrival_s = now       # came due: SLO TTFT counts
+                    #                         from here
                 verdict = expired(r, now)
                 if verdict is not None:
                     pending.remove(r)
@@ -1070,11 +1115,25 @@ class ElasticEngine:
                 page = fi.pool_poison_page(tick_id)
                 if page is not None:
                     self._nan_pool_page(page)
+            # arrival gating: nothing live and every queued request still
+            # in the future makes this an idle tick
+            if filling is None and not any(a is not None for a in active) \
+                    and not any(r.arrival_tick <= tick_id for r in pending):
+                pinned = None
+                self._record_tick(dict(prefill_tokens=0, prefill_chunks=0,
+                                       execs=0, rows=0), 0, t_tick, span,
+                                  decode_rows=0)
+                continue
             if pinned is None:          # engine drained: re-pick format
+                # load, the tightest TPOT budget and the expected decode
+                # rows of the ARRIVED requests
+                arrived = [r for r in pending if r.arrival_tick <= tick_id]
                 pinned = self.policy.pick(
-                    queue_depth=len(pending),
+                    queue_depth=len(arrived), active=0,
                     prefill_tokens=sum(np.asarray(r.prompt).size
-                                       for r in pending),
+                                       for r in arrived),
+                    tpot_budget_ms=self._tightest_tpot_ms(arrived),
+                    decode_rows=max(1, min(b, len(arrived))),
                     override=fmt_override)
             self.set_format(pinned)
             tick = dict(prefill_tokens=0, prefill_chunks=0, execs=0, rows=0)
@@ -1086,7 +1145,7 @@ class ElasticEngine:
                 for i in range(b):
                     if active[i] is not None or wait_pages:
                         continue
-                    r = self._pop_admissible(pending)
+                    r = self._pop_admissible(pending, tick_id)
                     if r is None:
                         break
                     r.status = RequestStatus.RUNNING
@@ -1144,7 +1203,7 @@ class ElasticEngine:
                 # ---- chunked admission: claim the (single) mid-prefill
                 # request and allocate this chunk's pages
                 if filling is None and not wait_pages and None in active:
-                    cand = self._pop_admissible(pending)
+                    cand = self._pop_admissible(pending, tick_id)
                     if cand is not None:
                         fill_slot = active.index(None)
                         filling, fill_cursor = cand, 0
@@ -1547,6 +1606,7 @@ class ElasticEngine:
             drained = drain.drained
             self._decode_s += time.perf_counter() - t_dec
             self._ticks += 1
+            attn_before = self._attn_tokens_read
 
             # Attention-read accounting for the tick that just ran. The
             # gather path (and the dense layout) reads every row's whole
@@ -1609,11 +1669,35 @@ class ElasticEngine:
                     complete_admission(fill_slot, filling, drain.first,
                                        drain.first_key)
                     filling = None
-            self._record_tick(tick, 1, t_tick, span,
-                              decode_rows=int(mask.sum()))
+            # ---- cost-model calibration: only clean pure-decode ticks (no
+            # prefill work, one executable: no replay) are the pinned
+            # format's per-tick cost; the measured attention read refreshes
+            # the per-row term. A format's first such tick (eager, or the
+            # CUDA-graph capture) is warm-up, never folded in.
+            cost = self.policy.cost
+            rows_d = int(mask.sum())
+            if cost is not None and rows_d and tick["prefill_chunks"] == 0 \
+                    and tick["execs"] == 1:
+                seen = self._fmt_decode_ticks.get(pinned, 0)
+                self._fmt_decode_ticks[pinned] = seen + 1
+                if seen:
+                    cost.observe(
+                        pinned, rows_d, time.perf_counter() - t_tick,
+                        attn_bytes_per_row=(self._attn_tokens_read
+                                            - attn_before)
+                        * self._attn_token_bytes / rows_d)
+            self._record_tick(tick, 1, t_tick, span, decode_rows=rows_d)
             if all(a is None for a in active) and filling is None:
                 pinned = None
         return requests
+
+    @staticmethod
+    def _tightest_tpot_ms(reqs: List[Request]) -> Optional[float]:
+        """The wave's binding per-token budget: the least ``tpot_ms`` among
+        requests that carry one (None when none does)."""
+        vals = [r.slo.tpot_ms for r in reqs
+                if r.slo is not None and r.slo.tpot_ms is not None]
+        return min(vals) if vals else None
 
     def _record_tick(self, tick: Dict[str, int], decode: int, t_tick: float,
                      span, decode_rows: int, draft_execs: int = 0,
@@ -1770,6 +1854,12 @@ class ElasticEngine:
                           "fmt_used": r.fmt_used, "ttft_s": r.ttft_s,
                           "deadline_s": r.deadline_s, "done": bool(r.done),
                           "cancel_requested": bool(r.cancel_requested),
+                          "slo": (r.slo.to_dict() if r.slo is not None
+                                  else None),
+                          "tenant": r.tenant,
+                          "arrival_tick": int(r.arrival_tick),
+                          "arrival_s": r.arrival_s,
+                          "admitted_tick": r.admitted_tick,
                           "temperature": r.temperature, "top_p": r.top_p}
                          for r in requests],
             "pending": [r.rid for r in st["pending"]],
@@ -1852,8 +1942,11 @@ class ElasticEngine:
             r.out_tokens = [int(t) for t in arrays[f"out_{rd['rid']}"]]
             r.status = RequestStatus(rd["status"])
             for f in ("error", "fmt_used", "ttft_s", "deadline_s", "done",
-                      "cancel_requested", "temperature", "top_p"):
+                      "cancel_requested", "tenant", "arrival_tick",
+                      "arrival_s", "admitted_tick", "temperature", "top_p"):
                 setattr(r, f, rd[f])
+            r.slo = SLOClass.from_dict(rd["slo"]) \
+                if rd["slo"] is not None else None
             by_rid[r.rid] = r
             requests.append(r)
         c = meta["counters"]
@@ -1961,6 +2054,8 @@ class ElasticEngine:
                 if self._spec_accepted + self._spec_rejected else None),
             "snapshots_saved": self._snapshots_saved,
             "resumes": self._resumes,
+            "cost_model": (self.policy.cost.snapshot()
+                           if self.policy.cost is not None else None),
         }
 
 

@@ -117,8 +117,7 @@ def test_oversized_prompt_fails_alone(served):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"mesh": object()}, "A.9"),
-    ({"admission_order": "slo"}, "A.5")])
+    ({"mesh": object()}, "A.9")])
 def test_unported_options_refuse_loudly(served, kw, item):
     _, _, _, path = served
     with pytest.raises(NotImplementedError, match="not ported") as ei:
