@@ -8,10 +8,17 @@ check them.
     python3 chip_smoke.py --serve-only [--src DIR]
     python3 chip_smoke.py --slo-only
     python3 chip_smoke.py --family-only
+    python3 chip_smoke.py --moe-only
+    python3 chip_smoke.py --train-long-only
+    python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
 2, 5 and 8a, ``--slo-only`` phases 1, 2 and 12, ``--family-only`` phases
-1, 2, 3b, 13 and 14, ``--serve-only`` phases 1 and 2 and then greedy
+1, 2, 3b, 13 and 14, ``--moe-only`` phases 1, 2 and 15,
+``--train-long-only`` phases 1, 2 and 16, ``--train-only`` phases 1 and 2
+and then phase 6's smollm-135m runs A and B, each step split into its
+parts (with ``--src``, another tree's, for a same-call A/B of the training
+step), ``--serve-only`` phases 1 and 2 and then greedy
 waves of the
 dense and the paged graph engine (qwen3-4b, 36 layers) at mxint8 and
 mxint4, a capturing wave and three timed ones each, printing the median
@@ -79,11 +86,13 @@ Phases (any failure exits non-zero before the result line):
      paper cycles a small QAT set), run_training through the
      sequential MXINT schedule (8 steps, B7) and the anchored mxint8
      variant (4 interleaved steps, B6 + B5), then qwen3-4b at full width
-     and depth 4 (2 direct steps, B7 at its large leaves); per-step CUDA
-     event times, losses, grad norms, peak memory and launch counts equal
-     to what the structure predicts; for smollm-135m and qwen3-4b, one
-     step split into its parts (CUDA events) and profiled by kernel
-     (torch.profiler);
+     and depth 4 (2 direct steps, B7 at its large leaves), all with the
+     reference's defaults (flash_vjp, remat); run A once more with both
+     off (autograd through prefill_attention), its step beside the
+     defaults'; per-step CUDA event times, losses, grad norms, peak memory
+     and launch counts equal to what the structure predicts; for
+     smollm-135m and qwen3-4b, one step split into its parts (CUDA events)
+     and profiled by kernel (torch.profiler);
   7. the pipeline: run B's trained weights -> make_anchor (B6) ->
      save_anchor / load_anchor -> ElasticEngine at mxint8 and mxint4 (B5
      builds it), first-token logits at mxint4 within 5% of max|logit| of
@@ -160,11 +169,41 @@ Phases (any failure exits non-zero before the result line):
      biases) at mxint8: biases raw in the anchor; the prefill's and the
      first decode tick's logits (that tick fed the same token on both
      sides) within 5% of max|logit| of the densify contract; 8 greedy
-     requests, launches as the structure predicts, streams equal to an
-     eager twin's; tick wall and tok/s;
+     requests, launches as the structure predicts, weight-stream bytes
+     within 2% of serve_weight_stream_bytes, streams equal to an eager
+     twin's; tick wall, tok/s and TTFT;
  14. the serving CLI: ``python3 -m repro_torch.launch.serve --arch
      starcoder2-3b --no-reduced --fmt mxint4`` in a process of its own
-     exits 0 with four ``req`` lines.
+     exits 0 with four ``req`` lines;
+ 15. the MoE family: B1 / B2 at every mixtral-8x7b and mixtral-8x22b
+     attention and expert shape at M = 4, 80 and 256, held against their
+     plain versions (phase 3's tolerance) and timed beside torch's bf16
+     matmul and the bound, one layer's sum per M; mixtral-8x7b at full
+     width and depth MOE_LAYERS: an MXINT8 anchor through B6 (one launch
+     per stacked leaf, the (G, 8, K, N) expert leaves included; the router
+     raw; its peak), the dense graph engine at mxint8 and mxint4 (B5
+     builds it), as in 13: the prefill's and the first decode tick's
+     logits within 5% of max|logit| of the densify contract in f32 (in
+     bf16 reported beside the router picks that differ: a bf16 rounding
+     difference can flip a token's experts), B1/B2 launches (4 + 3 x 8) x
+     layers per executable, and the rest of 13's gates; then the paged
+     graph engine (page 16, prefill_chunk 64, mixed scheduler) at mxint8
+     on the 8 requests and one of LONG_PROMPT tokens (max_len
+     LONG_MAX_LEN): that request's first decode tick through B3 within 5%
+     of the gather contract in f32 (bf16 reported), B3's
+     walk the window's pages (pages_read with the window, fewer than
+     without), B3 on its pools against its plain version and timed with
+     and without the window; launches (B3 / B4 per pure / mixed tick), one
+     executable per tick, pages balanced, every request complete, streams
+     equal to an eager twin's;
+ 16. long-sequence training: qwen3-4b at full width and depth 4, seq
+     2048 x batch 1, two direct steps in each of the four (flash_vjp,
+     remat) settings (step ms, peak); the same at seq 8192 with both on
+     (both off would keep >= 17 GB of scores per layer: reckoned, not
+     run); mixtral-8x7b at full width, one layer, seq 8192 x batch 1, two
+     direct steps through flash_vjp's banded path (the band logged) and
+     B7 on the (1, 8, 4096, 14336) expert leaves: finite losses, aux loss
+     > 0, step ms, peak, B7 launches as the structure predicts.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -235,6 +274,18 @@ OWN_TEMPERATURE, OWN_TOP_P = (1, 1.2), (2, 0.8)      # (rid, value)
 FAMILY = ("starcoder2-3b", "qwen2-72b")
 FAMILY_MS = (4, 256)
 QWEN2_LAYERS = 8
+# The MoE family (phase 15): B1 / B2 at both mixtral configs' shapes at
+# these M (decode's 4 slots x cap 1; the mixed tick's 4 rows x cap 20 of
+# C = 64; a prefill bucket), mixtral-8x7b served at a cut depth, and one
+# long request whose decode reads only the sliding window's pages.
+MOE = ("mixtral-8x7b", "mixtral-8x22b")
+MOE_MS = (4, 80, 256)
+MOE_LAYERS = 4
+LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4608, 16, 4736
+# Long-sequence training (phase 16): qwen3-4b at depth 4 over the four
+# (flash_vjp, remat) settings, then at seq 8192; mixtral-8x7b at one layer.
+LONG_SEQ_LEVERS = (2048, 2)       # (seq, steps) per (flash_vjp, remat)
+LONG_SEQ = 8192
 # The SLO phase: the paged graph engine (qwen3-4b, 36 layers) with a cost
 # model, serving one seeded trace of 12 requests per round: rounds at a
 # latency-tier TPOT budget between the paged pure-decode ticks measured at
@@ -1256,24 +1307,46 @@ def _quant_launches():
             **ss_convert.launches}
 
 
+def _restore_fake_quant(count: int) -> None:
+    """Set B7's count back to ``count``: launches made to measure, not by
+    the run being counted."""
+    from repro_torch.kernels import fake_quant
+    fake_quant.launches["fake_quant"] = count
+
+
 def _reset_quant_launches():
     from repro_torch.kernels import fake_quant, mx_quantize, ss_convert
     for mod in (mx_quantize, fake_quant, ss_convert):
         mod.reset_launches()
 
 
-def _train(label, cfg, qat, schedule, steps, seed):
+def _n_proj_leaves(cfg) -> int:
+    """Stacked projection leaves a train step fake-quantizes: attention's
+    4 and the MLP's 3 (SwiGLU) or 2 (gelu), or a MoE layer's 3 expert
+    leaves, per in-group layer. Written out here, not read off the tree,
+    so that an older tree's run (``--train-only --src``) counts the same."""
+    n = 0
+    for j in range(cfg.scan_group):
+        moe = getattr(cfg, "moe_experts", 0) > 0 and \
+            j % cfg.moe_every == cfg.moe_offset
+        n += 4 + (3 if moe or getattr(cfg, "act", "swiglu") == "swiglu"
+                  else 2)
+    return n
+
+
+def _train(label, cfg, qat, schedule, steps, seed, seq=TRAIN_SEQ,
+           batch=TRAIN_BATCH):
     """``run_training`` from random weights on the card, each step timed
     with CUDA events around the train step; gates: finite losses and grad
     norms, and B5 / B6 / B7 launched exactly as the structure predicts
     (fake-quant of the 7 stacked projection leaves once per step: B7 per
     direct step off the pass-through branch, B6 per anchored step, B5 per
     anchored step whose target is not the anchor). Returns (final state,
-    history, launches)."""
+    history, launches, step ms (CUDA events), peak allocated GB)."""
     import numpy as np
     import torch
     from repro_torch.data.pipeline import DataConfig, LMDataset
-    from repro_torch.models.transformer import PROJECTIONS, make_model
+    from repro_torch.models.transformer import make_model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.loop import LoopConfig, make_schedule, run_training
     from repro_torch.train.state import build_train_step
@@ -1283,9 +1356,9 @@ def _train(label, cfg, qat, schedule, steps, seed):
     # one pool of TRAIN_BATCH examples, cycled (the paper cycles a small
     # QAT set of 128): every step sees the same batch, so a few steps show
     # the loss falling instead of batch-to-batch noise
-    data = LMDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                global_batch=TRAIN_BATCH, seed=seed,
-                                n_examples=TRAIN_BATCH))
+    data = LMDataset(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                global_batch=batch, seed=seed,
+                                n_examples=batch))
     inner = build_train_step(api, opt)
     events = []
 
@@ -1310,8 +1383,7 @@ def _train(label, cfg, qat, schedule, steps, seed):
     ms = [s.elapsed_time(e) for s, e in events]
     n_fmt = len(qat.formats)
     sched = make_schedule(schedule, n_fmt, steps)
-    leaves = sum(len(v) for v in PROJECTIONS[cfg.act].values()) \
-        * cfg.scan_group
+    leaves = _n_proj_leaves(cfg)
     quantized = [int(i) for i in sched if i < n_fmt]
     if qat.anchor is None:
         want = {"fake_quant": leaves * len(quantized), "mx_quantize": 0,
@@ -1326,7 +1398,7 @@ def _train(label, cfg, qat, schedule, steps, seed):
             f"loss {h['loss']:.4f}, grad norm {h['grad_norm']:.4f}, "
             f"{t:.2f} ms (CUDA events), {1e3 * h['sec']:.2f} ms host wall")
     log(f"{label}: {cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
-        f"tokens/step={TRAIN_SEQ * TRAIN_BATCH}; step ms {np.round(ms, 2)}; "
+        f"seq {seq} x batch {batch}; step ms {np.round(ms, 2)}; "
         f"steady-state mean {np.mean(ms[1:]):.2f} ms; peak allocated "
         f"{peak:.2f} GB; launches {counts} (want {want})")
     if not all(np.isfinite([h["loss"] for h in hist] +
@@ -1334,7 +1406,7 @@ def _train(label, cfg, qat, schedule, steps, seed):
         fail(f"{label}: a loss or grad norm is not finite")
     if counts != want:
         fail(f"{label}: kernel launches {counts}, want {want}")
-    return out["state"], hist, counts
+    return out["state"], hist, counts, ms, peak
 
 
 def _step_breakdown(label, cfg, qat, state, seed, fmt_idx=1):
@@ -1427,6 +1499,7 @@ def phase_training(seed: int):
     trained master weights and every run's launches."""
     import dataclasses
 
+    import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.formats import TRAIN_FORMATS_MXINT
@@ -1445,7 +1518,7 @@ def phase_training(seed: int):
             totals[k] = totals.get(k, 0) + v
 
     direct = QATConfig(formats=TRAIN_FORMATS_MXINT)
-    state_a, hist_a, counts = _train(
+    state_a, hist_a, counts, ms_a, _ = _train(
         "run A (sequential MXINT 2/4/6/8, 2 steps each)", cfg, direct,
         "multiformat", 8, seed)
     add(counts)
@@ -1454,7 +1527,17 @@ def phase_training(seed: int):
              f"{hist_a[0]['loss']}")
     _step_breakdown("smollm-135m", cfg, direct, state_a, seed)
     del state_a
-    state_b, hist_b, counts = _train(
+    # run A once more on the path before flash_vjp and remat (autograd
+    # through prefill_attention, nothing recomputed): the defaults' price
+    plain = dataclasses.replace(cfg, flash_vjp=False, remat=False)
+    _, _, counts, ms_p, _ = _train(
+        "run A, flash_vjp and remat off", plain, direct, "multiformat", 8,
+        seed)
+    add(counts)
+    log(f"run A steady-state step: {np.mean(ms_a[1:]):.2f} ms with "
+        f"flash_vjp and remat (the defaults), {np.mean(ms_p[1:]):.2f} ms "
+        "without (CUDA events, one call)")
+    state_b, hist_b, counts, _, _ = _train(
         "run B (anchored mxint8, interleaved targets)", cfg,
         QATConfig(formats=TRAIN_FORMATS_MXINT, anchor="mxint8"),
         "interleaved", 4, seed + 1)
@@ -1469,8 +1552,8 @@ def phase_training(seed: int):
     big = dataclasses.replace(get_config("qwen3-4b"), n_layers=4)
     log(f"DEPTH CUT: qwen3-4b training runs {big.n_layers} of 36 layers "
         "(widths unchanged)")
-    state_q, _, counts = _train("qwen3-4b direct MXINT", big, direct,
-                                "multiformat", 2, seed + 2)
+    state_q, _, counts, _, _ = _train("qwen3-4b direct MXINT", big, direct,
+                                      "multiformat", 2, seed + 2)
     add(counts)
     _step_breakdown("qwen3-4b depth 4", big, direct, state_q, seed + 2)
     del state_q
@@ -2911,23 +2994,31 @@ _OTHER = {"mx_matmul": "mx_matmul_int4", "mx_matmul_int4": "mx_matmul"}
 
 
 def _proj_shapes(cfg):
-    """{(K, N): count} of one layer's projection weights."""
-    from repro_torch.models.transformer import PROJECTIONS, param_shapes
+    """{(K, N): count} of one layer's projection weights (a MoE layer's
+    expert leaves count once per expert)."""
+    from repro_torch.models.transformer import param_shapes, projections
     block = param_shapes(cfg)["blocks"][0]
     out = {}
-    for sub, names in PROJECTIONS[cfg.act].items():
+    for sub, names in projections(cfg, 0).items():
+        node = block
+        for key in sub.split("."):
+            node = node[key]
         for name in names:
-            (_, k, n), _ = block[sub][name]
-            out[(k, n)] = out.get((k, n), 0) + 1
+            shape, _ = node[name]
+            k, n = shape[-2:]
+            per = shape[1] if len(shape) == 4 else 1
+            out[(k, n)] = out.get((k, n), 0) + per
     return out
 
 
-def phase_family_kernels(seed: int):
-    """B1 (mxint8, mxfp8) and B2 (mxint4) at every starcoder2-3b and
-    qwen2-72b projection shape, at M = 4 (the decode body) and 256 (the
-    tiled body), held against their plain versions (the tolerance of phase
-    3) and timed beside the plain version, torch.matmul of the densified
-    bf16 weight and the bound. Returns one record per case."""
+def phase_family_kernels(seed: int, archs=FAMILY, ms_=FAMILY_MS):
+    """B1 (mxint8, mxfp8) and B2 (mxint4) at every projection shape of
+    ``archs`` (starcoder2-3b and qwen2-72b; the mixtral configs' attention
+    and expert shapes in phase 15), at each M of ``ms_`` (4: the decode
+    body; 256: the tiled body), held against their plain versions (the
+    tolerance of phase 3) and timed beside the plain version, torch.matmul
+    of the densified bf16 weight and the bound. Returns one record per
+    case."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.formats import get_format
@@ -2938,12 +3029,12 @@ def phase_family_kernels(seed: int):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     rows = []
-    log("family kernel phase: B1 / B2 at the starcoder2-3b and qwen2-72b "
-        "projection shapes, device ms per call as in phase 3")
+    log(f"family kernel phase: B1 / B2 at the {' and '.join(archs)} "
+        f"projection shapes, M {ms_}, device ms per call as in phase 3")
     log(f"{'arch':14s}{'kernel':16s}{'fmt':8s}{'M':>4s}{'K':>6s}{'N':>6s}"
         f"{'max_err':>11s}{'ms':>9s}{'plain':>9s}{'torch_bf16':>11s}"
         f"{'bound':>9s} by")
-    for arch in FAMILY:
+    for arch in archs:
         for (k, n), mult in _proj_shapes(get_config(arch)).items():
             w = torch.randn((k, n), generator=gen, device=dev) * 0.02
             for name, fname in KERNEL_CASES:
@@ -2964,7 +3055,7 @@ def phase_family_kernels(seed: int):
                 n_dense = max(1, min(16, math.ceil(128e6 / (2 * k * n))))
                 w_bf16 = dequantize(t, torch.bfloat16)
                 dense = [w_bf16.clone() for _ in range(n_dense)]
-                for m in FAMILY_MS:
+                for m in ms_:
                     x = torch.randn((m, k), generator=gen,
                                     device=dev).to(torch.bfloat16)
                     got = kern(x, codes, scales, t.fmt)
@@ -2999,9 +3090,9 @@ def phase_family_kernels(seed: int):
                 del copies, dense, w_bf16, t, codes, scales
             del w
             torch.cuda.empty_cache()
-    for arch in FAMILY:
+    for arch in archs:
         for name, fname in KERNEL_CASES:
-            for m in FAMILY_MS:
+            for m in ms_:
                 sel = [r for r in rows if (r["arch"], r["kernel"],
                                            r["format"], r["M"])
                        == (arch, name, fname, m)]
@@ -3167,6 +3258,91 @@ def phase_slo(cfg, anchor, seed: int):
     return {**totals, **counts}
 
 
+def _dense_waves(name, cfg, api, eng, fmt, per_layer, seed, totals):
+    """One format on a dense graph engine: the prefill's and the first
+    decode tick's logits through the kernel and the densify contracts
+    (that tick fed the kernel path's token on both sides) within
+    FUSED_TOL of max|logit|; 8 greedy requests complete; B1/B2 launches
+    ``per_layer`` x layers per executable, the other kernel none;
+    weight-stream bytes within 2% of ``serve_weight_stream_bytes``;
+    streams equal to an eager twin's; then a timed wave (decode tick wall,
+    tok/s, TTFT). A MoE config's contracts are gated in f32 and reported
+    in bf16: routing is a discrete function of the router's logits, so a
+    bf16 rounding difference upstream can flip a token's experts and move
+    the logits by a routed expert's whole output. Adds B1/B2 launches to
+    ``totals``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.launch.costmodel import serve_weight_stream_bytes
+    from repro_torch.models.transformer import make_model
+
+    kernel = "mx_matmul_int4" if fmt == "mxint4" else "mx_matmul"
+    weights = eng.weights_for(fmt)
+    prompt = _requests(cfg.vocab, seed)[0].prompt
+    contracts = [("bf16", weights, api)]
+    if getattr(cfg, "moe_experts", 0) > 0:
+        contracts.append(("f32", _as_f32(weights), make_model(
+            dataclasses.replace(cfg, compute_dtype=torch.float32))))
+    for dtype, wts, capi in contracts:
+        got, flips = _contract_logits(capi, wts, prompt)
+        gated = dtype == contracts[-1][0]
+        for step, (a, b) in enumerate(zip(got["kernel"], got["densify"])):
+            diff = float((a - b).abs().max())
+            ref_max = float(b.abs().max())
+            n_flip, n_tok = flips[step]
+            log(f"{name} {fmt} {dtype} step {step} logits: max|kernel - "
+                f"densify| = {diff:.4g}, max|densify| = {ref_max:.4g}, "
+                f"argmax {int(a.argmax())} vs {int(b.argmax())}"
+                + (f"; router picks differing in {n_flip} of {n_tok} "
+                   "(layer, token) pairs" if n_tok else ""))
+            if not torch.isfinite(a).all() or (
+                    gated and diff > FUSED_TOL * ref_max):
+                fail(f"{name} {fmt} {dtype} step {step}: kernel logits "
+                     f"differ from densify by {diff:.4g} > {FUSED_TOL} * "
+                     f"{ref_max:.4g}, or are not finite")
+    del contracts, wts, capi
+    reqs = _requests(cfg.vocab, seed)
+    mx_matmul.reset_launches()
+    wall = _timed_wave(eng, reqs, fmt)
+    mm = dict(mx_matmul.launches)
+    _check_launches(f"{name} {fmt}", eng.tick_trace, cfg.n_layers, mm,
+                    per_layer=per_layer)
+    if mm[_OTHER[kernel]]:
+        fail(f"{name} {fmt}: launches {mm} ran the other kernel")
+    for k, v in mm.items():
+        totals[k] = totals.get(k, 0) + v
+    bad = [r.rid for r in reqs if r.status.value != "completed"
+           or len(r.out_tokens) != MAX_NEW]
+    if bad:
+        fail(f"{name} {fmt}: requests {bad} incomplete")
+    st = eng.stats()
+    want_bytes = serve_weight_stream_bytes(cfg, fmt)
+    rel = st["weight_bytes"][fmt] / want_bytes - 1
+    if abs(rel) > 0.02:
+        fail(f"{name} {fmt}: weight bytes {st['weight_bytes'][fmt]} off "
+             f"the roofline term {want_bytes:.0f} by {100 * rel:.2f}%")
+    twin = _eager_twin(eng)
+    treqs = _requests(cfg.vocab, seed)
+    twin.generate(treqs, fmt_override=fmt)
+    _check_same_streams(f"{name} {fmt}", reqs, treqs)
+    del twin
+    reqs = _requests(cfg.vocab, seed)
+    wall2 = _timed_wave(eng, reqs, fmt)
+    total = sum(len(r.out_tokens) for r in reqs)
+    tick = _tick_wall(eng.tick_trace, lambda t: t["decode"]
+                      and not t["prefill_tokens"])
+    log(f"{name} {fmt} dense graph engine, {cfg.n_layers} layers: "
+        f"capturing wave {wall:.2f} s; timed wave {total} tokens in "
+        f"{wall2:.3f} s = {total / wall2:.1f} tok/s; decode tick {tick}; "
+        f"TTFT s {[round(r.ttft_s, 3) for r in reqs]}; weight-stream bytes "
+        f"{st['weight_bytes'][fmt]} ({100 * rel:+.2f}% of the roofline "
+        f"term); streams equal to the eager twin's; launches {mm} (want "
+        f"{per_layer} x {cfg.n_layers} x executables); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
 def phase_dense_family(seed: int):
     """starcoder2-3b at full width and depth on the dense graph engine at
     mxint8 and mxint4, and qwen2-72b at full width and depth
@@ -3175,8 +3351,6 @@ def phase_dense_family(seed: int):
 
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import mx_matmul
-    from repro_torch.kernels.dispatch import make_qmm
     from repro_torch.models.transformer import make_model
     from repro_torch.serve.engine import ElasticEngine
 
@@ -3204,69 +3378,7 @@ def phase_dense_family(seed: int):
         eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
                             device="cuda")
         for fmt in fmts:
-            kernel = "mx_matmul_int4" if fmt == "mxint4" else "mx_matmul"
-            weights = eng.weights_for(fmt)
-            # the prefill and the first decode tick through both contracts,
-            # the decode tick fed the same token (the kernel path's argmax):
-            # a near-tie in the prefill logits must not hand the two
-            # contracts different inputs
-            prompt = _requests(cfg.vocab, seed)[0].prompt
-            batch = {"tokens": torch.as_tensor(prompt[None], device="cuda")}
-            got, nxt = {}, None
-            for mode in ("kernel", "densify"):
-                mapi = api.with_qmm(make_qmm(mode))
-                cache = mapi.init_cache(1, MAX_LEN, device="cuda")
-                lg, cache, clen = mapi.prefill_slot(weights, batch, cache, 0)
-                if nxt is None:
-                    nxt = torch.argmax(lg)[None, None].to(torch.int32)
-                lg2, _ = mapi.serve_step(weights, {"tokens": nxt}, cache,
-                                         clen[None])
-                got[mode] = (lg.float(), lg2[0].float())
-                del cache
-            for step, (a, b) in enumerate(zip(got["kernel"],
-                                              got["densify"])):
-                diff = float((a - b).abs().max())
-                ref_max = float(b.abs().max())
-                log(f"{arch} {fmt} step {step} logits: max|kernel - "
-                    f"densify| = {diff:.4g}, max|densify| = {ref_max:.4g}, "
-                    f"argmax {int(a.argmax())} vs {int(b.argmax())}")
-                if not (torch.isfinite(a).all()
-                        and diff <= FUSED_TOL * ref_max):
-                    fail(f"{arch} {fmt} step {step}: kernel logits differ "
-                         f"from densify by {diff:.4g} > {FUSED_TOL} * "
-                         f"{ref_max:.4g}")
-            reqs = _requests(cfg.vocab, seed)
-            mx_matmul.reset_launches()
-            wall = _timed_wave(eng, reqs, fmt)
-            mm = dict(mx_matmul.launches)
-            _check_launches(f"{arch} {fmt}", eng.tick_trace, cfg.n_layers,
-                            mm, per_layer=per_layer)
-            if mm[_OTHER[kernel]]:
-                fail(f"{arch} {fmt}: launches {mm} ran the other kernel")
-            for k, v in mm.items():
-                totals[k] = totals.get(k, 0) + v
-            bad = [r.rid for r in reqs if r.status.value != "completed"
-                   or len(r.out_tokens) != MAX_NEW]
-            if bad:
-                fail(f"{arch} {fmt}: requests {bad} incomplete")
-            twin = _eager_twin(eng)
-            treqs = _requests(cfg.vocab, seed)
-            twin.generate(treqs, fmt_override=fmt)
-            _check_same_streams(f"{arch} {fmt}", reqs, treqs)
-            del twin
-            reqs = _requests(cfg.vocab, seed)
-            wall2 = _timed_wave(eng, reqs, fmt)
-            total = sum(len(r.out_tokens) for r in reqs)
-            st = eng.stats()
-            tick = _tick_wall(eng.tick_trace, lambda t: t["decode"]
-                              and not t["prefill_tokens"])
-            log(f"{arch} {fmt} dense graph engine, {cfg.n_layers} layers: "
-                f"capturing wave {wall:.2f} s; timed wave {total} tokens in "
-                f"{wall2:.3f} s = {total / wall2:.1f} tok/s; decode tick "
-                f"{tick}; weight-stream bytes {st['weight_bytes'][fmt]}; streams "
-                f"equal to the eager twin's; launches {mm} (want {per_layer}"
-                f" x {cfg.n_layers} x executables); peak allocated "
-                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            _dense_waves(arch, cfg, api, eng, fmt, per_layer, seed, totals)
         counts = _quant_launches()
         want = {"mx_quantize": per_layer,
                 "ss_convert": per_layer * sum(f != "mxint8" for f in fmts),
@@ -3276,8 +3388,459 @@ def phase_dense_family(seed: int):
                  f"want {want}")
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
-        del eng, anchor, weights, api
+        del eng, anchor, api
         torch.cuda.empty_cache()
+    return totals
+
+
+def phase_train_ab(seed: int):
+    """smollm-135m runs A and B of phase 6, each with its step split into
+    parts (``_step_breakdown``), and nothing else: run on two trees in one
+    call (``--src``), the same-call A/B of the training step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+
+    cfg = get_config("smollm-135m")
+    direct = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    anchored = QATConfig(formats=TRAIN_FORMATS_MXINT, anchor="mxint8")
+    state, _, _, _, _ = _train(
+        "run A (sequential MXINT 2/4/6/8, 2 steps each)", cfg, direct,
+        "multiformat", 8, seed)
+    _step_breakdown("smollm-135m run A", cfg, direct, state, seed)
+    del state
+    state, _, _, _, _ = _train(
+        "run B (anchored mxint8, interleaved targets)", cfg, anchored,
+        "interleaved", 4, seed + 1)
+    _step_breakdown("smollm-135m run B", cfg, anchored, state, seed + 1)
+
+
+def _as_f32(tree):
+    """A served tree with its raw float leaves in f32 (packed leaves, the
+    same codes and scales, shared)."""
+    import torch
+    from repro_torch.serve.packed_params import is_packed_leaf
+    if isinstance(tree, dict):
+        return {k: _as_f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_f32(v) for v in tree]
+    if is_packed_leaf(tree) or not tree.is_floating_point():
+        return tree
+    return tree.to(torch.float32)
+
+
+def _routing_recorder():
+    """Wrap the MoE block's top-k (``layers._topk_stable``) to record the
+    router's picks (B, S, k) of every call, in call order; returns (picks,
+    undo)."""
+    from repro_torch.models import layers as L
+    real = L._topk_stable
+    picks = []
+
+    def rec(x, k):
+        vals, idx = real(x, k)
+        if len(picks) % 2 == 0:             # router, then the capacity pick
+            picks.append(idx.sort(-1).values.cpu())
+        else:
+            picks.append(None)
+        return vals, idx
+
+    L._topk_stable = rec
+    return picks, lambda: setattr(L, "_topk_stable", real)
+
+
+def _contract_logits(api, weights, prompt):
+    """The prefill's logits and the first decode tick's (fed the kernel
+    path's argmax on both sides) under the kernel and the densify
+    contracts, and per step (router picks that differ, (layer, token)
+    pairs routed): (0, 0) for a model with no MoE layer."""
+    import torch
+    from repro_torch.kernels.dispatch import make_qmm
+    batch = {"tokens": torch.as_tensor(prompt[None], device="cuda")}
+    got, routes, nxt = {}, {}, None
+    for mode in ("kernel", "densify"):
+        mapi = api.with_qmm(make_qmm(mode))
+        cache = mapi.init_cache(1, MAX_LEN, device="cuda")
+        picks, undo = _routing_recorder()
+        try:
+            lg, cache, clen = mapi.prefill_slot(weights, batch, cache, 0)
+            n_pre = len(picks)
+            if nxt is None:
+                nxt = torch.argmax(lg)[None, None].to(torch.int32)
+            lg2, _ = mapi.serve_step(weights, {"tokens": nxt}, cache,
+                                     clen[None])
+        finally:
+            undo()
+        got[mode] = (lg.float(), lg2[0].float())
+        routes[mode] = ([p for p in picks[:n_pre] if p is not None],
+                        [p for p in picks[n_pre:] if p is not None])
+        del cache
+    flips = []
+    for step in range(2):
+        a, b = routes["kernel"][step], routes["densify"][step]
+        diff = sum(int((x != y).any(-1).sum()) for x, y in zip(a, b))
+        total = sum(x.shape[0] * x.shape[1] for x in a)
+        flips.append((diff, total))
+    return got, flips
+
+
+def _long_request(vocab: int, seed: int):
+    import numpy as np
+    from repro_torch.serve.engine import Request
+    rng = np.random.default_rng(seed + 5)
+    return Request(rid=N_REQ, prompt=rng.integers(
+        0, vocab, size=LONG_PROMPT).astype(np.int32), max_new=LONG_NEW)
+
+
+def _long_first_decode(api, weights, cfg, seed: int, time_b3=True):
+    """The long request alone in a one-slot paged cache (pages of PAGE,
+    a random page permutation): its prompt prefilled in one piece (flash
+    attention, banded: the prompt exceeds the window), then its first
+    decode tick through B3 (``paged_kernel``) and through the gather
+    contract on a copy of the cache; and B3 alone on layer 0's pools,
+    timed with the window and without it. Returns (kernel logits, gather
+    logits, B3 ms windowed, B3 ms unwindowed, B3 against its plain
+    version's max abs error)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dispatch import make_qmm
+
+    dev = torch.device("cuda")
+    kapi = api.with_serving(make_qmm("kernel"), "paged_kernel")
+    gapi = api.with_serving(make_qmm("kernel"), "gather")
+    req = _long_request(cfg.vocab, seed)
+    cache = kapi.init_cache(1, LONG_MAX_LEN, device=dev, kv_layout="paged",
+                            page_size=PAGE)
+    mp = cache["block_table"].shape[1]
+    perm = np.random.default_rng(seed + 6).permutation(np.arange(1, mp + 1))
+    cache["block_table"].copy_(torch.from_numpy(
+        perm[None].astype(np.int32)))
+    batch = {"tokens": torch.as_tensor(req.prompt[None], device=dev)}
+    lg, cache, clen = kapi.prefill_slot(weights, batch, cache, 0)
+    nxt = torch.argmax(lg)[None, None].to(torch.int32)
+    twin = {"blocks": [{k: t.clone() for k, t in c.items()}
+                       for c in cache["blocks"]],
+            "block_table": cache["block_table"].clone()}
+    got, _ = kapi.serve_step(weights, {"tokens": nxt}, cache, clen[None])
+    want, _ = gapi.serve_step(weights, {"tokens": nxt}, twin, clen[None])
+    if not time_b3:
+        return got[0].float(), want[0].float(), None, None, None
+    # B3 on layer 0's pools as the first decode tick reads them
+    kp = cache["blocks"][0]["k_pages"][0]
+    vp = cache["blocks"][0]["v_pages"][0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 7)
+    q = torch.randn((1, cfg.n_heads, cfg.hd), generator=gen,
+                    device=dev).to(kp.dtype)
+    lens = (clen + 1).reshape(1).to(torch.int32)
+    bt = cache["block_table"]
+    win = cfg.sliding_window
+    out = pa.paged_attention(q, kp, vp, bt, lens, win).float()
+    ref_out = ref.ref_paged_attention(q, kp, vp, bt, lens, win).float()
+    err = float((out - ref_out).abs().max())
+    if not torch.allclose(out, ref_out, rtol=1e-4,
+                          atol=1e-4 * float(ref_out.abs().max())):
+        fail(f"B3 with window {win} on the long request: max abs err "
+             f"{err:.3g} against its plain version")
+    win_ms = cuda_time_ms(lambda i: pa.paged_attention(
+        q, kp, vp, bt, lens, win), 50)
+    full_ms = cuda_time_ms(lambda i: pa.paged_attention(
+        q, kp, vp, bt, lens, None), 50)
+    return got[0].float(), want[0].float(), win_ms, full_ms, err
+
+
+def phase_moe_serving(seed: int):
+    """mixtral-8x7b at full width and depth MOE_LAYERS: an MXINT8 anchor
+    through B6, the dense graph engine at mxint8 and mxint4 (logits of the
+    prefill and first decode tick against densify, 8 greedy requests,
+    launches, streams against an eager twin, weight bytes against the
+    roofline term, tick wall, tok/s, TTFT), then the paged graph engine
+    (mixed scheduler) at mxint8 on the same 8 requests plus one of
+    LONG_PROMPT tokens whose decode reads only the window. Returns the
+    launches of B1-B6."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+
+    full = get_config("mixtral-8x7b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    log(f"DEPTH CUT: mixtral-8x7b serves {MOE_LAYERS} of {full.n_layers} "
+        "layers (widths unchanged): about 6 B per parameter at init (f32 "
+        "weights, then the anchor), so 6.07 B parameters need about 36 GB; "
+        "all 32 layers (46.7 B) would not fit one 80 GB card")
+    per_layer = sum(_proj_shapes(cfg).values())        # 4 + 3 x E
+    totals = {}
+    _reset_quant_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    anchor = build_anchor(cfg, seed, save=False)
+    log(f"mixtral-8x7b: anchor built in {time.perf_counter() - t0:.1f} s, "
+        f"peak allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    if "['blocks'][0]['moe']['router']" not in anchor.raw or not all(
+            f"['blocks'][0]['moe']['experts']['{n}']" in anchor.quantized
+            for n in ("w_gate", "w_up", "w_down")):
+        fail("mixtral-8x7b: the router is not raw or an expert leaf is not "
+             "quantized in the anchor")
+    api = make_model(cfg)
+    eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                        device="cuda")
+    for fmt in ("mxint8", "mxint4"):
+        _dense_waves("mixtral-8x7b", cfg, api, eng, fmt, per_layer, seed,
+                     totals)
+    del eng
+    torch.cuda.empty_cache()
+
+    log(f"mixtral-8x7b paged graph engine: ElasticEngine(batch_slots="
+        f"{SLOTS}, max_len={LONG_MAX_LEN}, kv_layout='paged', kv_page_size="
+        f"{PAGE}, prefill_chunk={CHUNK}), the {N_REQ} requests and one of "
+        f"{LONG_PROMPT} prompt tokens (+{LONG_NEW}), window "
+        f"{cfg.sliding_window}")
+    peng = ElasticEngine(api, anchor, batch_slots=SLOTS,
+                         max_len=LONG_MAX_LEN, kv_layout="paged",
+                         kv_page_size=PAGE, prefill_chunk=CHUNK,
+                         device="cuda")
+    if (peng.scheduler, peng.attn_impl) != ("mixed", "paged_kernel"):
+        fail(f"paged engine resolved to {peng.scheduler}/{peng.attn_impl}")
+    fmt = "mxint8"
+    weights = peng.weights_for(fmt)
+    got, want, win_ms, full_ms, b3_err = _long_first_decode(
+        api, weights, cfg, seed)
+    diff = float((got - want).abs().max())
+    ref_max = float(want.abs().max())
+    # the same in f32 (the gate; bf16 is reported: a rounding difference
+    # can flip the decode token's experts)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    got32, want32, _, _, _ = _long_first_decode(
+        make_model(cfg32), _as_f32(weights), cfg32, seed, time_b3=False)
+    diff32 = float((got32 - want32).abs().max())
+    ref32 = float(want32.abs().max())
+    length = LONG_PROMPT + 1
+    mp = -(-LONG_MAX_LEN // PAGE)
+    first, last = pa.walk(length - 1, 1, 0, 1, 1, PAGE, mp,
+                          cfg.sliding_window)
+    clamped = pa.pages_read(length, PAGE, cfg.sliding_window)
+    unclamped = pa.pages_read(length, PAGE)
+    log(f"long request's first decode tick ({length} positions): "
+        f"max|paged_kernel - gather| = {diff:.4g} in bf16 (max|gather| "
+        f"{ref_max:.4g}, argmax {int(got.argmax())} vs "
+        f"{int(want.argmax())}), {diff32:.4g} in f32 (max|gather| "
+        f"{ref32:.4g}); B3's walk pages {first}..{last} = "
+        f"{last - first + 1} (pages_read with the window {clamped}, without "
+        f"{unclamped}); B3 on layer 0 {win_ms:.4f} ms with the window, "
+        f"{full_ms:.4f} ms without (CUDA events), max abs err against its "
+        f"plain version {b3_err:.3g}")
+    if not (torch.isfinite(got).all() and diff32 <= FUSED_TOL * ref32):
+        fail(f"long request: paged_kernel logits differ from gather by "
+             f"{diff32:.4g} > {FUSED_TOL} * {ref32:.4g} in f32")
+    if last - first + 1 != clamped or clamped >= unclamped:
+        fail(f"long request: B3's walk {first}..{last} is not the window's "
+             f"{clamped} pages (of {unclamped})")
+    reqs = _requests(cfg.vocab, seed) + [_long_request(cfg.vocab, seed)]
+    before = peng.stats()
+    mx_matmul.reset_launches()
+    pa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    wall = _timed_wave(peng, reqs, fmt)
+    mm, at = dict(mx_matmul.launches), dict(pa.launches)
+    st = peng.stats()
+    trace = peng.tick_trace
+    _check_launches(f"mixtral-8x7b paged {fmt}", trace, cfg.n_layers, mm,
+                    at=at, per_layer=per_layer)
+    if max(t["execs"] for t in trace) > 1:
+        fail("mixtral-8x7b paged: a tick ran more than one executable")
+    bad = [r.rid for r in reqs if r.status.value != "completed"
+           or len(r.out_tokens) != r.max_new]
+    if bad or st["faults_detected"] != before["faults_detected"]:
+        fail(f"mixtral-8x7b paged: requests {bad} incomplete or a guard "
+             "fault")
+    if st["kv_pages_alloc"] != st["kv_pages_freed"]:
+        fail(f"mixtral-8x7b paged: pages alloc {st['kv_pages_alloc']} != "
+             f"freed {st['kv_pages_freed']} at drain")
+    for k, v in list(mm.items()) + list(at.items()):
+        totals[k] = totals.get(k, 0) + v
+    pure = [t for t in trace if t["decode"] and not t["prefill_chunks"]]
+    mixed = [t for t in trace if t["decode"] and t["prefill_chunks"]]
+    ms = lambda ts: 1e3 * float(np.mean([t["wall_s"] for t in ts]))
+    total = sum(len(r.out_tokens) for r in reqs)
+    log(f"mixtral-8x7b paged {fmt}: {len(trace)} ticks ({len(pure)} pure "
+        f"decode, {len(mixed)} mixed); {total} tokens in {wall:.2f} s = "
+        f"{total / wall:.1f} tok/s; pure decode tick {ms(pure):.2f} ms, "
+        f"mixed tick {ms(mixed):.2f} ms (host wall); TTFT s "
+        f"{[round(r.ttft_s, 3) for r in reqs]}; attn_read_bytes "
+        f"{st['attn_read_bytes'] - before['attn_read_bytes']} (the engine "
+        f"counts pages_read with the window); kv_pages_hwm "
+        f"{st['kv_pages_hwm']}; launches {mm} {at}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    twin = _eager_twin(peng)
+    treqs = _requests(cfg.vocab, seed) + [_long_request(cfg.vocab, seed)]
+    twin.generate(treqs, fmt_override=fmt)
+    _check_same_streams(f"mixtral-8x7b paged {fmt}", reqs, treqs)
+    log("mixtral-8x7b paged: streams equal to the eager twin's")
+    del twin, peng, weights
+    counts = _quant_launches()
+    want = {"mx_quantize": per_layer - 3 * (cfg.moe_experts - 1),
+            "ss_convert": per_layer - 3 * (cfg.moe_experts - 1),
+            "fake_quant": 0}
+    log(f"mixtral-8x7b anchor and format builds: launches {counts} (want "
+        f"{want}: one per stacked leaf, 4-D expert leaves included)")
+    if counts != want:
+        fail(f"mixtral-8x7b: anchor and format builds launched {counts}, "
+             f"want {want}")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    del anchor, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _fb_peak(cfg, qat, params, seq: int, seed: int):
+    """Forward and backward of one batch (seq x 1) from ``params``: the
+    rise of the peak allocation over what is allocated before (the
+    activations the backward keeps, the gradients included) and the CUDA
+    event ms. The step's own peak is AdamW's (old and new state trees
+    alive at once), the same in every setting."""
+    import torch
+    from repro_torch.core.tree import flatten_paths, unflatten_paths
+    from repro_torch.models.transformer import make_model
+    api = make_model(cfg, qat=qat)
+    flat = flatten_paths(params)
+    leaves = [p.detach().requires_grad_(True) for _, p in flat]
+    tree = unflatten_paths({k: p for (k, _), p in zip(flat, leaves)})
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (1, seq), generator=gen,
+                         device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    loss, _ = api.train_loss(tree, {"tokens": toks, "labels": toks}, 1)
+    grads = torch.autograd.grad(loss, leaves)
+    end.record()
+    torch.cuda.synchronize()
+    rise = (torch.cuda.max_memory_allocated() - base) / 1e9
+    del grads, loss, tree, leaves
+    return rise, start.elapsed_time(end)
+
+
+def phase_train_long(seed: int):
+    """qwen3-4b at full width and depth 4, seq LONG_SEQ_LEVERS[0] x batch
+    1, two steps in each of the four (flash_vjp, remat) settings; then at
+    seq LONG_SEQ with both on; then mixtral-8x7b at full width, one layer,
+    seq LONG_SEQ x batch 1 (the banded flash path: seq > window; B7 on the
+    4-D expert leaves), direct MXINT. Step ms (CUDA events), peak
+    allocated and finite losses; mixtral's aux loss > 0. Returns the B7
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.models.flash_vjp import _plan
+    from repro_torch.models.transformer import fake_quant_blocks, make_model
+
+    direct = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    totals = {}
+    qwen = dataclasses.replace(get_config("qwen3-4b"), n_layers=4)
+    log("DEPTH CUT: long-sequence training runs qwen3-4b at 4 of 36 layers "
+        "and mixtral-8x7b at 1 of 32 (widths unchanged)")
+    seq, steps = LONG_SEQ_LEVERS
+    rows = []
+    for fv, rm in ((True, True), (True, False), (False, True),
+                   (False, False)):
+        cfg = dataclasses.replace(qwen, flash_vjp=fv, remat=rm)
+        state, _, counts, ms, peak = _train(
+            f"qwen3-4b seq {seq} flash_vjp={fv} remat={rm}", cfg, direct,
+            "multiformat", steps, seed + 3, seq=seq, batch=1)
+        before = _quant_launches()["fake_quant"]
+        rise, fb_ms = _fb_peak(cfg, direct, state.params, seq, seed)
+        _restore_fake_quant(before)
+        rows.append((fv, rm, ms, peak, rise, fb_ms))
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    for fv, rm, ms, peak, rise, fb_ms in rows:
+        log(f"qwen3-4b depth 4 seq {seq} x 1: flash_vjp={fv!s:5s} "
+            f"remat={rm!s:5s} step ms {np.round(ms, 2)} (last "
+            f"{ms[-1]:.2f}), step peak {peak:.2f} GB; forward + backward "
+            f"{fb_ms:.2f} ms, its peak {rise:.2f} GB above the weights "
+            "(activations and gradients)")
+    h, hkv = qwen.n_heads, qwen.n_kv_heads
+    log(f"qwen3-4b at seq {LONG_SEQ} with both levers off is not run: "
+        f"autograd through prefill_attention keeps f32 (B, H, S, S) "
+        f"tensors of {4 * h * LONG_SEQ ** 2 / 1e9:.1f} GB, at least two per "
+        f"layer (the masked scores and the softmax), so >= "
+        f"{8 * h * LONG_SEQ ** 2 / 1e9:.1f} GB per layer")
+    state, hist, counts, ms, peak = _train(
+        f"qwen3-4b seq {LONG_SEQ} (flash_vjp and remat on)", qwen, direct,
+        "multiformat", 2, seed + 4, seq=LONG_SEQ, batch=1)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    before = _quant_launches()["fake_quant"]
+    rise, fb_ms = _fb_peak(qwen, direct, state.params, LONG_SEQ, seed)
+    _restore_fake_quant(before)
+    del state
+    log(f"qwen3-4b depth 4 seq {LONG_SEQ} x 1: step ms {np.round(ms, 2)}, "
+        f"step peak {peak:.2f} GB, losses "
+        f"{[round(h_['loss'], 4) for h_ in hist]}; forward + backward "
+        f"{fb_ms:.2f} ms, its peak {rise:.2f} GB above the weights")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mix = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1)
+    cq, ck, banded, band = _plan(LONG_SEQ, LONG_SEQ, True,
+                                 mix.sliding_window, mix.seq_chunk)
+    log(f"mixtral-8x7b 1 layer seq {LONG_SEQ}: flash_vjp chunks {cq} / "
+        f"{ck}, banded={banded}, band {band} keys per query chunk (window "
+        f"{mix.sliding_window}); about 1.71 B parameters x 16 B (f32 "
+        "master, grad, m and v) = 27 GB")
+    if not banded:
+        fail("mixtral-8x7b at seq 8192 did not take the banded path")
+    state, hist, counts, ms, peak = _train(
+        f"mixtral-8x7b 1 layer seq {LONG_SEQ}", mix, direct, "multiformat",
+        2, seed + 5, seq=LONG_SEQ, batch=1)
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+    api = make_model(mix, qat=direct)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 6)
+    toks = torch.randint(0, mix.vocab, (1, LONG_SEQ), generator=gen,
+                         device="cuda")
+    before = _quant_launches()["fake_quant"]
+    with torch.no_grad():
+        loss, parts = api.train_loss(state.params, {"tokens": toks,
+                                                    "labels": toks}, 0)
+    aux = float(parts["aux"])
+    leaf = fake_quant_blocks(direct, 0, state.params, mix)[
+        "blocks"][0]["moe"]["experts"]["w_up"]
+    shape = tuple(leaf.shape)
+    del leaf
+    rise, fb_ms = _fb_peak(mix, direct, state.params, LONG_SEQ, seed)
+    _restore_fake_quant(before)         # these are not steps of the run
+    log(f"mixtral-8x7b 1 layer seq {LONG_SEQ} x 1: step ms "
+        f"{np.round(ms, 2)}, step peak {peak:.2f} GB, losses "
+        f"{[round(h_['loss'], 4) for h_ in hist]}, aux loss {aux:.6f}; B7 "
+        f"fake-quantizes expert leaves of shape {shape}; forward + "
+        f"backward {fb_ms:.2f} ms, its peak {rise:.2f} GB above the "
+        "weights")
+    if not (math.isfinite(aux) and aux > 0 and math.isfinite(float(loss))):
+        fail(f"mixtral-8x7b training: aux loss {aux}, loss {float(loss)}")
+    del state, api
+    gc.collect()
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -3327,6 +3890,17 @@ def main() -> int:
                     help="card, build, B1/B2 at the starcoder2-3b and "
                          "qwen2-72b shapes, their serving and the CLI only; "
                          "no result line")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="card, build and the MoE phase (B1/B2 at the "
+                         "mixtral shapes, mixtral-8x7b served) only; no "
+                         "result line")
+    ap.add_argument("--train-long-only", action="store_true",
+                    help="card, build and long-sequence training only; no "
+                         "result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="card, build and smollm-135m training runs A and B "
+                         "only, for a same-call A/B of two trees; no result "
+                         "line")
     ap.add_argument("--src", default=os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "src"),
         help="the tree whose repro_torch to measure (default: this one's)")
@@ -3350,6 +3924,21 @@ def main() -> int:
         cfg = qwen3_4b(36)
         phase_slo(cfg, build_anchor(cfg, args.seed, save=False), args.seed)
         log(f"SLO phase only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.train_only:
+        phase_train_ab(args.seed)
+        log(f"training runs A and B only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.moe_only:
+        phase_family_kernels(args.seed, MOE, MOE_MS)
+        phase_moe_serving(args.seed)
+        log(f"MoE only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.train_long_only:
+        phase_train_long(args.seed)
+        log(f"long-sequence training only, {args.src}: "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
     if args.family_only:
@@ -3457,6 +4046,15 @@ def main() -> int:
         else:
             launches[k] = launches.get(k, 0) + v
     phase_cli(args.src)
+    # the MoE family, then long-sequence training; each phase reads its
+    # counts from 0
+    moe_rows = phase_family_kernels(args.seed, MOE, MOE_MS)
+    for phase in (phase_moe_serving, phase_train_long):
+        for k, v in phase(args.seed).items():
+            if k in quant_launches:
+                quant_launches[k] += v
+            else:
+                launches[k] = launches.get(k, 0) + v
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3482,6 +4080,7 @@ def main() -> int:
             "library_ms_by_m": {m: per["library_ms"]
                                 for m, per in a["by_m"].items()},
             "family_shapes": [r for r in family_rows if r["kernel"] == name],
+            "moe_shapes": [r for r in moe_rows if r["kernel"] == name],
         })
     for name, a in paged_rec.items():
         kernels.append({

@@ -8,6 +8,8 @@ from typing import List
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "mixtral-8x22b": "mixtral_8x22b",
+    "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-72b": "qwen2_72b",
     "qwen3-4b": "qwen3_4b",
     "smollm-135m": "smollm_135m",

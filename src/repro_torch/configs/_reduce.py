@@ -1,5 +1,6 @@
-"""Reduced same-family configs for CPU tests (the widths of
-``repro/configs/_reduce.py``, in float32)."""
+"""Reduced same-family configs for CPU tests (the widths and rules of
+``repro/configs/_reduce.py``, in float32): MoE configs keep 4 experts, and
+a config with a sliding window gets a window of 32."""
 import dataclasses
 
 import torch
@@ -8,9 +9,14 @@ from repro_torch.models.common import ModelConfig
 
 
 def _reduce(cfg: ModelConfig) -> ModelConfig:
-    if cfg.family != "dense":
-        raise ValueError(f"the port serves the dense family only, got "
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port serves the dense and MoE families, got "
                          f"{cfg.family!r}")
-    return dataclasses.replace(
-        cfg, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
-        vocab=512, compute_dtype=torch.float32, seq_chunk=64, n_layers=2)
+    upd = dict(d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
+               vocab=512, compute_dtype=torch.float32, seq_chunk=64,
+               n_layers=2)
+    if cfg.family == "moe":
+        upd.update(moe_experts=4)
+    if cfg.sliding_window is not None:
+        upd["sliding_window"] = 32
+    return dataclasses.replace(cfg, **upd)

@@ -9,8 +9,9 @@ Counterpart of ``repro/core/anchor.py``:
      ``materialize`` a dense tree.
 
 Leaves are keyed by JAX ``keystr`` paths (``core/tree.py``). On a CUDA
-tensor a stacked leaf (G, K, N) is quantized by one B6 launch and converted
-by one B5 launch (``kernels/ops.py``), which read it in place and make no
+tensor a stacked leaf (G, K, N), or a MoE expert leaf (G, E, K, N), is
+quantized by one B6 launch and converted by one B5 launch
+(``kernels/ops.py``), blocked along ndim-2 and read in place with no
 temporaries; on the CPU the plain versions run.
 """
 from __future__ import annotations

@@ -4,7 +4,9 @@ arrays.
 ``params_from_numpy`` takes ``{keystr path: np.ndarray}`` — what
 ``jax.tree_util.tree_flatten_with_path`` + ``keystr`` + ``np.asarray`` give
 for a JAX param tree — and returns the port's nested tree on ``device``,
-after checking that every path and shape is the one ``cfg`` expects. With
+after checking that every path and shape is the one ``cfg`` expects (MoE
+layers: ``['blocks'][j]['moe']['router']`` and
+``['blocks'][j]['moe']['experts'][...]``). With
 the same weights, both packages compute the same function.
 ``train_state_from_numpy`` does the same for a JAX ``TrainState`` (params,
 AdamW moments and steps), as a JAX training checkpoint stores it. bf16

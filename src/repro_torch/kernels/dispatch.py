@@ -85,7 +85,8 @@ def _check_serving_layout(leaf) -> None:
 def _kernel_unsupported(leaf) -> Optional[str]:
     if isinstance(leaf, MXTensor):
         if leaf.codes.ndim != 2:
-            return f"{leaf.codes.ndim}D MXTensor (slice stacked leaves first)"
+            return (f"{leaf.codes.ndim}D MXTensor (slice stacked leaves, "
+                    "and expert leaves, to one 2-D weight first)")
         if leaf.codes.shape[0] % leaf.fmt.block_size:
             return "K not a multiple of the block size"
         return None

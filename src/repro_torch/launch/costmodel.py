@@ -1,8 +1,8 @@
 """Analytic serving roofline: the terms the serving cost model is seeded
 from.
 
-Counterpart of the dense family's parameter counting and the serving terms
-of ``repro/launch/costmodel.py`` (``layer_param_macs``, ``total_params``,
+Counterpart of the dense and MoE families' parameter counting and the
+serving terms of ``repro/launch/costmodel.py`` (``layer_param_macs``, ``total_params``,
 ``_attn_layers``, ``serve_weight_stream_bytes``, ``serve_attn_read_span``,
 ``serve_attn_bytes_per_row``, ``serve_roofline_terms``), with the same
 floats for the same config. They are a tested contract: the engine's
@@ -22,20 +22,28 @@ from repro_torch.models.common import ModelConfig
 
 def layer_param_macs(cfg: ModelConfig, j: int) -> Dict[str, float]:
     """MAC-relevant weight sizes (= params in matmuls) of in-group layer
-    ``j``: attention and the MLP (SwiGLU: gate, up, down; gelu: up,
-    down)."""
-    del j       # the dense family: every layer is attention + MLP
+    ``j``: attention, then the MLP (SwiGLU: gate, up, down; gelu: up, down)
+    or the MoE layer's router, active experts (top-k) and all experts."""
     d, hd = cfg.d_model, cfg.hd
-    return {"attn": d * (cfg.n_heads * hd) * 2 + d * (cfg.n_kv_heads * hd) * 2,
-            "mlp": (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff}
+    out = {"attn": d * (cfg.n_heads * hd) * 2
+           + d * (cfg.n_kv_heads * hd) * 2}
+    if cfg.is_moe_layer(j):
+        out["router"] = d * cfg.moe_experts
+        out["moe_active"] = cfg.moe_topk * 3 * d * cfg.d_ff
+        out["moe_total"] = cfg.moe_experts * 3 * d * cfg.d_ff
+    else:
+        out["mlp"] = (3 if cfg.act == "swiglu" else 2) * d * cfg.d_ff
+    return out
 
 
 def total_params(cfg: ModelConfig) -> float:
-    """Every matmul weight of the stack plus the embeddings (and the head
-    when untied)."""
+    """Every matmul weight of the stack (every expert) plus the embeddings
+    (and the head when untied)."""
     per_group = 0.0
     for j in range(cfg.scan_group):
-        for v in layer_param_macs(cfg, j).values():
+        for k, v in layer_param_macs(cfg, j).items():
+            if k == "moe_active":
+                continue
             per_group += v
     embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     return per_group * cfg.n_groups + embed
@@ -54,7 +62,9 @@ def serve_weight_stream_bytes(cfg: ModelConfig, fmt_name: str,
     """Bytes one decode tick streams for the packed serving tree at
     ``fmt_name``: codes and E8M0 scales for the quantized stack, raw
     embeddings at ``cfg.compute_dtype`` (the ``"bf16"`` pseudo-format is
-    the dense tree). Norm vectors and biases are dropped: O(d_model)."""
+    the dense tree). Norm vectors and biases are dropped: O(d_model). A MoE
+    layer counts every expert (decode's capacity of 1 runs each expert on
+    every row) and its router at the code width, as the reference does."""
     item = _itemsize(cfg)
     embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     stack = total_params(cfg) - embed

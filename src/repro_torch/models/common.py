@@ -23,15 +23,22 @@ from repro_torch.serve.packed_params import densify_leaf, is_packed_leaf
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters of the dense decoder-only family: the
-    fields of ``repro/models/common.py::ModelConfig`` that qwen3-4b,
-    smollm-135m, starcoder2-3b and qwen2-72b set (``act``: the SwiGLU or
-    the tanh-gelu MLP; ``qkv_bias`` / ``mlp_bias``: biases on the q/k/v
-    projections and on the MLP's up and down projections), and
-    ``sliding_window`` (None for all four: full attention)."""
+    """Architecture hyper-parameters of the pure-attention decoder-only
+    families the port serves: the fields of
+    ``repro/models/common.py::ModelConfig`` that the dense configs
+    (qwen3-4b, smollm-135m, starcoder2-3b, qwen2-72b) and the MoE configs
+    (mixtral-8x7b, mixtral-8x22b) set. ``act``: the SwiGLU or the
+    tanh-gelu MLP; ``qkv_bias`` / ``mlp_bias``: biases on the q/k/v
+    projections and on the MLP's up and down projections;
+    ``sliding_window``: attention sees the last W positions (mixtral's
+    4096); ``moe_*``: top-k routed experts with capacity dispatch at the
+    layers ``is_moe_layer`` names. Training runs the O(S)-memory flash
+    backward (``flash_vjp``) and recomputes each layer group in the
+    backward (``remat``; ``remat_inner`` also each layer of a group), the
+    JAX package's defaults."""
 
     name: str
-    family: str                     # the port serves "dense"
+    family: str                     # dense | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -47,9 +54,19 @@ class ModelConfig:
     norm_eps: float = 1e-5
     act: str = "swiglu"             # swiglu | gelu
     tie_embeddings: bool = False
+    # MoE
+    moe_experts: int = 0
+    moe_topk: int = 2
+    moe_every: int = 1              # MoE at layers where i % moe_every == moe_offset
+    moe_offset: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
     compute_dtype: Any = torch.bfloat16
     scan_group: int = 1             # layers per stacked group
-    seq_chunk: int = 1024           # loss chunking along the sequence
+    seq_chunk: int = 1024           # flash-attention / loss chunking
+    flash_vjp: bool = True          # flash attention with an O(S) backward
+    remat: bool = True              # recompute each group in the backward
+    remat_inner: bool = False       # also each layer inside a group
 
     @property
     def hd(self) -> int:
@@ -59,6 +76,11 @@ class ModelConfig:
     def n_groups(self) -> int:
         assert self.n_layers % self.scan_group == 0
         return self.n_layers // self.scan_group
+
+    def is_moe_layer(self, i: int) -> bool:
+        if self.moe_experts <= 0:
+            return False
+        return i % self.moe_every == self.moe_offset
 
 
 @dataclasses.dataclass

@@ -1,13 +1,16 @@
-"""Transformer building blocks for serving: norms, RoPE, attention, MLP.
+"""Transformer building blocks: norms, RoPE, attention, MLP, MoE.
 
 Counterpart of ``repro/models/layers.py`` for the dense and the paged KV
 layouts. Attention the JAX package computes in jnp is plain PyTorch in
-float32 here: causal prefill attention (over the prompt, or a chunk's
-queries over the cache view at the chunk's cursor), single-token decode
-attention and ragged mixed-tick attention over a dense cache masked by each
-slot's own lengths. On the paged layout the decode and mixed ticks read the
-page pools through B3/B4 (``kernels/paged_attention.py``). Every KV write
-lands in the cache in place (the JAX versions return updated copies).
+float32 here: attention over a whole sequence with no cache (training and
+monolithic prefill) is ``models/flash_vjp.py`` (or, with ``flash_vjp``
+off, ``prefill_attention``), a chunk's queries over the cache view at the
+chunk's cursor, single-token decode attention and ragged mixed-tick
+attention over a dense cache masked by each slot's own lengths. On the
+paged layout the decode and mixed ticks read the page pools through B3/B4
+(``kernels/paged_attention.py``). Every KV write lands in the cache in
+place (the JAX versions return updated copies). ``moe_block`` routes each
+batch row's tokens to its top-k experts with capacity dispatch.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_mixed_attention)
 from repro_torch.models.common import ModelConfig, QuantCtx
+from repro_torch.models.flash_vjp import flash_attention_vjp
+from repro_torch.serve.packed_params import layer_slice
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -227,8 +232,11 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
                     attn_impl: str = "gather"):
     """Self-attention; K/V land in ``kv_cache`` in place.
 
-      no ``kv_cache``   monolithic prefill: causal attention over the prompt;
-                        returns ``(out, (k, v))`` for the caller to store.
+      no ``kv_cache``   training or monolithic prefill: causal attention
+                        over the sequence, ``flash_attention_vjp`` when
+                        ``cfg.flash_vjp`` (as in JAX), ``prefill_attention``
+                        otherwise; returns ``(out, (k, v))`` for the caller
+                        to store.
       ``chunk_start``   chunked prefill: ``x`` is one prompt chunk at that
                         cursor; its K/V are written there (through the block
                         table when paged) and its queries attend over the
@@ -261,7 +269,11 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     k = rope(k, positions, cfg.rope_theta)
     mode = "kernel" if attn_impl == "paged_kernel" else "gather"
     if kv_cache is None:
-        out = prefill_attention(q, k, v, window=window)
+        if cfg.flash_vjp:
+            out = flash_attention_vjp(q, k, v, causal=True, window=window,
+                                      chunk=cfg.seq_chunk)
+        else:
+            out = prefill_attention(q, k, v, window=window)
         new_kv = (k, v)
     else:
         kc, vc = kv_cache
@@ -319,3 +331,63 @@ def mlp_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
         hidden = F.gelu(ctx.dense(x, p["w_up"], name + ".w_up",
                                   p.get("b_up")), approximate="tanh")
     return ctx.dense(hidden, p["w_down"], name + ".w_down", p.get("b_down"))
+
+
+def _topk_stable(x: torch.Tensor, k: int):
+    """``jax.lax.top_k`` over the last axis: the k largest, and among equal
+    values the lower index first (``torch.topk`` promises no order)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
+              name: str):
+    """Top-k routed MoE with per-row routing groups and capacity dispatch,
+    op for op the JAX package's ``moe_block``: each batch row routes its
+    own S tokens, each expert takes at most ``cap = cf * S * k / E`` of
+    them by gate (so routing depends on S, the padded shape), and the
+    Switch load-balance loss comes back beside the output. The router is
+    raw (never quantized) and goes through ``torch.matmul``; each expert's
+    2-D slice of the layer's (E, K, N) leaf goes through ``ctx.dense``,
+    so a packed leaf reaches the dequant-GEMM dispatch with the row's
+    gathered tokens (the JAX package densifies the vmapped experts
+    instead; ROADMAP C.8). ``cap`` is a host int from the static S: nothing
+    here reads the device. Returns (out, aux)."""
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_topk
+
+    logits = ctx.dense(x, p["router"], name + ".router").to(torch.float32)
+    probs = torch.softmax(logits, dim=-1)                        # (B, S, E)
+    top_vals, top_idx = _topk_stable(logits, k)
+    gates = torch.softmax(top_vals, dim=-1)                      # (B, S, k)
+    onehot = F.one_hot(top_idx, e).to(gates.dtype)               # (B, S, k, E)
+    expert_gate = torch.einsum("bsk,bske->bse", gates, onehot)
+
+    cap = max(1, min(s, int(cfg.capacity_factor * s * k / e)))
+    prio = expert_gate.transpose(1, 2)                           # (B, E, S)
+    top_gate, token_idx = _topk_stable(prio, cap)                # (B, E, C)
+
+    rows = torch.arange(b, device=x.device)[:, None]
+    xe = x[rows, token_idx.reshape(b, e * cap)].reshape(b, e, cap, d)
+    experts = p["experts"]
+    ye = []
+    for i in range(e):
+        xi = xe[:, i]                                            # (B, C, d)
+        gate = ctx.dense(xi, layer_slice(experts["w_gate"], i),
+                         name + ".expert.w_gate")
+        up = ctx.dense(xi, layer_slice(experts["w_up"], i),
+                       name + ".expert.w_up")
+        ye.append(ctx.dense(F.silu(gate) * up,
+                            layer_slice(experts["w_down"], i),
+                            name + ".expert.w_down"))
+    ye = torch.stack(ye, 1)                                      # (B, E, C, d)
+    ye = ye * top_gate[..., None].to(ye.dtype)
+    out = torch.zeros((b, s, d), dtype=ye.dtype, device=x.device)
+    out = out.index_put((rows.expand(b, e * cap), token_idx.reshape(b, -1)),
+                        ye.reshape(b, e * cap, d), accumulate=True)
+
+    # Switch-style load-balance aux loss
+    frac_tokens = onehot.sum(2).mean(dim=(0, 1))                 # (E,)
+    frac_probs = probs.mean(dim=(0, 1))
+    aux = cfg.router_aux_coef * e * torch.sum(frac_tokens * frac_probs)
+    return out.to(x.dtype), aux

@@ -1,11 +1,16 @@
-"""Dense decoder-only LM: init, KV cache, prefill, chunks, decode, mixed.
+"""Pure-attention decoder-only LM (dense and MoE): init, KV cache, prefill,
+chunks, decode, mixed.
 
-Counterpart of the dense family of ``repro/models/transformer.py``. The
-parameter tree keeps the JAX layout — ``{"embed", "blocks": [group], ...}``
-with every block leaf stacked over layer groups (G, ...) — so anchor
-checkpoints map 1:1; the JAX ``lax.scan`` over groups becomes a Python loop
-over ``leaf[g]`` views. The KV cache, dense (G, B, S, Hkv, D) or paged
-(pools (G, P, ps, Hkv, D) and a block table), is updated in place.
+Counterpart of the dense and MoE families of
+``repro/models/transformer.py``. The parameter tree keeps the JAX layout —
+``{"embed", "blocks": [group], ...}`` with every block leaf stacked over
+layer groups (G, ...), expert leaves over groups and experts (G, E, ...) —
+so anchor checkpoints map 1:1; the JAX ``lax.scan`` over groups becomes a
+Python loop over ``leaf[g]`` views, and under ``cfg.remat`` each group's
+body is recomputed in the backward (``jax.checkpoint``'s
+``nothing_saveable`` becomes ``torch.utils.checkpoint``). The KV cache,
+dense (G, B, S, Hkv, D) or paged (pools (G, P, ps, Hkv, D) and a block
+table), is updated in place.
 
 Entry points (``ModelApi``): ``train_loss`` (the MF-QAT training loss, with
 autograd), ``prefill``, ``prefill_slot`` (one request into one slot of the
@@ -19,9 +24,9 @@ read path, ``attn_impl``).
 
 Training fake-quantizes each stacked projection leaf once per step, before
 the layer loop (``fake_quant_blocks``): the JAX package fake-quantizes
-inside ``dense``, one layer slice at a time, and the values are the same
-(blocks run along d_in, inside a slice), in 7 launches per step instead of
-7 × layers.
+inside ``dense``, one layer slice at a time (inside the rematted body), and
+the values are the same (blocks run along d_in, inside a slice), in 7
+launches per step instead of 7 × layers.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import functools
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qat import QATConfig
 from repro_torch.devices import resolve_device
@@ -41,13 +47,20 @@ from repro_torch.serve.packed_params import is_packed_leaf, layer_slice
 # =============================================================================
 # Init
 # =============================================================================
+def ffn_kind(cfg: ModelConfig, j: int) -> str:
+    """The feed-forward of in-group layer ``j``: "moe" or "mlp"."""
+    return "moe" if cfg.is_moe_layer(j) else "mlp"
+
+
 def param_shapes(cfg: ModelConfig) -> Dict:
     """Nested {name: (shape, init)} with init "ones", "zeros" or a
     truncated-normal std — the shapes and stds of the JAX init. Biases
     (``qkv_bias``: bq / bk / bv; ``mlp_bias``: b_up / b_down) are stacked
-    (G, n) like every block leaf and start at zero, as in JAX."""
-    if cfg.family != "dense":
-        raise ValueError(f"the port serves the dense family only, got "
+    (G, n) like every block leaf and start at zero, as in JAX. A MoE layer
+    holds ``moe``: a raw ``router`` (G, d, E) and ``experts`` (G, E, d, f)
+    / (G, E, f, d)."""
+    if cfg.family not in ("dense", "moe"):
+        raise ValueError(f"the port serves the dense and MoE families, got "
                          f"{cfg.family!r}")
     d, h, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
         cfg.d_ff
@@ -68,10 +81,23 @@ def param_shapes(cfg: ModelConfig) -> Dict:
                          "'gelu')")
     if cfg.mlp_bias:
         mlp.update(b_up=((g, f), "zeros"), b_down=((g, d), "zeros"))
-    block = {"mixer_norm": ((g, d), "ones"), "attn": attn,
-             "ffn_norm": ((g, d), "ones"), "mlp": mlp}
+    e = cfg.moe_experts
+    moe = {"router": ((g, d, e), 0.02),
+           "experts": {"w_gate": ((g, e, d, f), 0.02),
+                       "w_up": ((g, e, d, f), 0.02),
+                       "w_down": ((g, e, f, d), down)}}
+
+    def block(j):
+        blk = {"mixer_norm": ((g, d), "ones"), "attn": attn,
+               "ffn_norm": ((g, d), "ones")}
+        if ffn_kind(cfg, j) == "moe":
+            blk["moe"] = moe
+        else:
+            blk["mlp"] = mlp
+        return blk
+
     shapes = {"embed": ((cfg.vocab, d), 0.02),
-              "blocks": [block for _ in range(cfg.scan_group)],
+              "blocks": [block(j) for j in range(cfg.scan_group)],
               "final_norm": ((d,), "ones")}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = ((d, cfg.vocab), 0.02)
@@ -110,6 +136,33 @@ def _group_params(tree, g: int):
     return layer_slice(tree, g)
 
 
+def _layer(ctx: QuantCtx, x, p, cfg: ModelConfig, j: int, positions,
+           kc, vc, cache_len, block_table, monolithic: bool, cached: bool,
+           chunk_start, q_len, attn_impl: str):
+    """One block; K/V land in (kc, vc) in place. Returns (x, aux): the MoE
+    layer's aux loss, None for an MLP layer."""
+    h = L.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    out, (k_new, v_new) = L.attention_block(
+        ctx, h, p["attn"], cfg, positions, f"blk{j}.attn",
+        kv_cache=None if monolithic else (kc, vc),
+        cache_len=cache_len, block_table=block_table,
+        chunk_start=chunk_start, q_len=q_len, attn_impl=attn_impl)
+    if monolithic and block_table is not None:
+        L.paged_prefill_update(kc, k_new, block_table)
+        L.paged_prefill_update(vc, v_new, block_table)
+    elif monolithic and cached:
+        s = k_new.shape[1]
+        kc[:, :s] = k_new.to(kc.dtype)
+        vc[:, :s] = v_new.to(vc.dtype)
+    x = x + out
+    h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if ffn_kind(cfg, j) == "moe":
+        out, aux = L.moe_block(ctx, h, p["moe"], cfg, f"blk{j}.moe")
+    else:
+        out, aux = L.mlp_block(ctx, h, p["mlp"], cfg, f"blk{j}.mlp"), None
+    return x + out, aux
+
+
 def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
                    cache, cache_len, prefill: bool,
                    chunk_start: Optional[int] = None, q_len=None,
@@ -121,36 +174,50 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
     batch-row view of the dense cache, or through ``cache["block_table"]``
     when paged; with no cache (training) nothing is written. Chunked prefill
     (``chunk_start``), the mixed tick (``q_len``) and decode read and write
-    the cache inside ``attention_block``. Returns the final-norm hidden
-    states (B, S, d).
+    the cache inside ``attention_block``. Training (no cache, grad enabled)
+    under ``cfg.remat`` recomputes each layer group's body in the backward
+    (and, with ``remat_inner`` and ``scan_group > 1``, each layer inside
+    it), keeping only the group inputs. Returns the final-norm hidden states
+    (B, S, d) and the layers' summed MoE aux loss.
     """
     block_table = cache.get("block_table") if cache is not None else None
     monolithic = prefill and chunk_start is None
+    remat = cfg.remat and cache is None and torch.is_grad_enabled()
+
+    def layer_fn(j):
+        def run(xv, p, kc, vc):
+            return _layer(ctx, xv, p, cfg, j, positions, kc, vc, cache_len,
+                          block_table, monolithic, cache is not None,
+                          chunk_start, q_len, attn_impl)
+        if remat and cfg.remat_inner and cfg.scan_group > 1:
+            return lambda *a: checkpoint(run, *a, use_reentrant=False)
+        return run
+
+    layers = [layer_fn(j) for j in range(cfg.scan_group)]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
+        kvs = []
         for j in range(cfg.scan_group):
-            p = _group_params(params["blocks"][j], g)
             kc = vc = None
             if cache is not None:
                 c = cache["blocks"][j]
                 kc, vc = (c["k_pages"][g], c["v_pages"][g]) \
                     if block_table is not None else (c["k"][g], c["v"][g])
-            h = L.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-            out, (k_new, v_new) = L.attention_block(
-                ctx, h, p["attn"], cfg, positions, f"blk{j}.attn",
-                kv_cache=None if monolithic else (kc, vc),
-                cache_len=cache_len, block_table=block_table,
-                chunk_start=chunk_start, q_len=q_len, attn_impl=attn_impl)
-            if monolithic and block_table is not None:
-                L.paged_prefill_update(kc, k_new, block_table)
-                L.paged_prefill_update(vc, v_new, block_table)
-            elif monolithic and cache is not None:
-                s = k_new.shape[1]
-                kc[:, :s] = k_new.to(kc.dtype)
-                vc[:, :s] = v_new.to(vc.dtype)
-            x = x + out
-            h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-            x = x + L.mlp_block(ctx, h, p["mlp"], cfg, f"blk{j}.mlp")
-    return L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+            kvs.append((kc, vc))
+
+        def group_body(xv, aux, g=g, kvs=kvs):
+            for j in range(cfg.scan_group):
+                p = _group_params(params["blocks"][j], g)
+                xv, a = layers[j](xv, p, *kvs[j])
+                if a is not None:
+                    aux = aux + a
+            return xv, aux
+
+        if remat:
+            x, aux = checkpoint(group_body, x, aux, use_reentrant=False)
+        else:
+            x, aux = group_body(x, aux)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def _embed(params, cfg: ModelConfig, tokens):
@@ -174,30 +241,45 @@ def _last_hidden(hidden, lengths):
     return hidden[rows, lengths.long() - 1]
 
 
-# Projection weights of a block per MLP kind, by the names ``dense`` gives
-# them (``blk{j}.attn.wq``, ...): the leaves MF-QAT fake-quantizes. Weights
-# only: JAX's ``dense`` fake-quantizes ``w`` and adds the bias raw.
+# Projection weights of a block per feed-forward kind (the MLP's ``act``,
+# or "moe"), by sub-tree (a dotted path) and leaf name, named as ``dense``
+# names them (``blk{j}.attn.wq``, ...): the leaves MF-QAT fake-quantizes.
+# Weights only: JAX's ``dense`` fake-quantizes ``w`` and adds the bias raw;
+# the MoE router stays raw (``core/qat.py::DEFAULT_EXCLUDE``).
 PROJECTIONS = {
     "swiglu": {"attn": ("wq", "wk", "wv", "wo"),
                "mlp": ("w_gate", "w_up", "w_down")},
     "gelu": {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w_up", "w_down")},
+    "moe": {"attn": ("wq", "wk", "wv", "wo"),
+            "moe.experts": ("w_gate", "w_up", "w_down")},
 }
+
+
+def projections(cfg: ModelConfig, j: int) -> Dict:
+    """``PROJECTIONS`` of in-group layer ``j``."""
+    return PROJECTIONS["moe" if ffn_kind(cfg, j) == "moe" else cfg.act]
 
 
 def fake_quant_blocks(qat: QATConfig, fmt_idx: int, params,
                       cfg: ModelConfig):
     """``params`` with every stacked projection leaf fake-quantized (STE) at
     format ``fmt_idx`` once for the whole stack, in the compute dtype. A
-    (G, d_in, d_out) leaf is blocked at ``block_axis + 1``, so each layer
-    slice gets the value JAX's ``dense`` gives it."""
+    (G, d_in, d_out) leaf, or a (G, E, d_in, d_out) expert leaf, is blocked
+    at ndim-2 (``qat.pytree_block_axis``), so each layer and expert slice
+    gets the value JAX's ``dense`` gives it."""
     blocks = []
     for j, blk in enumerate(params["blocks"]):
         blk = dict(blk)
-        for sub, names in PROJECTIONS[cfg.act].items():
-            blk[sub] = dict(blk[sub])
+        for sub, names in projections(cfg, j).items():
+            path = sub.split(".")
+            node = blk
+            for key in path[:-1]:
+                node[key] = dict(node[key])
+                node = node[key]
+            leaves = node[path[-1]] = dict(node[path[-1]])
             for n in names:
-                w = blk[sub][n]
-                blk[sub][n] = qat.apply(
+                w = leaves[n]
+                leaves[n] = qat.apply(
                     w, f"blk{j}.{sub}.{n}", fmt_idx,
                     axis=qat.block_axis % 2 + w.ndim - 2,
                     out_dtype=cfg.compute_dtype)
@@ -290,15 +372,14 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         b, s = tokens.shape
         x = _embed(params, cfg, tokens)
         positions = torch.arange(s, device=x.device).expand(b, s)
-        hidden = forward_hidden(QuantCtx(), qparams, cfg, x, positions, None,
-                                None, prefill=True)
+        hidden, aux = forward_hidden(QuantCtx(), qparams, cfg, x, positions,
+                                     None, None, prefill=True)
         labels = batch["labels"]
         mask = batch.get("mask")
         mask = torch.ones(labels.shape, device=x.device) if mask is None \
             else mask.to(torch.float32)
         loss = chunked_ce_loss(hidden, _lm_head_w(params, cfg), labels, mask,
                                cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return loss + aux, {"ce": loss, "aux": aux}
 
     def init_cache(b, s_max, dtype=None, *, device="cuda",
@@ -341,8 +422,8 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         b, s = tokens.shape
         x = _embed(params, cfg, tokens)
         positions = torch.arange(s, device=x.device).expand(b, s)
-        hidden = forward_hidden(ctx, params, cfg, x, positions, cache,
-                                None, prefill=True)
+        hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
+                                   None, prefill=True)
         lengths = batch.get("lengths")
         if lengths is None:
             cache_len = torch.full((b,), s, dtype=torch.int32,
@@ -378,8 +459,8 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         b, c = tokens.shape
         x = _embed(params, cfg, tokens)
         positions = (start_pos + torch.arange(c, device=x.device)).expand(b, c)
-        hidden = forward_hidden(ctx, params, cfg, x, positions, cache, None,
-                                prefill=True, chunk_start=start_pos)
+        hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
+                                   None, prefill=True, chunk_start=start_pos)
         new_len = torch.clamp(batch["lengths"].to(device=x.device,
                                                   dtype=torch.int32),
                               max=start_pos + c)
@@ -399,9 +480,9 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
     def serve_step(params, batch, cache, cache_len):
         """One decode step: batch["tokens"] (B, 1) against the cache."""
         x = _embed(params, cfg, batch["tokens"])
-        hidden = forward_hidden(ctx, params, cfg, x, cache_len[:, None],
-                                cache, cache_len, prefill=False,
-                                attn_impl=attn_impl)
+        hidden, _ = forward_hidden(ctx, params, cfg, x, cache_len[:, None],
+                                   cache, cache_len, prefill=False,
+                                   attn_impl=attn_impl)
         return _head_logits(ctx, params, cfg, hidden[:, -1]), cache
 
     @torch.no_grad()
@@ -416,9 +497,9 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         b, c = tokens.shape
         x = _embed(params, cfg, tokens)
         positions = cache_len[:, None] + torch.arange(c, device=x.device)
-        hidden = forward_hidden(ctx, params, cfg, x, positions, cache,
-                                cache_len, prefill=False, q_len=q_len,
-                                attn_impl=attn_impl)
+        hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
+                                   cache_len, prefill=False, q_len=q_len,
+                                   attn_impl=attn_impl)
         return _head_logits(ctx, params, cfg,
                             _last_hidden(hidden, q_len)), cache
 
@@ -435,9 +516,9 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         b, c = tokens.shape
         x = _embed(params, cfg, tokens)
         positions = cache_len[:, None] + torch.arange(c, device=x.device)
-        hidden = forward_hidden(ctx, params, cfg, x, positions, cache,
-                                cache_len, prefill=False, q_len=q_len,
-                                attn_impl=attn_impl)
+        hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
+                                   cache_len, prefill=False, q_len=q_len,
+                                   attn_impl=attn_impl)
         logits = _head_logits(ctx, params, cfg,
                               hidden.reshape(b * c, hidden.shape[-1]))
         return logits.reshape(b, c, -1), cache

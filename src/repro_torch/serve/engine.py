@@ -388,7 +388,10 @@ class ElasticEngine:
                     f"model family {cfg.family!r} has no verify_step entry "
                     "point; speculative decoding needs the multi-query "
                     "mixed-attention machinery (pure-attention stacks only)")
-            if cfg.family != "dense":
+            # the reference's rule: only a pure-attention text stack can
+            # rewind (recurrent mixers cannot; the port's configs have no
+            # hybrid attn_every or vision_tokens fields, A.8.2-A.8.3)
+            if cfg.family in ("ssm", "encdec"):
                 raise ValueError(
                     "speculative decoding requires a pure-attention text "
                     f"stack; family {cfg.family!r} cannot rewind recurrent "

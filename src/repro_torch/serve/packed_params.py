@@ -4,9 +4,10 @@ Counterpart of ``repro/serve/packed_params.py`` (serving subset). The serving
 tree keeps every quantized projection packed — ``MXTensor`` leaves (int8 /
 uint8 codes + E8M0 scales) for >= 5-bit formats, split-N ``PackedInt4Leaf``
 for MXINT4 — so a decode step streams only codes and scales. Layout rules:
-stacked leaves are (G, K, N) with the contraction at ndim-2, scales are in
-the moved-last (G, N, K/bs) layout, and a leaf sliced to one layer keeps its
-stale ``block_axis`` (consumers re-derive the axis as ndim-2).
+stacked leaves are (G, K, N), and MoE expert leaves (G, E, K, N), with the
+contraction at ndim-2; scales are in the moved-last (G, [E,] N, K/bs)
+layout; a leaf sliced to one layer (and one expert) keeps its stale
+``block_axis`` (consumers re-derive the axis as ndim-2).
 """
 from __future__ import annotations
 
@@ -58,7 +59,9 @@ def pack_leaf_int4(t: MXTensor, layout: str = "splitn") -> PackedInt4Leaf:
 
 def layer_slice(leaf, g: int):
     """Leaf ``g`` of a stacked (G, ...) leaf: views, no copies. Packed
-    containers keep their (now stale) metadata, like a scan-sliced leaf."""
+    containers keep their (now stale) metadata, like a scan-sliced leaf.
+    Applied again to a layer's (E, K, N) expert leaf it gives expert
+    ``g``'s 2-D (K, N) slice, the operand of the dequant-GEMM dispatch."""
     if isinstance(leaf, MXTensor):
         return MXTensor(codes=leaf.codes[g], scale_exp=leaf.scale_exp[g],
                         fmt=leaf.fmt, block_axis=leaf.block_axis)

@@ -204,10 +204,18 @@ def test_engine_streams_match_jax(arch, layout):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_loss_and_grads_match_jax(arch, idx):
     """Direct MF-QAT at mxint4 (index 0) and the pass-through (4): the
-    loss and every gradient, the bias leaves' included."""
+    loss and every gradient, the bias leaves' included. The port's
+    attention here is ``prefill_attention`` under autograd
+    (``flash_vjp=False``), the path this elementwise bound was set on:
+    the flash backward's ``ds = p * (dp - delta)`` leaves rounding noise
+    in the rows' sums that the biased keys turn into wk / bk gradient
+    residues of ~2e-6 of the leaf's largest, independently in each
+    package (in JAX alone, flash against plain reaches 0.45 of this
+    bound). The default flash path is held against JAX in
+    ``tests/test_torch_flash_vjp.py``."""
     jqat = JQAT(formats=TRAIN_FORMATS_MXINT)
     japi, params, _ = _model(arch, jqat)
-    tapi = make_model(get_reduced(arch),
+    tapi = make_model(dataclasses.replace(get_reduced(arch), flash_vjp=False),
                       qat=QATConfig(formats=TRAIN_FORMATS_MXINT))
     rng = np.random.default_rng(3)
     tokens = rng.integers(0, 512, size=(2, 64)).astype(np.int32)

@@ -2,7 +2,7 @@
 package's (``repro/launch/serve.py``).
 
 The JAX CLI's ``main()`` writes an MXINT8 anchor of a reduced smollm-135m
-and serves it; the port's ``main()`` (argv patched, in-process, on the CPU)
+(and of a reduced mixtral-8x7b, the MoE family) and serves it; the port's ``main()`` (argv patched, in-process, on the CPU)
 serves the same directory with the same flags. The printed ``req`` lines
 must be equal: the same prompts (numpy's seed 0), the same greedy streams
 at mxint8 and mxint4. ``--no-reduced`` is accepted (the reference's
@@ -23,10 +23,9 @@ def _run(main, argv, capsys, monkeypatch):
     return out, [line for line in out if line.startswith("req ")]
 
 
-@pytest.mark.parametrize("fmt", ["mxint8", "mxint4"])
-def test_req_lines_equal_the_jax_cli(fmt, tmp_path, capsys, monkeypatch):
+def _req_lines_equal(arch, fmt, tmp_path, capsys, monkeypatch):
     ckpt = str(tmp_path / "anchor")
-    argv = ["--arch", "smollm-135m", "--anchor-ckpt", ckpt,
+    argv = ["--arch", arch, "--anchor-ckpt", ckpt,
             "--requests", "6", "--max-new", "5", "--slots", "2",
             "--fmt", fmt]
     out, want = _run(jserve.main, argv, capsys, monkeypatch)
@@ -37,6 +36,18 @@ def test_req_lines_equal_the_jax_cli(fmt, tmp_path, capsys, monkeypatch):
     assert len(got) == 4 and all(f"fmt={fmt}" in line for line in got)
     assert got == want
     assert out[-1].startswith("engine: {")
+
+
+@pytest.mark.parametrize("fmt", ["mxint8", "mxint4"])
+def test_req_lines_equal_the_jax_cli(fmt, tmp_path, capsys, monkeypatch):
+    _req_lines_equal("smollm-135m", fmt, tmp_path, capsys, monkeypatch)
+
+
+@pytest.mark.parametrize("fmt", ["mxint8", "mxint4"])
+def test_moe_req_lines_equal_the_jax_cli(fmt, tmp_path, capsys,
+                                         monkeypatch):
+    """The same with ``--arch mixtral-8x7b``: the MoE family."""
+    _req_lines_equal("mixtral-8x7b", fmt, tmp_path, capsys, monkeypatch)
 
 
 def test_makes_saves_and_reloads_its_own_anchor(tmp_path, capsys):
