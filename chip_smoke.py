@@ -10,12 +10,15 @@ check them.
     python3 chip_smoke.py --family-only
     python3 chip_smoke.py --moe-only
     python3 chip_smoke.py --train-long-only
+    python3 chip_smoke.py --vlm-only
+    python3 chip_smoke.py --hybrid-only
     python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
 2, 5 and 8a, ``--slo-only`` phases 1, 2 and 12, ``--family-only`` phases
 1, 2, 3b, 13 and 14, ``--moe-only`` phases 1, 2 and 15,
-``--train-long-only`` phases 1, 2 and 16, ``--train-only`` phases 1 and 2
+``--train-long-only`` phases 1, 2 and 16, ``--vlm-only`` phases 1, 2 and
+17, ``--hybrid-only`` phases 1, 2 and 18, ``--train-only`` phases 1 and 2
 and then phase 6's smollm-135m runs A and B, each step split into its
 parts (with ``--src``, another tree's, for a same-call A/B of the training
 step), ``--serve-only`` phases 1 and 2 and then greedy
@@ -203,7 +206,39 @@ Phases (any failure exits non-zero before the result line):
      run); mixtral-8x7b at full width, one layer, seq 8192 x batch 1, two
      direct steps through flash_vjp's banded path (the band logged) and
      B7 on the (1, 8, 4096, 14336) expert leaves: finite losses, aux loss
-     > 0, step ms, peak, B7 launches as the structure predicts.
+     > 0, step ms, peak, B7 launches as the structure predicts;
+ 17. the vision-language backbone: llava-next-mistral-7b at full width and
+     depth, an MXINT8 anchor (B6) and the packed mxint8 / mxint4 trees
+     (B5); 4 requests, each with its own (2880, 4096) image embeddings
+     from the seed and a prompt of 16-200 tokens padded to 192 + 256 j
+     (prefills of 3072 or 3328 positions), through ``prefill_slot`` into
+     a dense cache (max_len 512 + 2880) and into a paged one (pages of
+     16, B3), then 16 greedy ``serve_step``s: 224 B1/B2 and (paged) 32
+     B3 launches per step; one request's prefill and first decode tick
+     within 5% of max|logit| of the densify contract in f32 (the first
+     tick of each wave in bf16 reported: the two contracts round each
+     projection's output at different places); B1/B2 at each prefill's M
+     against the plain versions; prefill ms per request, step wall, peak,
+     KV bytes and the dense-against-paged agreement reported; then MF-QAT
+     forward +
+     backward (B7) at depth 4, batch 1, 2880 + 1216 positions: ms, peak,
+     finite loss and gradients;
+ 18. the hybrid: B1 / B2 at every jamba-1.5-large projection shape (x_proj
+     16384 -> 544 with its ragged N edge, in_proj 8192 -> 32768, out_proj,
+     attention, MLP and expert shapes) at M = 4 and 256 as in 3b; then
+     jamba at full width, its published layers 3-4 (Mamba + 16-expert
+     MoE, attention + MLP): an MXINT8 anchor (A_log quantized as the
+     reference quantizes it, the other SSM leaves raw), the dense graph
+     engine (monolithic unbucketed admission, the sequential scheduler)
+     at mxint8 and mxint4 as in 13 with the contracts gated in f32 (58
+     B1/B2 launches per executable) and the card's idle share; a row
+     poisoned at the anchor rung (the survivors' streams equal the clean
+     wave's), a poisoned mxint4 tick escalating to mxint6 with its replay
+     from the kept Mamba state (graph == eager, the tokens before the
+     fault equal the clean wave's), a mid-wave snapshot resumed on a
+     fresh engine (equal to the uninterrupted wave); the state bytes per
+     slot; then MF-QAT forward + backward of published layer 2 (Mamba +
+     MLP) at seq 2048 and 8192: ms, peak, the longest that runs.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -294,6 +329,16 @@ LONG_SEQ = 8192
 SLO_ROUNDS = ((15.4, 3), (11.0, 4))     # (latency TPOT budget ms, rounds)
 SLO_TTFT_MS = {"latency": 250.0, "throughput": 2000.0}
 SLO_FMTS = ("mxint4", "mxint6", "mxint8")
+# The vlm phase (17): llava-next-mistral-7b at full depth, its requests'
+# text padded so that each prefill is a multiple of 256 positions.
+VLM_REQ, VLM_STEPS, VLM_MAX_LEN = 4, 16, 512
+VLM_TRAIN_LAYERS, VLM_TRAIN_TEXT = 4, 1216        # 2880 + 1216 = 4096
+# The hybrid phase (18): jamba-1.5-large's published layers 3-4 served,
+# layer 2 trained at these lengths; B1/B2 at its shapes at these M.
+HYBRID = ("jamba-1.5-large-398b",)
+HYBRID_MS = (4, 256)
+HYBRID_TRAIN_SEQS = (2048, 8192)
+_SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
 
 def log(msg: str) -> None:
@@ -340,6 +385,7 @@ def phase_card():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"card: {smi}")
+    _SMI[0] = smi
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"device 0 = {torch.cuda.get_device_name(0)}; "
         f"count = {torch.cuda.device_count()}")
@@ -2994,21 +3040,32 @@ _OTHER = {"mx_matmul": "mx_matmul_int4", "mx_matmul_int4": "mx_matmul"}
 
 
 def _proj_shapes(cfg):
-    """{(K, N): count} of one layer's projection weights (a MoE layer's
-    expert leaves count once per expert)."""
+    """{(K, N): count} of one scan group's projection weights (one layer's
+    but for jamba; a MoE layer's expert leaves count once per expert)."""
     from repro_torch.models.transformer import param_shapes, projections
-    block = param_shapes(cfg)["blocks"][0]
     out = {}
-    for sub, names in projections(cfg, 0).items():
-        node = block
-        for key in sub.split("."):
-            node = node[key]
-        for name in names:
-            shape, _ = node[name]
-            k, n = shape[-2:]
-            per = shape[1] if len(shape) == 4 else 1
-            out[(k, n)] = out.get((k, n), 0) + per
+    for j, block in enumerate(param_shapes(cfg)["blocks"]):
+        for sub, names in projections(cfg, j).items():
+            node = block
+            for key in sub.split("."):
+                node = node[key]
+            for name in names:
+                shape, _ = node[name]
+                k, n = shape[-2:]
+                per = shape[1] if len(shape) == 4 else 1
+                out[(k, n)] = out.get((k, n), 0) + per
     return out
+
+
+def _per_layer(cfg) -> int:
+    """B1/B2 launches per layer of one executable: a scan group's
+    projections over its layers (jamba's groups mix Mamba, attention, MoE
+    and MLP layers)."""
+    total = sum(_proj_shapes(cfg).values())
+    if total % cfg.scan_group:
+        fail(f"{cfg.name}: {total} projections do not split over "
+             f"{cfg.scan_group} layers")
+    return total // cfg.scan_group
 
 
 def phase_family_kernels(seed: int, archs=FAMILY, ms_=FAMILY_MS):
@@ -3099,7 +3156,8 @@ def phase_family_kernels(seed: int, archs=FAMILY, ms_=FAMILY_MS):
                 tot = {key: sum(r["per_layer"] * r[key] for r in sel)
                        for key in ("ms", "plain_ms", "library_ms",
                                    "bound_ms")}
-                log(f"one {arch} layer's {sum(r['per_layer'] for r in sel)} "
+                log(f"one {arch} scan group's "
+                    f"{sum(r['per_layer'] for r in sel)} "
                     f"projections at M={m}, {name}[{fname}]: "
                     f"{tot['ms']:.4f} ms (bound {tot['bound_ms']:.4f} ms, "
                     f"{100 * tot['bound_ms'] / tot['ms']:.1f}% of it; plain "
@@ -3275,7 +3333,8 @@ def _dense_waves(name, cfg, api, eng, fmt, per_layer, seed, totals):
 
     import torch
     from repro_torch.kernels import mx_matmul
-    from repro_torch.launch.costmodel import serve_weight_stream_bytes
+    from repro_torch.launch.costmodel import (mamba_leaf_bytes,
+                                              serve_weight_stream_bytes)
     from repro_torch.models.transformer import make_model
 
     kernel = "mx_matmul_int4" if fmt == "mxint4" else "mx_matmul"
@@ -3318,7 +3377,8 @@ def _dense_waves(name, cfg, api, eng, fmt, per_layer, seed, totals):
     if bad:
         fail(f"{name} {fmt}: requests {bad} incomplete")
     st = eng.stats()
-    want_bytes = serve_weight_stream_bytes(cfg, fmt)
+    want_bytes = serve_weight_stream_bytes(cfg, fmt) \
+        + mamba_leaf_bytes(cfg, fmt)
     rel = st["weight_bytes"][fmt] / want_bytes - 1
     if abs(rel) > 0.02:
         fail(f"{name} {fmt}: weight bytes {st['weight_bytes'][fmt]} off "
@@ -3844,6 +3904,566 @@ def phase_train_long(seed: int):
     return totals
 
 
+# ---------------------------------------------------------------------------
+def _vlm_text_len(n: int) -> int:
+    """The padded text length of an n-token llava prompt: 192 + 256 j, so
+    that S = 2880 + 192 + 256 j is a multiple of 256 (3072 = 3 x 1024, 3328
+    = 13 x 256) and the flash chunk rule splits the prompt into 1024- or
+    256-token blocks, not 64-token ones (2880 = 45 x 64)."""
+    p = 192
+    while p < n:
+        p += 256
+    return p
+
+
+def _vlm_batches(cfg, seed: int):
+    """VLM_REQ requests: prompts of 16-200 tokens right-padded to
+    ``_vlm_text_len`` with their true ``lengths``, each with its own
+    (1, 2880, d) image embeddings from the seed, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 17)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 17)
+    out = []
+    for _ in range(VLM_REQ):
+        n = int(rng.integers(16, 201))
+        toks = np.zeros(_vlm_text_len(n), np.int32)
+        toks[:n] = rng.integers(0, cfg.vocab, size=n)
+        ve = (torch.randn((1, cfg.vision_tokens, cfg.d_model), generator=gen,
+                          device="cuda") * 0.02).to(cfg.compute_dtype)
+        out.append({"tokens": torch.as_tensor(toks[None], device="cuda"),
+                    "lengths": torch.tensor([n], dtype=torch.int32,
+                                            device="cuda"),
+                    "vision_embeds": ve})
+    return out
+
+
+def _vlm_serve(label, api, weights, cfg, batches, layout, seed):
+    """The batches through ``prefill_slot`` into one cache of VLM_REQ
+    slots (``layout``), then VLM_STEPS greedy ``serve_step``s of all of
+    them; the first step also through the densify contract on a copy of
+    the cache (reported: in bf16 the two round each projection's output
+    at different places; ``_vlm_contract`` gates in f32). Returns
+    (streams, per-prefill ms,
+    step wall ms, launches per step, the first step's logits error, the
+    run's B1/B2/B3 launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.dispatch import make_qmm
+
+    paged = layout == "paged"
+    impl = "paged_kernel" if paged else "gather"
+    kapi = api.with_serving(make_qmm("kernel"), impl)
+    kw = dict(kv_layout="paged", page_size=PAGE) if paged else {}
+    cache = kapi.init_cache(VLM_REQ, VLM_MAX_LEN, device="cuda", **kw)
+    if paged:
+        mp = cache["block_table"].shape[1]
+        perm = np.random.default_rng(seed + 18).permutation(
+            np.arange(1, VLM_REQ * mp + 1)).reshape(VLM_REQ, mp)
+        cache["block_table"].copy_(torch.from_numpy(perm.astype(np.int32)))
+    mx_matmul.reset_launches()
+    pa.reset_launches()
+    pre_ms, firsts, lens = [], [], []
+    for i, batch in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache, clen = kapi.prefill_slot(weights, batch, cache, i)
+        firsts.append(int(torch.argmax(lg)))
+        torch.cuda.synchronize()
+        pre_ms.append(1e3 * (time.perf_counter() - t0))
+        lens.append(int(clen))
+    want_len = [cfg.vision_tokens + int(b["lengths"]) for b in batches]
+    if lens != want_len:
+        fail(f"{label} {layout}: cache_len {lens}, want {want_len}")
+    tokens = torch.tensor(firsts, dtype=torch.int32, device="cuda")[:, None]
+    cache_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    twin = {"blocks": [{k: t.clone() for k, t in c.items()}
+                       for c in cache["blocks"]]}
+    if paged:
+        twin["block_table"] = cache["block_table"].clone()
+    dapi = api.with_serving(make_qmm("densify"), impl)
+    want, _ = dapi.serve_step(weights, {"tokens": tokens}, twin,
+                              cache_len.clone())
+    del twin
+    torch.cuda.empty_cache()
+    streams = [[t] for t in firsts]
+    walls, per_step = [], []
+    first_err = None
+    for step in range(VLM_STEPS):
+        before = (dict(mx_matmul.launches), dict(pa.launches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = kapi.serve_step(weights, {"tokens": tokens}, cache,
+                                    cache_len)
+        nxt = torch.argmax(lg, -1).to(torch.int32)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+        per_step.append((
+            sum(mx_matmul.launches.values()) - sum(before[0].values()),
+            pa.launches["paged_attention"] - before[1]["paged_attention"]))
+        if step == 0:
+            diff = float((lg.float() - want.float()).abs().max())
+            ref_max = float(want.float().abs().max())
+            first_err = (diff, ref_max)
+            if not torch.isfinite(lg).all():
+                fail(f"{label} {layout}: first decode tick not finite")
+        for i, t in enumerate(nxt.tolist()):
+            streams[i].append(t)
+        tokens = nxt[:, None]
+        cache_len = cache_len + 1
+    want_step = (PROJ_PER_LAYER * cfg.n_layers, cfg.n_layers if paged else 0)
+    if any(s != want_step for s in per_step):
+        fail(f"{label} {layout}: launches per decode step (B1+B2, B3) "
+             f"{sorted(set(per_step))}, want {want_step}")
+    del cache
+    torch.cuda.empty_cache()
+    return streams, pre_ms, walls, per_step[0], first_err, \
+        {**mx_matmul.launches, **pa.launches}
+
+
+def _vlm_contract(api, weights, batch):
+    """One request's prefill and first decode tick through the kernel and
+    the densify contracts on one dense slot, both fed the kernel path's
+    first token: [(max|kernel - densify|, max|densify|)] per step."""
+    import torch
+    from repro_torch.kernels.dispatch import make_qmm
+    got, nxt = {}, None
+    for mode in ("kernel", "densify"):
+        mapi = api.with_serving(make_qmm(mode), "gather")
+        cache = mapi.init_cache(1, VLM_MAX_LEN, device="cuda")
+        lg, cache, clen = mapi.prefill_slot(weights, batch, cache, 0)
+        if nxt is None:
+            nxt = torch.argmax(lg)[None, None].to(torch.int32)
+        lg2, _ = mapi.serve_step(weights, {"tokens": nxt}, cache,
+                                 clen[None])
+        got[mode] = (lg.float(), lg2[0].float())
+        del cache
+    return [(float((a - b).abs().max()), float(b.abs().max()))
+            for a, b in zip(got["kernel"], got["densify"])]
+
+
+def phase_vlm(seed: int):
+    """llava-next-mistral-7b at full width and depth: an MXINT8 anchor
+    (B6), packed mxint8 and mxint4 trees (B5), VLM_REQ requests with their
+    own 2880-token image prefixes through ``prefill_slot`` and VLM_STEPS
+    greedy ``serve_step``s on the dense layout and on the paged one (B3):
+    launches per step, B1/B2 at each prefill's M against their plain
+    versions; one request's prefill and first decode tick within
+    FUSED_TOL of densify in f32 (bf16 reported); then MF-QAT forward and
+    backward at depth VLM_TRAIN_LAYERS, seq 2880 + 1216.
+    Returns the launches of B1-B3 and B5-B7."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.core.tree import flatten_paths, unflatten_paths
+    from repro_torch.kernels import mx_matmul, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models.transformer import init_params, make_model
+    from repro_torch.serve.packed_params import (layer_slice,
+                                                 make_packed_params)
+
+    cfg = get_config("llava-next-mistral-7b")
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"vlm phase: llava-next-mistral-7b at full width and depth "
+        f"({cfg.n_layers} layers, {cfg.vision_tokens} image embeddings per "
+        f"request), {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated "
+        "before it; card " + _SMI[0])
+    _reset_quant_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    anchor = build_anchor(cfg, seed, save=False)
+    log(f"llava: anchor built in {time.perf_counter() - t0:.1f} s, peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    weights = {fmt: make_packed_params(anchor, target_fmt=fmt,
+                                       dtype=cfg.compute_dtype)
+               for fmt in ("mxint8", "mxint4")}
+    counts = _quant_launches()
+    want = {"mx_quantize": PROJ_PER_LAYER, "ss_convert": PROJ_PER_LAYER,
+            "fake_quant": 0}
+    if counts != want:
+        fail(f"llava: anchor and mxint4 build launched {counts}, want {want}")
+    add(counts)
+    del anchor
+    gc.collect()
+    torch.cuda.empty_cache()
+    api = make_model(cfg)
+    batches = _vlm_batches(cfg, seed)
+    plens = [int(b["lengths"]) for b in batches]
+    ms_ = [cfg.vision_tokens + b["tokens"].shape[1] for b in batches]
+    log(f"llava requests: prompts {plens} tokens, padded to "
+        f"{[b['tokens'].shape[1] for b in batches]} (prefill M {ms_}); KV "
+        f"{2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2 // 1024} KiB per "
+        f"position, so {[round((cfg.vision_tokens + n) * 131072 / 1e6, 1) for n in plens]}"
+        f" MB per request, {cfg.vision_tokens * 131072 / 1e6:.1f} MB for "
+        "the prefix alone")
+    for fmt in ("mxint8", "mxint4"):
+        streams = {}
+        for layout in ("dense", "paged"):
+            torch.cuda.reset_peak_memory_stats()
+            st, pre_ms, walls, per_step, err, pre_l = _vlm_serve(
+                f"llava {fmt}", api, weights[fmt], cfg, batches, layout,
+                seed)
+            streams[layout] = st
+            add(pre_l)
+            log(f"llava {fmt} {layout}: prefill ms per request "
+                f"{[round(m, 1) for m in pre_ms]}; decode step wall median "
+                f"{np.median(walls):.2f} ms ({min(walls):.2f}-"
+                f"{max(walls):.2f}, n {len(walls)}, host wall to a "
+                f"synchronize, eager launches); launches per step B1/B2 "
+                f"{per_step[0]}, B3 {per_step[1]}; first decode tick "
+                f"max|kernel - densify| {err[0]:.4g} of max|densify| "
+                f"{err[1]:.4g}; peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        agree = sum(a == b for x, y in zip(streams["dense"], streams["paged"])
+                    for a, b in zip(x, y))
+        total = sum(len(x) for x in streams["dense"])
+        log(f"llava {fmt}: dense and paged streams agree on {agree} of "
+            f"{total} tokens (the dense decode reads through the gather "
+            "path, the paged one through B3: rounding may differ)")
+    # B1/B2 at each request's prefill M, held against the plain versions,
+    # and the contracts in f32 (launches made to compare, not counted)
+    mm_before = dict(mx_matmul.launches)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    api32 = make_model(cfg32)
+    b32 = dict(batches[0], vision_embeds=batches[0]["vision_embeds"].float())
+    for fmt in ("mxint8", "mxint4"):
+        errs = _vlm_contract(api32, _as_f32(weights[fmt]), b32)
+        log(f"llava {fmt} f32 contract, request 0: prefill and first decode "
+            "tick max|kernel - densify| / max|densify| "
+            f"{[(round(e, 6), round(m, 4)) for e, m in errs]}")
+        for step, (e, m) in enumerate(errs):
+            if not math.isfinite(e) or e > FUSED_TOL * m:
+                fail(f"llava {fmt} f32 step {step}: kernel differs from "
+                     f"densify by {e:.4g} > {FUSED_TOL} * {m:.4g}")
+    del api32, b32
+    gen = torch.Generator(device="cuda").manual_seed(seed + 19)
+    for fmt in ("mxint8", "mxint4"):
+        leaf = layer_slice(weights[fmt]["blocks"][0]["attn"]["wq"], 0)
+        for m in sorted(set(ms_)):
+            x = torch.randn((m, cfg.d_model), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            if fmt == "mxint4":
+                from repro_torch.core.formats import get_format
+                f4 = get_format("mxint4", 32)
+                got = mx_matmul.mx_matmul_int4(x, leaf.packed, leaf.scale_exp,
+                                               f4)
+                wnt = ref.ref_mx_matmul_int4(x, leaf.packed, leaf.scale_exp,
+                                             f4)
+            else:
+                got = mx_matmul.mx_matmul(x, leaf.codes, leaf.scale_exp,
+                                          leaf.fmt)
+                wnt = ref.ref_mx_matmul(x, leaf.codes, leaf.scale_exp,
+                                        leaf.fmt)
+            scale = float(wnt.abs().max())
+            err = float((got - wnt).abs().max())
+            log(f"llava {fmt} wq at prefill M={m}: max abs err {err:.3g} "
+                f"against the plain version (max|plain| {scale:.3g})")
+            if not torch.allclose(got, wnt, rtol=1e-4, atol=1e-4 * scale):
+                fail(f"llava {fmt} wq M={m}: kernel differs from its plain "
+                     f"version by {err:.3g}")
+    mx_matmul.launches.update(mm_before)
+    del weights, api
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MF-QAT training: depth VLM_TRAIN_LAYERS, the prefix and 1216 tokens
+    tcfg = dataclasses.replace(cfg, n_layers=VLM_TRAIN_LAYERS)
+    log(f"DEPTH CUT: llava training runs {VLM_TRAIN_LAYERS} of "
+        f"{cfg.n_layers} layers (widths unchanged), batch 1, "
+        f"{cfg.vision_tokens} + {VLM_TRAIN_TEXT} positions")
+    qat = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    params = init_params(tcfg, seed, device="cuda")
+    flat = flatten_paths(params)
+    leaves = [p.requires_grad_(True) for _, p in flat]
+    tree = unflatten_paths({k: p for (k, _), p in zip(flat, leaves)})
+    gen = torch.Generator(device="cuda").manual_seed(seed + 20)
+    toks = torch.randint(0, cfg.vocab, (1, VLM_TRAIN_TEXT), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks, "labels": toks,
+             "vision_embeds": torch.randn(
+                 (1, cfg.vision_tokens, cfg.d_model), generator=gen,
+                 device="cuda") * 0.02}
+    tapi = make_model(tcfg, qat=qat)
+    _reset_quant_launches()
+    rows = []
+    for rep in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss, _ = tapi.train_loss(tree, batch, 1)
+        grads = torch.autograd.grad(loss, leaves)
+        end.record()
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        rows.append((start.elapsed_time(end),
+                     (torch.cuda.max_memory_allocated() - base) / 1e9,
+                     float(loss.detach()), finite))
+        del grads, loss
+    counts = _quant_launches()
+    if not all(r[3] for r in rows) or counts["fake_quant"] != \
+            2 * PROJ_PER_LAYER:
+        fail(f"llava training: finite {[r[3] for r in rows]}, B7 launches "
+             f"{counts['fake_quant']} (want {2 * PROJ_PER_LAYER})")
+    add(counts)
+    log(f"llava depth {VLM_TRAIN_LAYERS} MF-QAT train_loss (mxint4) forward "
+        f"+ backward, seq {cfg.vision_tokens} + {VLM_TRAIN_TEXT} x 1: "
+        f"{[round(r[0], 1) for r in rows]} ms (CUDA events; the first "
+        f"warms up), peak {[round(r[1], 2) for r in rows]} GB above the "
+        f"weights, loss {rows[-1][2]:.4f}, loss and gradients finite; B7 "
+        f"launches {counts['fake_quant']} (7 stacked leaves per call)")
+    del tree, leaves, params, flat, tapi
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _anchor_by_leaf(cfg, seed: int):
+    """``make_anchor(init_params(cfg, seed))`` at MXINT8, one stacked leaf
+    at a time: each leaf drawn in f32 on the card from the same generator
+    in the same order (``param_leaves``, ``init_leaf``), quantized by one
+    B6 launch or kept raw by the anchor's rule, and freed before the next.
+    The peak is the anchor plus one f32 leaf, not the whole f32 tree."""
+    import torch
+    from repro_torch.core.anchor import AnchorModel
+    from repro_torch.core.qat import QATConfig, pytree_block_axis
+    from repro_torch.kernels.ops import mx_quantize
+    from repro_torch.models.transformer import init_leaf, param_leaves
+
+    qat = QATConfig(anchor="mxint8")
+    fmt = qat.anchor_obj()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q, raw = {}, {}
+    for path, (shape, init) in param_leaves(cfg):
+        w = init_leaf(shape, init, gen)
+        ax = pytree_block_axis(w)
+        if (w.ndim >= 2 and qat.is_quantized_path(path)
+                and w.shape[ax] % fmt.block_size == 0):
+            q[path] = mx_quantize(w, fmt, axis=ax)
+        else:
+            raw[path] = w
+        del w
+    return AnchorModel(quantized=q, raw=raw, fmt_name=fmt.name)
+
+
+def _jamba_cut():
+    import dataclasses
+    from repro_torch.configs import get_config
+    full = get_config("jamba-1.5-large-398b")
+    cfg = dataclasses.replace(full, n_layers=2, scan_group=2, attn_every=2,
+                              attn_offset=1, moe_every=2, moe_offset=0)
+    log("DEPTH CUT: jamba-1.5-large-398b serves its published layers 3-4 "
+        "(layer 3: Mamba + 16-expert MoE; layer 4: attention + MLP) at "
+        f"full width; all {full.n_layers} layers (398 B parameters) do not "
+        "fit one card")
+    return full, cfg
+
+
+def phase_hybrid(seed: int):
+    """jamba-1.5-large at full width, published layers 3-4: an MXINT8
+    anchor (B6; A_log quantized, D / conv / dt raw), the dense graph
+    engine at mxint8 and mxint4 as in phase 13 (the contracts in f32 and
+    bf16, 58 B1/B2 launches per executable, weight bytes, eager twin,
+    tick wall, tok/s, TTFT) plus the card's idle share, a row poisoned at
+    the anchor rung (survivors equal the clean wave), a poisoned mxint4
+    tick that escalates and replays (graph == eager, the tokens before it
+    equal the clean wave's), a mid-wave snapshot resumed on a fresh engine
+    (equal to the uninterrupted wave); then MF-QAT forward and backward of
+    published layer 2 (Mamba + MLP) at seq 2048 and 8192. Returns the
+    launches of B1, B2, B5, B6, B7."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.launch.costmodel import total_params
+    from repro_torch.models.transformer import init_params, make_model
+    from repro_torch.runtime.fault import FaultInjector, PreemptionGuard
+    from repro_torch.serve.engine import ElasticEngine
+
+    full, cfg = _jamba_cut()
+    per_layer = _per_layer(cfg)                 # (3 + 48 + 4 + 3) / 2
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    _reset_quant_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    log(f"hybrid phase: {total_params(cfg) / 1e9:.2f} B parameters (f32 "
+        f"{4 * total_params(cfg) / 1e9:.1f} GB at init), {held:.2f} GB "
+        "allocated before it; the anchor is built one stacked leaf at a "
+        "time (the whole f32 tree, then its anchor, peaked at 72.19 GB on an "
+        "H100 80GB behind the earlier phases); card " + _SMI[0])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    anchor = _anchor_by_leaf(cfg, seed)
+    torch.cuda.synchronize()
+    log(f"jamba: anchor built in {time.perf_counter() - t0:.1f} s, peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    m = "['blocks'][0]['mamba']"
+    if f"{m}['A_log']" not in anchor.quantized or any(
+            f"{m}['{k}']" not in anchor.raw
+            for k in ("D", "conv_w", "conv_b", "dt_w", "dt_bias")):
+        fail("jamba: A_log not quantized or an SSM leaf not raw in the "
+             "anchor (the reference's rule, ROADMAP C.9)")
+    api = make_model(cfg)
+    eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                        device="cuda")
+    if eng._bucket or eng.prefill_chunk is not None \
+            or eng.scheduler != "sequential":
+        fail("jamba engine: not the monolithic, unbucketed, sequential "
+             "defaults of a recurrent stack")
+    for fmt in ("mxint8", "mxint4"):
+        _dense_waves("jamba", cfg, api, eng, fmt, per_layer, seed, totals)
+        events = _profile_events(lambda: eng.generate(
+            _requests(cfg.vocab, seed), fmt_override=fmt))
+        pick = lambda t: t["decode"] and not t["prefill_tokens"]
+        share, n, mean_ms = _idle_share(events, eng.tick_trace, pick)
+        del events
+        log(f"jamba {fmt}: card idle {100 * share:.1f}% over {n} pure "
+            f"decode ticks (torch.profiler; busy {(1 - share) * mean_ms:.2f}"
+            f" ms of a profiled tick of {mean_ms:.2f} ms)")
+        mx_matmul.reset_launches()
+    h = eng._cache["blocks"][0]["h"]
+    conv = eng._cache["blocks"][0]["conv"]
+    log(f"jamba state per slot and Mamba layer: h {tuple(h.shape[2:])} "
+        f"{h.dtype} = {h[0, 0].numel() * h.element_size() / 2 ** 20:.2f} "
+        f"MiB, conv {tuple(conv.shape[2:])} {conv.dtype} = "
+        f"{conv[0, 0].numel() * conv.element_size() / 2 ** 10:.0f} KiB; "
+        f"stats kv_bytes_per_slot {eng.stats()['kv_bytes_per_slot']}")
+
+    # the clean mxint8 wave, then a row poisoned at the anchor rung
+    clean = _requests(cfg.vocab, seed)
+    eng.generate(clean, fmt_override="mxint8")
+    mx_matmul.reset_launches()
+    twin = _twin(eng, fault_injector=FaultInjector(poison_logits={3: 1}))
+    reqs = _requests(cfg.vocab, seed)
+    twin.generate(reqs, fmt_override="mxint8")
+    st = twin.stats()
+    dead = [r.rid for r in reqs if r.status.value == "failed_numeric"]
+    same = [r.rid for r, c in zip(reqs, clean)
+            if r.rid not in dead and r.out_tokens == c.out_tokens]
+    log(f"jamba row poison (tick 3, slot 1, mxint8 = the anchor rung): "
+        f"statuses {st['request_statuses']}, failed {dead}; survivors' "
+        f"streams equal the clean wave's for {len(same)} of "
+        f"{len(reqs) - len(dead)}")
+    if len(dead) != 1 or len(same) != len(reqs) - 1:
+        fail(f"jamba row poison: failed {dead}, survivors equal {same}")
+    add(dict(mx_matmul.launches))
+    # a poisoned mxint4 tick: escalate to mxint6 and replay from the kept
+    # Mamba state; the eager twin the same
+    clean4 = _requests(cfg.vocab, seed)
+    eng.generate(clean4, fmt_override="mxint4")
+    mx_matmul.reset_launches()
+    plan = dict(poison_logits={3: None}, poison_fmt="mxint4")
+    twin = _twin(eng, fault_injector=FaultInjector(**plan))
+    reqs = _requests(cfg.vocab, seed)
+    twin.generate(reqs, fmt_override="mxint4")
+    st = twin.stats()
+    add(dict(mx_matmul.launches))
+    etwin = _eager_twin(eng, fault_injector=FaultInjector(**plan))
+    ereqs = _requests(cfg.vocab, seed)
+    etwin.generate(ereqs, fmt_override="mxint4")
+    events = [(e["tick"], e["from"], e["to"])
+              for e in st["escalation_events"]]
+    # the first SLOTS requests' tokens of the prefill and ticks 0-1
+    early = [r.out_tokens[:3] == c.out_tokens[:3] for r, c in
+             zip(reqs[:SLOTS], clean4)]
+    log(f"jamba poisoned mxint4 tick 3: escalations {events}, replays "
+        f"{st['ticks_replayed']}, statuses {st['request_statuses']}; the "
+        f"tokens before the fault equal the clean wave's for {sum(early)} "
+        f"of {len(early)} requests; streams equal the eager twin's")
+    if events != [(3, "mxint4", "mxint6")] or st["ticks_replayed"] != 1 \
+            or not all(early) or any(r.status.value != "completed"
+                                     for r in reqs):
+        fail(f"jamba poisoned mxint4 wave: escalations {events}, replays "
+             f"{st['ticks_replayed']}, early tokens equal {early}")
+    _check_same_streams("jamba poisoned mxint4 wave", reqs, ereqs)
+    del twin, etwin
+    # preempted mid-wave at mxint8, resumed on a fresh engine
+    with tempfile.TemporaryDirectory() as tmp:
+        mx_matmul.reset_launches()
+        twin = _twin(eng, fault_injector=FaultInjector(preempt_at=4))
+        part = twin.generate(_requests(cfg.vocab, seed),
+                             fmt_override="mxint8", guard=PreemptionGuard(),
+                             snapshot_dir=tmp)
+        fresh = _twin(eng)
+        done = fresh.resume(tmp)
+        add(dict(mx_matmul.launches))
+        if all(r.done for r in part) or \
+                [r.out_tokens for r in done] != \
+                [r.out_tokens for r in clean]:
+            fail("jamba snapshot / resume: the resumed wave differs from "
+                 "the uninterrupted one")
+        log(f"jamba snapshot at tick 4 ({sum(r.done for r in part)} of "
+            f"{len(part)} done), resumed on a fresh engine: streams equal "
+            "the uninterrupted wave's")
+        del twin, fresh
+    counts = _quant_launches()
+    n_q = len(anchor.quantized)
+    want = {"mx_quantize": n_q, "ss_convert": 2 * n_q, "fake_quant": 0}
+    log(f"jamba anchor and format builds (mxint4, mxint6): launches {counts} "
+        f"(want {want}: one per stacked leaf, A_log included)")
+    if counts != want:
+        fail(f"jamba: anchor and builds launched {counts}, want {want}")
+    add(counts)
+    del eng, anchor, api
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MF-QAT training: published layer 2 alone (Mamba + MLP)
+    tcfg = dataclasses.replace(full, n_layers=1, scan_group=1, attn_every=2,
+                               attn_offset=1, moe_every=2, moe_offset=1)
+    log(f"DEPTH CUT: jamba training runs published layer 2 alone (Mamba + "
+        f"MLP, {total_params(tcfg) / 1e9:.2f} B parameters)")
+    qat = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    params = init_params(tcfg, seed, device="cuda")
+    _reset_quant_launches()
+    longest = None
+    for seq in HYBRID_TRAIN_SEQS:
+        try:
+            rise, fb_ms = _fb_peak(tcfg, qat, params, seq, seed)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"jamba layer 2 seq {seq}: out of memory ({e})")
+            break
+        longest = seq
+        log(f"jamba layer 2 MF-QAT train_loss forward + backward, seq {seq} "
+            f"x 1: {fb_ms:.1f} ms (CUDA events), peak {rise:.2f} GB above "
+            "the weights")
+    counts = _quant_launches()
+    log(f"jamba training: the longest sequence that runs is {longest}; B7 "
+        f"launches {counts['fake_quant']}")
+    if longest is None or counts["fake_quant"] == 0:
+        fail("jamba training: no sequence length ran")
+    add(counts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 def phase_cli(src: str):
     """The serving CLI at full width as a user runs it, in a process of its
     own: ``python3 -m repro_torch.launch.serve --arch starcoder2-3b
@@ -3897,6 +4517,13 @@ def main() -> int:
     ap.add_argument("--train-long-only", action="store_true",
                     help="card, build and long-sequence training only; no "
                          "result line")
+    ap.add_argument("--vlm-only", action="store_true",
+                    help="card, build and the vlm phase (llava served and "
+                         "trained) only; no result line")
+    ap.add_argument("--hybrid-only", action="store_true",
+                    help="card, build, B1/B2 at the jamba shapes and the "
+                         "hybrid phase (jamba served and trained) only; no "
+                         "result line")
     ap.add_argument("--train-only", action="store_true",
                     help="card, build and smollm-135m training runs A and B "
                          "only, for a same-call A/B of two trees; no result "
@@ -3935,6 +4562,15 @@ def main() -> int:
         phase_family_kernels(args.seed, MOE, MOE_MS)
         phase_moe_serving(args.seed)
         log(f"MoE only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.vlm_only:
+        phase_vlm(args.seed)
+        log(f"vlm only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.hybrid_only:
+        phase_family_kernels(args.seed, HYBRID, HYBRID_MS)
+        phase_hybrid(args.seed)
+        log(f"hybrid only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
     if args.train_long_only:
         phase_train_long(args.seed)
@@ -4046,10 +4682,12 @@ def main() -> int:
         else:
             launches[k] = launches.get(k, 0) + v
     phase_cli(args.src)
-    # the MoE family, then long-sequence training; each phase reads its
-    # counts from 0
+    # the MoE family, long-sequence training, llava and jamba; each phase
+    # reads its counts from 0
     moe_rows = phase_family_kernels(args.seed, MOE, MOE_MS)
-    for phase in (phase_moe_serving, phase_train_long):
+    hybrid_rows = phase_family_kernels(args.seed, HYBRID, HYBRID_MS)
+    for phase in (phase_moe_serving, phase_train_long, phase_vlm,
+                  phase_hybrid):
         for k, v in phase(args.seed).items():
             if k in quant_launches:
                 quant_launches[k] += v
@@ -4081,6 +4719,8 @@ def main() -> int:
                                 for m, per in a["by_m"].items()},
             "family_shapes": [r for r in family_rows if r["kernel"] == name],
             "moe_shapes": [r for r in moe_rows if r["kernel"] == name],
+            "hybrid_shapes": [r for r in hybrid_rows
+                              if r["kernel"] == name],
         })
     for name, a in paged_rec.items():
         kernels.append({

@@ -8,6 +8,8 @@ from typing import List
 from repro_torch.models.common import ModelConfig
 
 _MODULES = {
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "mixtral-8x22b": "mixtral_8x22b",
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-72b": "qwen2_72b",

@@ -6,7 +6,8 @@ arrays.
 for a JAX param tree — and returns the port's nested tree on ``device``,
 after checking that every path and shape is the one ``cfg`` expects (MoE
 layers: ``['blocks'][j]['moe']['router']`` and
-``['blocks'][j]['moe']['experts'][...]``). With
+``['blocks'][j]['moe']['experts'][...]``; a hybrid stack's in-group
+positions hold ``['attn']`` or ``['mamba'][...]`` by ``mixer_kind``). With
 the same weights, both packages compute the same function.
 ``train_state_from_numpy`` does the same for a JAX ``TrainState`` (params,
 AdamW moments and steps), as a JAX training checkpoint stores it. bf16

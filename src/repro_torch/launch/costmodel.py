@@ -1,8 +1,8 @@
 """Analytic serving roofline: the terms the serving cost model is seeded
 from.
 
-Counterpart of the dense and MoE families' parameter counting and the
-serving terms of ``repro/launch/costmodel.py`` (``layer_param_macs``, ``total_params``,
+Counterpart of the dense, MoE, hybrid and vlm families' parameter counting
+and the serving terms of ``repro/launch/costmodel.py`` (``layer_param_macs``, ``total_params``,
 ``_attn_layers``, ``serve_weight_stream_bytes``, ``serve_attn_read_span``,
 ``serve_attn_bytes_per_row``, ``serve_roofline_terms``), with the same
 floats for the same config. They are a tested contract: the engine's
@@ -22,11 +22,16 @@ from repro_torch.models.common import ModelConfig
 
 def layer_param_macs(cfg: ModelConfig, j: int) -> Dict[str, float]:
     """MAC-relevant weight sizes (= params in matmuls) of in-group layer
-    ``j``: attention, then the MLP (SwiGLU: gate, up, down; gelu: up, down)
-    or the MoE layer's router, active experts (top-k) and all experts."""
+    ``j``: attention, or a Mamba block's in_proj, x_proj, dt_w and
+    out_proj; then the MLP (SwiGLU: gate, up, down; gelu: up, down) or the
+    MoE layer's router, active experts (top-k) and all experts."""
     d, hd = cfg.d_model, cfg.hd
-    out = {"attn": d * (cfg.n_heads * hd) * 2
-           + d * (cfg.n_kv_heads * hd) * 2}
+    if cfg.is_attn_layer(j):
+        out = {"attn": d * (cfg.n_heads * hd) * 2
+               + d * (cfg.n_kv_heads * hd) * 2}
+    else:
+        di, n, dtr = cfg.mamba_d_inner, cfg.mamba_d_state, cfg.dt_rank
+        out = {"mamba": d * 2 * di + di * (dtr + 2 * n) + dtr * di + di * d}
     if cfg.is_moe_layer(j):
         out["router"] = d * cfg.moe_experts
         out["moe_active"] = cfg.moe_topk * 3 * d * cfg.d_ff
@@ -50,7 +55,8 @@ def total_params(cfg: ModelConfig) -> float:
 
 
 def _attn_layers(cfg: ModelConfig) -> int:
-    return cfg.scan_group * cfg.n_groups
+    return sum(1 for j in range(cfg.scan_group)
+               if cfg.is_attn_layer(j)) * cfg.n_groups
 
 
 def _itemsize(cfg: ModelConfig) -> int:
@@ -64,7 +70,10 @@ def serve_weight_stream_bytes(cfg: ModelConfig, fmt_name: str,
     embeddings at ``cfg.compute_dtype`` (the ``"bf16"`` pseudo-format is
     the dense tree). Norm vectors and biases are dropped: O(d_model). A MoE
     layer counts every expert (decode's capacity of 1 runs each expert on
-    every row) and its router at the code width, as the reference does."""
+    every row) and its router at the code width, as the reference does; so
+    does a Mamba block's ``dt_w``, which the tree keeps raw, and its
+    packed ``A_log`` (d_inner x N per layer) is not counted: both are
+    under 0.1% of a jamba layer's bytes."""
     item = _itemsize(cfg)
     embed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
     stack = total_params(cfg) - embed
@@ -75,15 +84,41 @@ def serve_weight_stream_bytes(cfg: ModelConfig, fmt_name: str,
     return stack * (code_bytes + 1.0 / block_size) + embed * item
 
 
+def mamba_leaf_bytes(cfg: ModelConfig, fmt_name: str,
+                     block_size: int = 32) -> float:
+    """The bytes of a hybrid stack's Mamba leaves that
+    ``serve_weight_stream_bytes`` (the reference's term, kept equal to it)
+    does not count as the served tree holds them: the raw ``conv_w``,
+    ``conv_b``, ``dt_bias`` and ``D``, ``dt_w`` at its raw width less the
+    code width the term gives it, and the packed ``A_log`` (codes and
+    scales); 0 with no Mamba layer. The engine's measured weight bytes
+    are the sum of the two (``tests/test_torch_costmodel.py``)."""
+    n_mamba = sum(not cfg.is_attn_layer(j)
+                  for j in range(cfg.scan_group)) * cfg.n_groups
+    if not n_mamba or fmt_name == "bf16":
+        return 0.0
+    item = _itemsize(cfg)
+    di, n, kc, dtr = cfg.mamba_d_inner, cfg.mamba_d_state, \
+        cfg.mamba_d_conv, cfg.dt_rank
+    fmt = get_format(fmt_name, block_size)
+    code_bytes = 0.5 if (fmt.kind == "int" and fmt.bits == 4) else 1.0
+    per_code = code_bytes + 1.0 / block_size
+    per_layer = (kc * di + 3 * di) * item + dtr * di * (item - per_code) \
+        + di * n * per_code
+    return per_layer * n_mamba
+
+
 def serve_attn_read_span(cfg: ModelConfig, max_len: int,
                          kv_layout: str = "dense",
                          kv_page_size: int = 16) -> int:
-    """KV tokens one gather-path decode read spans per batch row: ``max_len``
-    on the dense layout, the block table's page span on the paged one (the
-    paged kernels read only the live pages; the engine counts those)."""
+    """KV tokens one gather-path decode read spans per batch row:
+    ``max_len`` plus the vision prefix on the dense layout, the block
+    table's page span over both on the paged one (the paged kernels read
+    only the live pages; the engine counts those)."""
+    logical = max_len + cfg.vision_tokens
     if kv_layout == "paged":
-        return -(-max_len // kv_page_size) * kv_page_size
-    return max_len
+        return -(-logical // kv_page_size) * kv_page_size
+    return logical
 
 
 def serve_attn_bytes_per_row(cfg: ModelConfig, span_tokens: int) -> float:

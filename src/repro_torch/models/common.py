@@ -23,22 +23,26 @@ from repro_torch.serve.packed_params import densify_leaf, is_packed_leaf
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture hyper-parameters of the pure-attention decoder-only
-    families the port serves: the fields of
-    ``repro/models/common.py::ModelConfig`` that the dense configs
-    (qwen3-4b, smollm-135m, starcoder2-3b, qwen2-72b) and the MoE configs
-    (mixtral-8x7b, mixtral-8x22b) set. ``act``: the SwiGLU or the
-    tanh-gelu MLP; ``qkv_bias`` / ``mlp_bias``: biases on the q/k/v
+    """Architecture hyper-parameters of the decoder-only families the port
+    serves: the fields of ``repro/models/common.py::ModelConfig`` that the
+    dense configs (qwen3-4b, smollm-135m, starcoder2-3b, qwen2-72b), the
+    MoE configs (mixtral-8x7b, mixtral-8x22b), the hybrid jamba-1.5-large
+    and the vision-language llava-next-mistral-7b set. ``act``: the SwiGLU
+    or the tanh-gelu MLP; ``qkv_bias`` / ``mlp_bias``: biases on the q/k/v
     projections and on the MLP's up and down projections;
     ``sliding_window``: attention sees the last W positions (mixtral's
     4096); ``moe_*``: top-k routed experts with capacity dispatch at the
-    layers ``is_moe_layer`` names. Training runs the O(S)-memory flash
-    backward (``flash_vjp``) and recomputes each layer group in the
-    backward (``remat``; ``remat_inner`` also each layer of a group), the
-    JAX package's defaults."""
+    layers ``is_moe_layer`` names; ``attn_every`` / ``attn_offset``: a
+    hybrid stack's attention layers (``is_attn_layer``), the others Mamba
+    blocks of ``mamba_*`` widths; ``vision_tokens``: the length of the
+    image-embedding prefix a ``"vlm"`` batch carries (otherwise the
+    ``"dense"`` family). Training runs the O(S)-memory flash backward
+    (``flash_vjp``) and recomputes each layer group in the backward
+    (``remat``; ``remat_inner`` also each layer of a group), the JAX
+    package's defaults."""
 
     name: str
-    family: str                     # dense | moe
+    family: str                     # dense | moe | hybrid | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -61,6 +65,15 @@ class ModelConfig:
     moe_offset: int = 0
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
+    # Hybrid (jamba): attention at layers where i % attn_every == attn_offset
+    attn_every: int = 0             # 0 -> attention everywhere
+    attn_offset: int = 0
+    # Mamba
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_expand: int = 2
+    mamba_dt_rank: int = 0          # 0 -> ceil(d_model / 16)
+    vision_tokens: int = 0          # llava anyres patch embeds
     compute_dtype: Any = torch.bfloat16
     scan_group: int = 1             # layers per stacked group
     seq_chunk: int = 1024           # flash-attention / loss chunking
@@ -77,10 +90,23 @@ class ModelConfig:
         assert self.n_layers % self.scan_group == 0
         return self.n_layers // self.scan_group
 
+    def is_attn_layer(self, i: int) -> bool:
+        if self.attn_every <= 0:
+            return True
+        return i % self.attn_every == self.attn_offset
+
     def is_moe_layer(self, i: int) -> bool:
         if self.moe_experts <= 0:
             return False
         return i % self.moe_every == self.moe_offset
+
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or max(1, -(-self.d_model // 16))
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
-"""Pure-attention decoder-only LM (dense and MoE): init, KV cache, prefill,
-chunks, decode, mixed.
+"""Decoder-only LM (dense, MoE, the attention/Mamba hybrid and the
+vision-prefixed backbone): init, KV cache, prefill, chunks, decode, mixed.
 
-Counterpart of the dense and MoE families of
+Counterpart of the dense, MoE, hybrid and vlm families of
 ``repro/models/transformer.py``. The parameter tree keeps the JAX layout —
 ``{"embed", "blocks": [group], ...}`` with every block leaf stacked over
 layer groups (G, ...), expert leaves over groups and experts (G, E, ...) —
@@ -10,7 +10,15 @@ Python loop over ``leaf[g]`` views, and under ``cfg.remat`` each group's
 body is recomputed in the backward (``jax.checkpoint``'s
 ``nothing_saveable`` becomes ``torch.utils.checkpoint``). The KV cache,
 dense (G, B, S, Hkv, D) or paged (pools (G, P, ps, Hkv, D) and a block
-table), is updated in place.
+table), is updated in place; a Mamba layer's recurrent state, ``h``
+(G, B, d_inner, N) f32 and ``conv`` (G, B, d_conv-1, d_inner), lives in the
+same cache, dense layout only, and a decode step overwrites it in place
+(so a replayed decode must first put back the pre-tick state: the serving
+engine keeps a copy). A ``"vlm"`` batch carries ``vision_embeds`` (B, V,
+d), prepended to the token embeddings in training and prefill; the loss
+drops those positions and prefill counts them in ``cache_len``. Chunked
+prefill, the mixed tick and the verify refuse a vision prefix and
+recurrent mixers with the reference's messages.
 
 Entry points (``ModelApi``): ``train_loss`` (the MF-QAT training loss, with
 autograd), ``prefill``, ``prefill_slot`` (one request into one slot of the
@@ -38,8 +46,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.qat import QATConfig
+from repro_torch.core.tree import unflatten_paths
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 from repro_torch.models.common import ModelConfig, QuantCtx, is_paged_cache
 from repro_torch.serve.packed_params import is_packed_leaf, layer_slice
 
@@ -47,21 +57,28 @@ from repro_torch.serve.packed_params import is_packed_leaf, layer_slice
 # =============================================================================
 # Init
 # =============================================================================
+def mixer_kind(cfg: ModelConfig, j: int) -> str:
+    """The mixer of in-group layer ``j``: "attn" or "mamba"."""
+    return "attn" if cfg.is_attn_layer(j) else "mamba"
+
+
 def ffn_kind(cfg: ModelConfig, j: int) -> str:
     """The feed-forward of in-group layer ``j``: "moe" or "mlp"."""
     return "moe" if cfg.is_moe_layer(j) else "mlp"
 
 
 def param_shapes(cfg: ModelConfig) -> Dict:
-    """Nested {name: (shape, init)} with init "ones", "zeros" or a
-    truncated-normal std — the shapes and stds of the JAX init. Biases
+    """Nested {name: (shape, init)} with init "ones", "zeros", a
+    truncated-normal std, ``("full", v)`` or "a_log" (log(1..N) along the
+    last axis, ``models/ssm.py``) — the shapes and inits of the JAX init.
+    A Mamba layer holds ``mamba`` (``ssm.mamba_param_shapes``). Biases
     (``qkv_bias``: bq / bk / bv; ``mlp_bias``: b_up / b_down) are stacked
     (G, n) like every block leaf and start at zero, as in JAX. A MoE layer
     holds ``moe``: a raw ``router`` (G, d, E) and ``experts`` (G, E, d, f)
     / (G, E, f, d)."""
-    if cfg.family not in ("dense", "moe"):
-        raise ValueError(f"the port serves the dense and MoE families, got "
-                         f"{cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
+        raise ValueError(f"the port serves the dense, MoE, hybrid and vlm "
+                         f"families, got {cfg.family!r}")
     d, h, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
         cfg.d_ff
     g = cfg.n_groups
@@ -88,8 +105,11 @@ def param_shapes(cfg: ModelConfig) -> Dict:
                        "w_down": ((g, e, f, d), down)}}
 
     def block(j):
-        blk = {"mixer_norm": ((g, d), "ones"), "attn": attn,
-               "ffn_norm": ((g, d), "ones")}
+        blk = {"mixer_norm": ((g, d), "ones"), "ffn_norm": ((g, d), "ones")}
+        if mixer_kind(cfg, j) == "attn":
+            blk["attn"] = attn
+        else:
+            blk["mamba"] = ssm.mamba_param_shapes(cfg, g)
         if ffn_kind(cfg, j) == "moe":
             blk["moe"] = moe
         else:
@@ -104,26 +124,44 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return shapes
 
 
+def param_leaves(cfg: ModelConfig):
+    """[(keystr path, (shape, init))] of ``param_shapes`` in
+    ``init_params``' order (dict keys sorted, as JAX flattens)."""
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k], f"{prefix}['{k}']")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                yield from walk(v, f"{prefix}[{i}]")
+        else:
+            yield prefix, node
+    return list(walk(param_shapes(cfg), ""))
+
+
+def init_leaf(shape, init, gen: torch.Generator) -> torch.Tensor:
+    """One f32 leaf of ``param_shapes`` on ``gen``'s device; a truncated
+    normal draws from ``gen``."""
+    dev = gen.device
+    if init in ("ones", "zeros"):
+        fill = torch.ones if init == "ones" else torch.zeros
+        return fill(shape, dtype=torch.float32, device=dev)
+    if isinstance(init, tuple):
+        return torch.full(shape, init[1], dtype=torch.float32, device=dev)
+    if init == "a_log":
+        n = torch.arange(1, shape[-1] + 1, dtype=torch.float32, device=dev)
+        return torch.log(n).expand(shape).contiguous()
+    t = torch.empty(shape, dtype=torch.float32, device=dev)
+    torch.nn.init.trunc_normal_(t, std=1.0, a=-2.0, b=2.0, generator=gen)
+    return t.mul_(init)
+
+
 def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
     """Float32 master weights from a seeded ``torch.Generator`` on
     ``device``: truncated normal at ±2 std, the JAX init's stds."""
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
-
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(v) for k, v in sorted(node.items())}
-        if isinstance(node, list):
-            return [build(v) for v in node]
-        shape, init = node
-        if init in ("ones", "zeros"):
-            fill = torch.ones if init == "ones" else torch.zeros
-            return fill(shape, dtype=torch.float32, device=dev)
-        t = torch.empty(shape, dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(t, std=1.0, a=-2.0, b=2.0, generator=gen)
-        return t.mul_(init)
-
-    return build(param_shapes(cfg))
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return unflatten_paths({path: init_leaf(shape, init, gen)
+                            for path, (shape, init) in param_leaves(cfg)})
 
 
 # =============================================================================
@@ -137,11 +175,34 @@ def _group_params(tree, g: int):
 
 
 def _layer(ctx: QuantCtx, x, p, cfg: ModelConfig, j: int, positions,
-           kc, vc, cache_len, block_table, monolithic: bool, cached: bool,
+           cs, cache_len, block_table, monolithic: bool,
            chunk_start, q_len, attn_impl: str):
-    """One block; K/V land in (kc, vc) in place. Returns (x, aux): the MoE
-    layer's aux loss, None for an MLP layer."""
+    """One block against ``cs``, the layer group's cache slice (None in
+    training): K/V land in ``cs["k"]`` / ``cs["v"]`` (or the page pools),
+    a Mamba layer's state in ``cs["h"]`` / ``cs["conv"]``, in place.
+    Returns (x, aux): the MoE layer's aux loss, None for an MLP layer."""
+    mk = mixer_kind(cfg, j)
+    if mk != "attn" and cs is not None and not monolithic:
+        chunked = chunk_start is not None
+        if chunked or q_len is not None:
+            raise ValueError(
+                f"{'chunked prefill' if chunked else 'the mixed tick'} "
+                f"requires attention mixers; layer {j} of family "
+                f"{cfg.family!r} is {mk!r} (its recurrent state cannot "
+                "resume mid-prompt) — use monolithic admission")
     h = L.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    if mk == "mamba":
+        state = None if cs is None or monolithic else (cs["h"], cs["conv"])
+        out, (hst, conv) = ssm.mamba_block(ctx, h, p["mamba"], cfg,
+                                           f"blk{j}.mamba", state=state)
+        if cs is not None:
+            cs["h"].copy_(hst)
+            cs["conv"].copy_(conv)
+        return _ffn(ctx, x + out, p, cfg, j)
+    kc = vc = None
+    if cs is not None:
+        kc, vc = (cs["k_pages"], cs["v_pages"]) if block_table is not None \
+            else (cs["k"], cs["v"])
     out, (k_new, v_new) = L.attention_block(
         ctx, h, p["attn"], cfg, positions, f"blk{j}.attn",
         kv_cache=None if monolithic else (kc, vc),
@@ -150,11 +211,15 @@ def _layer(ctx: QuantCtx, x, p, cfg: ModelConfig, j: int, positions,
     if monolithic and block_table is not None:
         L.paged_prefill_update(kc, k_new, block_table)
         L.paged_prefill_update(vc, v_new, block_table)
-    elif monolithic and cached:
+    elif monolithic and cs is not None:
         s = k_new.shape[1]
         kc[:, :s] = k_new.to(kc.dtype)
         vc[:, :s] = v_new.to(vc.dtype)
-    x = x + out
+    return _ffn(ctx, x + out, p, cfg, j)
+
+
+def _ffn(ctx: QuantCtx, x, p, cfg: ModelConfig, j: int):
+    """The block's feed-forward half on the residual ``x``: (x, aux)."""
     h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if ffn_kind(cfg, j) == "moe":
         out, aux = L.moe_block(ctx, h, p["moe"], cfg, f"blk{j}.moe")
@@ -185,10 +250,10 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
 
     def layer_fn(j):
-        def run(xv, p, kc, vc):
-            return _layer(ctx, xv, p, cfg, j, positions, kc, vc, cache_len,
-                          block_table, monolithic, cache is not None,
-                          chunk_start, q_len, attn_impl)
+        def run(xv, p, cs):
+            return _layer(ctx, xv, p, cfg, j, positions, cs, cache_len,
+                          block_table, monolithic, chunk_start, q_len,
+                          attn_impl)
         if remat and cfg.remat_inner and cfg.scan_group > 1:
             return lambda *a: checkpoint(run, *a, use_reentrant=False)
         return run
@@ -196,19 +261,14 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
     layers = [layer_fn(j) for j in range(cfg.scan_group)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
-        kvs = []
-        for j in range(cfg.scan_group):
-            kc = vc = None
-            if cache is not None:
-                c = cache["blocks"][j]
-                kc, vc = (c["k_pages"][g], c["v_pages"][g]) \
-                    if block_table is not None else (c["k"][g], c["v"][g])
-            kvs.append((kc, vc))
+        slices = [None if cache is None else
+                  {k: t[g] for k, t in cache["blocks"][j].items()}
+                  for j in range(cfg.scan_group)]
 
-        def group_body(xv, aux, g=g, kvs=kvs):
+        def group_body(xv, aux, g=g, slices=slices):
             for j in range(cfg.scan_group):
                 p = _group_params(params["blocks"][j], g)
-                xv, a = layers[j](xv, p, *kvs[j])
+                xv, a = layers[j](xv, p, slices[j])
                 if a is not None:
                     aux = aux + a
             return xv, aux
@@ -222,6 +282,16 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
 
 def _embed(params, cfg: ModelConfig, tokens):
     return params["embed"][tokens.long()].to(cfg.compute_dtype)
+
+
+def _embed_prefixed(params, cfg: ModelConfig, batch):
+    """Token embeddings behind the batch's ``vision_embeds`` (B, V, d) when
+    the config has a vision prefix: (x (B, V + S, d), V)."""
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.vision_tokens <= 0:
+        return x, 0
+    ve = batch["vision_embeds"].to(device=x.device, dtype=cfg.compute_dtype)
+    return torch.cat([ve, x], dim=1), ve.shape[1]
 
 
 def _head_logits(ctx: QuantCtx, params, cfg: ModelConfig, h_last):
@@ -255,9 +325,20 @@ PROJECTIONS = {
 }
 
 
+# A Mamba layer's projections, in place of attention's: ``dt_w`` and the
+# other SSM leaves stay raw (``DEFAULT_EXCLUDE``'s ``dt_``, ``A_log``,
+# ``D``, ``conv``), as JAX's ``dense`` never sees them.
+MAMBA_PROJECTIONS = {"mamba": ("in_proj", "x_proj", "out_proj")}
+
+
 def projections(cfg: ModelConfig, j: int) -> Dict:
-    """``PROJECTIONS`` of in-group layer ``j``."""
-    return PROJECTIONS["moe" if ffn_kind(cfg, j) == "moe" else cfg.act]
+    """``PROJECTIONS`` of in-group layer ``j`` (a Mamba layer's mixer
+    ``MAMBA_PROJECTIONS``)."""
+    out = PROJECTIONS["moe" if ffn_kind(cfg, j) == "moe" else cfg.act]
+    if mixer_kind(cfg, j) == "mamba":
+        out = dict(MAMBA_PROJECTIONS, **{k: v for k, v in out.items()
+                                         if k != "attn"})
+    return out
 
 
 def fake_quant_blocks(qat: QATConfig, fmt_idx: int, params,
@@ -313,7 +394,7 @@ def chunked_ce_loss(hidden, head_w, labels, mask, cfg: ModelConfig):
 def _slot_view(cache, slot: int):
     """The cache as one slot sees it: on the paged layout the pools and the
     slot's block-table row (its pages are its isolation), on the dense
-    layout a batch-row view of every K/V buffer."""
+    layout a batch-row view of every K/V and state buffer."""
     if is_paged_cache(cache):
         return dict(cache, block_table=cache["block_table"][slot:slot + 1])
     return {"blocks": [{k: c[k][:, slot:slot + 1] for k in c}
@@ -362,18 +443,20 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         """Next-token cross entropy of ``batch["tokens"]`` against
         ``batch["labels"]`` (optional ``batch["mask"]``) with every
         projection fake-quantized at format ``fmt_idx`` (a host int; None is
-        the pass-through branch). Returns ``(loss, {"ce", "aux"})``; the
-        graph reaches every leaf of ``params`` that requires grad."""
+        the pass-through branch). A vision config's batch carries
+        ``vision_embeds`` (B, V, d), prepended; the loss is over the text
+        positions. Returns ``(loss, {"ce", "aux"})``; the graph reaches
+        every leaf of ``params`` that requires grad."""
         qparams = params
         if qat is not None and qat.enabled:
             qparams = fake_quant_blocks(
                 qat, n_fmts if fmt_idx is None else int(fmt_idx), params, cfg)
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = _embed(params, cfg, tokens)
+        x, extra = _embed_prefixed(params, cfg, batch)
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         hidden, aux = forward_hidden(QuantCtx(), qparams, cfg, x, positions,
                                      None, None, prefill=True)
+        hidden = hidden[:, extra:]
         labels = batch["labels"]
         mask = batch.get("mask")
         mask = torch.ones(labels.shape, device=x.device) if mask is None \
@@ -384,23 +467,46 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
 
     def init_cache(b, s_max, dtype=None, *, device="cuda",
                    kv_layout="dense", page_size=16, num_pages=None):
-        """KV cache. ``"dense"``: per stacked group, K and V
-        (G, B, s_max, Hkv, D). ``"paged"``: per stacked group, page pools
+        """KV cache, with room for ``s_max`` tokens behind the vision
+        prefix. ``"dense"``: per stacked group, K and V (G, B, s_max, Hkv,
+        D) for an attention layer, ``h`` (G, B, d_inner, N) f32 and
+        ``conv`` (G, B, d_conv-1, d_inner) for a Mamba layer. ``"paged"``
+        (pure-attention stacks only): per stacked group, page pools
         (G, P, ps, Hkv, D) for K and V plus a ``block_table``
         (B, ceil(s_max/ps)) int32 of physical page ids; page 0 is scratch,
         and ``num_pages=None`` gives every slot room for ``s_max`` tokens
         (P = B * pages_per_slot + 1)."""
         dev = resolve_device(device)
         dtype = dtype or cfg.compute_dtype
+        s_max = s_max + cfg.vision_tokens
+        g = cfg.n_groups
+
+        def zeros(shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=dev)
+
         if kv_layout == "dense":
-            shape = (cfg.n_groups, b, s_max, cfg.n_kv_heads, cfg.hd)
-            return {"blocks": [
-                {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
-                for _ in range(cfg.scan_group)]}
+            blocks = []
+            for j in range(cfg.scan_group):
+                if mixer_kind(cfg, j) == "attn":
+                    shape = (g, b, s_max, cfg.n_kv_heads, cfg.hd)
+                    blocks.append({"k": zeros(shape), "v": zeros(shape)})
+                else:
+                    di = cfg.mamba_d_inner
+                    blocks.append({
+                        "h": zeros((g, b, di, cfg.mamba_d_state),
+                                   torch.float32),
+                        "conv": zeros((g, b, cfg.mamba_d_conv - 1, di))})
+            return {"blocks": blocks}
         if kv_layout != "paged":
             raise ValueError(f"unknown kv_layout {kv_layout!r}; one of "
                              "('dense', 'paged')")
+        bad = [mixer_kind(cfg, j) for j in range(cfg.scan_group)
+               if mixer_kind(cfg, j) != "attn"]
+        if bad:
+            raise ValueError(
+                f"kv_layout='paged' requires a pure-attention stack; "
+                f"family {cfg.family!r} has {bad} mixers whose recurrent "
+                "state cannot be paged — use kv_layout='dense'")
         pages_per_slot = -(-s_max // page_size)
         if num_pages is None:
             num_pages = b * pages_per_slot + 1
@@ -417,10 +523,11 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         """Process whole prompts, fill the cache, return last-position
         logits. ``batch["lengths"]`` (B,), optional: true prompt lengths of
         right-padded (bucketed) prompts — logits are read at each row's own
-        last real token and cache_len is the true length."""
-        tokens = batch["tokens"]
-        b, s = tokens.shape
-        x = _embed(params, cfg, tokens)
+        last real token and cache_len is the true length. A vision config's
+        ``batch["vision_embeds"]`` (B, V, d) goes first; cache_len counts
+        it."""
+        x, extra = _embed_prefixed(params, cfg, batch)
+        b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
                                    None, prefill=True)
@@ -429,7 +536,8 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
             cache_len = torch.full((b,), s, dtype=torch.int32,
                                    device=x.device)
         else:
-            cache_len = lengths.to(device=x.device, dtype=torch.int32)
+            cache_len = lengths.to(device=x.device, dtype=torch.int32) \
+                + extra
         h_last = _last_hidden(hidden, cache_len)
         return _head_logits(ctx, params, cfg, h_last), cache, cache_len
 
@@ -455,6 +563,10 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         over everything written so far. Returns ``(logits, cache,
         new_len)``, ``new_len = min(lengths, start_pos + C)``; the logits
         are read at the last real token (meaningful on the final chunk)."""
+        if cfg.vision_tokens > 0:
+            raise ValueError(
+                "chunked prefill does not support prepended vision "
+                "embeds; use monolithic admission")
         tokens = batch["tokens"]
         b, c = tokens.shape
         x = _embed(params, cfg, tokens)
@@ -492,6 +604,10 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         are real (decode rows 1, the mid-prefill row its chunk); row b's
         token i sits at ``cache_len[b] + i``. Logits come back at each
         row's last real token."""
+        if cfg.vision_tokens > 0:
+            raise ValueError(
+                "mixed_step does not support prepended vision embeds; "
+                "use sequential admission")
         tokens = batch["tokens"]
         q_len = batch["q_len"].to(torch.int32)
         b, c = tokens.shape
@@ -511,6 +627,10 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         overwrites what the draft steps wrote there: each attempt is a
         function of the committed cache, and a guard replay is safe. Pad
         lanes past a row's q_len give meaningless logits."""
+        if cfg.vision_tokens > 0:
+            raise ValueError(
+                "verify_step does not support prepended vision embeds; "
+                "disable speculative decoding for VLM configs")
         tokens = batch["tokens"]
         q_len = batch["q_len"].to(torch.int32)
         b, c = tokens.shape

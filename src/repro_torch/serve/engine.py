@@ -96,8 +96,8 @@ On the card each decode tick (``serve_step``), each mixed tick
 KV layout, width) runs eagerly and is then captured, and every later one
 is a replay — the counterpart of the reference's one jitted executable
 per tick. What a captured tick reads and writes keeps its storage for the
-engine's lifetime: the KV cache (zeroed at each wave, written in place by
-``resume``), ``cache_len``, the tokens, the block table, one token /
+engine's lifetime: the KV cache and a hybrid stack's Mamba state (zeroed
+at each wave, written in place by ``resume``), ``cache_len``, the tokens, the block table, one token /
 ``q_len`` buffer per mixed-tick and per verify width, the draft cursor and
 tokens, and the slots' keys, temperatures and top-p values. A sampled
 tick's batch draw runs as a CUDA graph of its own, after the tick's.
@@ -116,8 +116,18 @@ no guard replay, not speculative) after a format's first is folded into
 that format's calibration. The first is skipped as the reference skips its
 jit warm-up: here it runs eagerly, or is the CUDA-graph capture.
 
-Left out of this slice (refused with ``NotImplementedError`` naming its
-ROADMAP item): tensor parallelism.
+Stacks that are not pure attention (jamba's Mamba layers) serve as the
+reference serves them: on the dense layout, prompts prefilled whole at their
+own length (a recurrent state would fold bucket padding in), no chunked
+admission, no mixed tick, no speculation. A decode tick writes the Mamba
+state in place, so the guard keeps a copy of it before each guarded tick
+and puts it back before a replay: every attempt starts from the pre-tick
+state, as the reference's functional step does.
+
+Left out of this slice: tensor parallelism (refused with
+``NotImplementedError`` naming ROADMAP A.9), and configs with a vision
+prefix, which a ``Request`` has no field to carry (refused at
+construction, ROADMAP C.10; the reference fails at its first admission).
 """
 from __future__ import annotations
 
@@ -332,7 +342,6 @@ class ElasticEngine:
                                 device=self.device)
         self._draw_in: Optional[torch.Tensor] = None   # the draw's logits
         self._sampled = False           # this generate() call draws
-        self._bucket = bucket_prompts
         self.anchor = anchor
         self.slots = batch_slots
         self.max_len = max_len
@@ -342,6 +351,19 @@ class ElasticEngine:
         self.api = api
         self._block_size = anchor_block_size(anchor)
         cfg = api.cfg
+        if cfg.vision_tokens > 0:
+            raise ValueError(
+                f"{cfg.name!r} prepends {cfg.vision_tokens} vision embeddings "
+                "that a Request cannot carry: the engine serves text-only "
+                "configs (ROADMAP C.10; the reference engine fails at the "
+                "first admission with KeyError: 'vision_embeds'). Call the "
+                "ModelApi's prefill / serve_step with batch['vision_embeds'] "
+                "instead")
+        # Length bucketing needs exact masking of right-padded prompts; a
+        # recurrent mixer folds pad tokens into its state, so only
+        # pure-attention stacks bucket (the reference's rule).
+        pure_attn = cfg.attn_every <= 0
+        self._bucket = bucket_prompts and pure_attn
 
         if kv_layout not in ("dense", "paged"):
             raise ValueError(f"unknown kv_layout {kv_layout!r}; "
@@ -362,6 +384,12 @@ class ElasticEngine:
         if prefill_chunk == "auto":
             prefill_chunk = kv_page_size if kv_layout == "paged" else 64
         if prefill_chunk is not None:
+            if not pure_attn or cfg.vision_tokens > 0:
+                raise ValueError(
+                    "prefill_chunk requires a pure-attention text stack; "
+                    f"family {cfg.family!r} folds the prompt into "
+                    "recurrent state (or prepends vision embeds) and cannot "
+                    "resume prefill mid-prompt — use prefill_chunk=None")
             if prefill_chunk < MIN_PREFILL_BUCKET:
                 raise ValueError(
                     f"prefill_chunk ({prefill_chunk}) must be >= the "
@@ -389,9 +417,9 @@ class ElasticEngine:
                     "point; speculative decoding needs the multi-query "
                     "mixed-attention machinery (pure-attention stacks only)")
             # the reference's rule: only a pure-attention text stack can
-            # rewind (recurrent mixers cannot; the port's configs have no
-            # hybrid attn_every or vision_tokens fields, A.8.2-A.8.3)
-            if cfg.family in ("ssm", "encdec"):
+            # rewind (recurrent mixers cannot)
+            if cfg.family in ("ssm", "encdec") or not pure_attn \
+                    or cfg.vision_tokens > 0:
                 raise ValueError(
                     "speculative decoding requires a pure-attention text "
                     f"stack; family {cfg.family!r} cannot rewind recurrent "
@@ -452,21 +480,29 @@ class ElasticEngine:
         self._verify_bufs: Dict[int, Dict[str, torch.Tensor]] = {}
         self._draft_len: Optional[torch.Tensor] = None   # the draft cursor
         self._draft_tok: Optional[torch.Tensor] = None   # and tokens
+        self._state_copy: List[torch.Tensor] = []   # the Mamba state as a
+        #                                             guarded tick found it
 
+        # every cache leaf's bytes (KV, Mamba state, block table), from
+        # shapes alone; init_cache refuses a recurrent stack paged here
+        shapes = self._init_cache(batch_slots, device="meta")
+        self._kv_cache_bytes = sum(
+            t.numel() * t.element_size() for c in shapes["blocks"]
+            for t in c.values())
         itemsize = torch.empty((), dtype=cfg.compute_dtype).element_size()
-        kv_token = 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * itemsize
+        attn_layers = sum(cfg.is_attn_layer(j)
+                          for j in range(cfg.scan_group)) * cfg.n_groups
         if kv_layout == "paged":
-            max_pages = -(-max_len // kv_page_size)
-            self._kv_total_pages = kv_num_pages if kv_num_pages is not None \
-                else batch_slots * max_pages + 1
-            self._kv_cache_bytes = kv_token * self._kv_total_pages \
-                * kv_page_size + 4 * batch_slots * max_pages
-            self._attn_read_span = max_pages * kv_page_size
+            bt = shapes["block_table"]
+            self._kv_total_pages = shapes["blocks"][0]["k_pages"].shape[1]
+            self._kv_cache_bytes += bt.numel() * bt.element_size()
+            self._attn_read_span = bt.shape[1] * kv_page_size
         else:
             self._kv_total_pages = 0
-            self._kv_cache_bytes = kv_token * batch_slots * max_len
-            self._attn_read_span = max_len
-        self._attn_token_bytes = kv_token   # K+V bytes of one token, all layers
+            self._attn_read_span = max_len + cfg.vision_tokens
+        # K+V bytes of one token over every attention layer
+        self._attn_token_bytes = 2 * attn_layers * cfg.n_kv_heads * cfg.hd \
+            * itemsize
 
     # ---- weights ----------------------------------------------------------
     def _serves_packed(self, fmt_name: str) -> bool:
@@ -510,12 +546,13 @@ class ElasticEngine:
             else self._plain_api
 
     # ---- KV cache and the ticks' static buffers -------------------------
-    def _init_cache(self, b: int):
+    def _init_cache(self, b: int, device=None):
+        device = device or self.device
         if self.kv_layout == "paged":
             return self.api.init_cache(
-                b, self.max_len, device=self.device, kv_layout="paged",
+                b, self.max_len, device=device, kv_layout="paged",
                 page_size=self.kv_page_size, num_pages=self.kv_num_pages)
-        return self.api.init_cache(b, self.max_len, device=self.device)
+        return self.api.init_cache(b, self.max_len, device=device)
 
     def _wave_state(self):
         """The KV cache, ``cache_len`` (B,) and the tokens (B, 1): allocated
@@ -529,6 +566,8 @@ class ElasticEngine:
                                           device=self.device)
             self._tokens = torch.zeros((b, 1), dtype=torch.int32,
                                        device=self.device)
+            self._state_copy = [torch.empty_like(t)
+                                for t in self._state_leaves()]
         else:
             for c in self._cache["blocks"]:
                 for t in c.values():
@@ -538,6 +577,23 @@ class ElasticEngine:
             self._cache_len.zero_()
             self._tokens.zero_()
         return self._cache, self._cache_len, self._tokens
+
+    def _state_leaves(self) -> List[torch.Tensor]:
+        """The Mamba layers' ``h`` and ``conv`` buffers (none for a
+        pure-attention stack)."""
+        return [c[k] for c in self._cache["blocks"] for k in ("h", "conv")
+                if k in c]
+
+    def _keep_state(self) -> None:
+        """Copy the recurrent state aside before a guarded tick."""
+        for dst, src in zip(self._state_copy, self._state_leaves()):
+            dst.copy_(src)
+
+    def _rewind_state(self) -> None:
+        """Put the kept state back before a replay: a decode tick rewrites
+        it in place, and a replay must not apply the recurrence twice."""
+        for dst, src in zip(self._state_leaves(), self._state_copy):
+            dst.copy_(src)
 
     def _batch_bufs(self, bufs: Dict[int, Dict[str, torch.Tensor]],
                     width: int) -> Dict[str, torch.Tensor]:
@@ -868,11 +924,12 @@ class ElasticEngine:
         """Escalate-and-replay around one decode, mixed or (``verify``)
         speculative verify tick.
 
-        Every attempt is a function of the pre-tick ``(cache_len, tokens)``
-        and slot keys: the caller commits the cache_len advance, the next
-        tokens, the keys and the drain only after this returns, and a replay
-        overwrites whatever KV an attempt wrote at positions >= cache_len,
-        on either layout. An ``InjectedFault`` raised before dispatch is
+        Every attempt is a function of the pre-tick ``(cache_len, tokens)``,
+        slot keys and recurrent state: the caller commits the cache_len
+        advance, the next tokens, the keys and the drain only after this
+        returns, a replay overwrites whatever KV an attempt wrote at
+        positions >= cache_len, on either layout, and a Mamba state, kept
+        aside before the first attempt, is put back before each replay. An ``InjectedFault`` raised before dispatch is
         retried at the same format, up to ``max_step_retries`` times, then
         re-raised. ``admit``, (row, request), names a mixed tick's completing
         admission, whose first token is drawn here too. A verify attempt
@@ -889,6 +946,7 @@ class ElasticEngine:
         """
         execs = 0
         retries = 0
+        self._keep_state()
         while True:
             try:
                 logits, cache = attempt(pinned)
@@ -898,6 +956,7 @@ class ElasticEngine:
                     raise
                 retries += 1
                 self._ticks_replayed += 1
+                self._rewind_state()
                 continue
             execs += 1
             drain = self._drain_verify(logits) if verify \
@@ -912,6 +971,7 @@ class ElasticEngine:
                 return drain, cache, pinned, dead, execs
             pinned = fmt
             self._ticks_replayed += 1
+            self._rewind_state()
 
     # ---- serving loop -----------------------------------------------------
     @torch.no_grad()

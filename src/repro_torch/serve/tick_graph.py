@@ -17,7 +17,9 @@ its logits:
                        logits; the launches the capture recorded are
                        credited to the wrappers' counters.
 
-A key is (entry point, format, KV layout, chunk width). Every graph of one
+A key is (entry point, format, KV layout, chunk width). A hybrid stack's
+Mamba state (``h``, ``conv``) lives in the cache, so a decode graph reads
+and rewrites it in place like the KV. Every graph of one
 engine allocates from one memory pool, so one graph per format and width
 does not multiply activation memory. The price: a replay may overwrite
 another graph's static logits, so a caller consumes the logits a ``run``

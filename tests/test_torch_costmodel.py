@@ -18,11 +18,13 @@ from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
 from repro.launch import costmodel as jcm
 from repro_torch.configs import get_config, get_reduced, list_archs
-from repro_torch.core.anchor import make_anchor
+from repro_torch.core.anchor import make_anchor, materialize
 from repro_torch.core.qat import QATConfig
 from repro_torch.launch import costmodel as cm
 from repro_torch.models.transformer import init_params, make_model
 from repro_torch.serve.engine import ElasticEngine, Request
+from repro_torch.serve.packed_params import (make_packed_params,
+                                             weight_stream_bytes)
 
 FMTS = ("mxint4", "mxint6", "mxint8", "mxfp8", "mxfp4", "bf16")
 
@@ -36,7 +38,8 @@ def _pair(arch, width):
 @pytest.mark.parametrize("arch", list_archs())
 def test_serve_terms_equal_the_reference(arch, width):
     cfg, jcfg = _pair(arch, width)
-    assert cm.layer_param_macs(cfg, 0) == jcm.layer_param_macs(jcfg, 0)
+    for j in range(cfg.scan_group):
+        assert cm.layer_param_macs(cfg, j) == jcm.layer_param_macs(jcfg, j)
     assert cm.total_params(cfg) == jcm.total_params(jcfg)
     assert cm._attn_layers(cfg) == jcm._attn_layers(jcfg)
     for fmt in FMTS:
@@ -69,12 +72,27 @@ def _engine(arch, **kw):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_weight_stream_bytes_match_packed_trees(arch):
-    cfg, eng = _engine(arch)
-    for fmt in ("mxint4", "mxint6", "mxint8", "bf16"):
-        eng.weights_for(fmt)
-    measured = eng.stats()["weight_bytes"]
-    for fmt in ("mxint4", "mxint6", "mxint8", "bf16"):
-        analytic = cm.serve_weight_stream_bytes(cfg, fmt, block_size=32)
+    """The engine's cached trees; for llava, which the engine refuses
+    (ROADMAP C.10), the same packed trees built directly. A hybrid stack's
+    Mamba leaves the reference's term leaves out are added back
+    (``mamba_leaf_bytes``)."""
+    fmts = ("mxint4", "mxint6", "mxint8", "bf16")
+    if get_reduced(arch).vision_tokens:
+        cfg = get_reduced(arch)
+        anchor = make_anchor(init_params(cfg, 0, device="cpu"),
+                             QATConfig(anchor="mxint8"), device="cpu")
+        measured = {f: weight_stream_bytes(
+            materialize(anchor, cfg.compute_dtype) if f == "bf16" else
+            make_packed_params(anchor, target_fmt=f,
+                               dtype=cfg.compute_dtype)) for f in fmts}
+    else:
+        cfg, eng = _engine(arch)
+        for fmt in fmts:
+            eng.weights_for(fmt)
+        measured = eng.stats()["weight_bytes"]
+    for fmt in fmts:
+        analytic = cm.serve_weight_stream_bytes(cfg, fmt, block_size=32) \
+            + cm.mamba_leaf_bytes(cfg, fmt, block_size=32)
         assert analytic == pytest.approx(measured[fmt], rel=0.02), \
             (fmt, analytic, measured[fmt])
     assert measured["mxint4"] < measured["mxint8"] < measured["bf16"]

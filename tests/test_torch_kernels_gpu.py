@@ -948,3 +948,44 @@ def test_paged_kernels_refuse_what_they_do_not_take():
             paged_attention.paged_attention_mq(q[:, None], kp, kp, bt, cl,
                                                torch.ones_like(cl))
         assert paged_attention.launches == before
+
+
+# ---- jamba's shapes ----------------------------------------------------------
+# x_proj 16384 -> 544 (dt_rank 512 + 2 x d_state 16): N is a multiple of
+# neither 64 nor 128, so the last N tile is ragged; at decode (4), a
+# prefill bucket (256) and llava's monolithic prefill M (3008).
+@pytest.mark.parametrize("m", [4, 256, 3008])
+@pytest.mark.parametrize("name", ["mxint8", "mxint4"])
+def test_jamba_x_proj_shape_matches_plain(name, m):
+    dev = _card()
+    x, t = _operands(m, 16384, 544, name, 32, dev, seed=21)
+    if name == "mxint4":
+        leaf = pack_leaf_int4(t)
+        assert leaf.packed.shape == (16384, 272)
+        got = mx_matmul.mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt)
+        want = ref.ref_mx_matmul_int4(x, leaf.packed, leaf.scale_exp, t.fmt)
+    else:
+        got = mx_matmul.mx_matmul(x, t.codes, t.scale_exp, t.fmt)
+        want = ref.ref_mx_matmul(x, t.codes, t.scale_exp, t.fmt)
+    _close(got, want)
+
+
+def test_ss_convert_int4_splitn_a_log_leaf():
+    """B5 on an A_log-shaped stacked leaf (1, 16384, 16), mxint8 -> mxint4
+    split-N (the anchor quantizes jamba's A_log, ROADMAP C.9): one launch,
+    8 bytes per row, the plain version's bytes."""
+    dev = _card()
+    a = torch.log(torch.arange(1, 17, dtype=torch.float32, device=dev))
+    a = a.expand(1, 16384, 16) + 0.01 * torch.randn(
+        (1, 16384, 16), generator=torch.Generator(device=dev).manual_seed(5),
+        device=dev)
+    t = quantize(a.contiguous(), get_format("mxint8", 32), axis=1)
+    low = get_format("mxint4", 32)
+    before = ss_convert.launches["ss_convert"]
+    packed, scales = ops.ss_convert_int4_splitn(t, low)
+    torch.cuda.synchronize()
+    assert ss_convert.launches["ss_convert"] == before + 1
+    want = pack_leaf_int4(slice_and_scale(t, low))
+    assert packed.shape == want.packed.shape == (1, 16384, 8)
+    assert torch.equal(packed, want.packed)
+    assert torch.equal(scales, want.scale_exp)
