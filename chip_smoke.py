@@ -12,13 +12,16 @@ check them.
     python3 chip_smoke.py --train-long-only
     python3 chip_smoke.py --vlm-only
     python3 chip_smoke.py --hybrid-only
+    python3 chip_smoke.py --rwkv-only
+    python3 chip_smoke.py --encdec-only
     python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
 2, 5 and 8a, ``--slo-only`` phases 1, 2 and 12, ``--family-only`` phases
 1, 2, 3b, 13 and 14, ``--moe-only`` phases 1, 2 and 15,
 ``--train-long-only`` phases 1, 2 and 16, ``--vlm-only`` phases 1, 2 and
-17, ``--hybrid-only`` phases 1, 2 and 18, ``--train-only`` phases 1 and 2
+17, ``--hybrid-only`` phases 1, 2 and 18, ``--rwkv-only`` phases 1, 2 and
+19, ``--encdec-only`` phases 1, 2 and 20, ``--train-only`` phases 1 and 2
 and then phase 6's smollm-135m runs A and B, each step split into its
 parts (with ``--src``, another tree's, for a same-call A/B of the training
 step), ``--serve-only`` phases 1 and 2 and then greedy
@@ -239,6 +242,34 @@ Phases (any failure exits non-zero before the result line):
      fresh engine (equal to the uninterrupted wave); the state bytes per
      slot; then MF-QAT forward + backward of published layer 2 (Mamba +
      MLP) at seq 2048 and 8192: ms, peak, the longest that runs.
+ 19. RWKV6: B1 / B2 at every rwkv6-7b projection shape (4096 -> 4096, the
+     time mix's five and the channel mix's receptance; 4096 <-> 14336) at
+     M = 4 and 256 as in 3b; then rwkv6-7b at full width and depth (32
+     layers, 7.53 B parameters): an MXINT8 anchor built leaf by leaf (the
+     seven (32, 4096) mix_* leaves quantized along the layer axis, as the
+     reference quantizes them, ROADMAP C.11; the decay LoRA, bonus,
+     decay_base, ln_scale raw), the dense graph engine (monolithic
+     unbucketed admission, the sequential scheduler) at mxint8 and mxint4
+     as in 13 with the contracts gated in f32 (256 B1/B2 launches per
+     executable), the weight bytes against the term plus
+     rwkv_leaf_bytes, the card's idle share and the state bytes per slot
+     (wkv f32, shift_t, shift_c); the guard's and the snapshot's waves as
+     in 18 (the replay rewinding all three state leaves); then MF-QAT
+     forward + backward at depth 4 over seq 2048 and 8192: ms, peak, the
+     longest that runs;
+ 20. the encoder-decoder: B1 / B2 at every seamless-m4t-large-v2
+     projection shape (1024 -> 1024; 1024 <-> 8192) at M = 4 and 256;
+     then seamless at full width and depth (24 + 24 layers): an MXINT8
+     anchor (B6), packed mxint8 / mxint4 trees (B5), the engine's refusal
+     (ROADMAP C.12); 4 requests, each with its own (1024, 1024) frame
+     embeddings and a prompt of 16-200 tokens, through ``prefill_slot``
+     into one dense cache and 16 greedy ``serve_step``s, every projection
+     through B1/B2 (384 launches per prefill, 192 per step); one
+     request's prefill and first decode tick within 5% of max|logit| of
+     the densify contract in f32 (bf16 reported); prefill ms per request,
+     the eager step; then MF-QAT forward + backward of the whole model at
+     batch 4 x 512 tokens over 2048 frames: ms, peak, finite loss and
+     gradients.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -338,6 +369,17 @@ VLM_TRAIN_LAYERS, VLM_TRAIN_TEXT = 4, 1216        # 2880 + 1216 = 4096
 HYBRID = ("jamba-1.5-large-398b",)
 HYBRID_MS = (4, 256)
 HYBRID_TRAIN_SEQS = (2048, 8192)
+# The RWKV phase (19): rwkv6-7b at full width and depth served, depth
+# RWKV_TRAIN_LAYERS trained at these lengths; B1/B2 at its shapes.
+RWKV = ("rwkv6-7b",)
+RWKV_TRAIN_LAYERS = 4
+RWKV_TRAIN_SEQS = (2048, 8192)
+# The encoder-decoder phase (20): seamless-m4t-large-v2 at full width and
+# depth, ENCDEC_REQ requests with their own ENCDEC_FRAMES frame embeddings
+# and ENCDEC_STEPS greedy decode steps; trained at (batch, tokens, frames).
+ENCDEC = ("seamless-m4t-large-v2",)
+ENCDEC_REQ, ENCDEC_FRAMES, ENCDEC_STEPS = 4, 1024, 16
+ENCDEC_TRAIN = (4, 512, 2048)
 _SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
 
@@ -3041,11 +3083,19 @@ _OTHER = {"mx_matmul": "mx_matmul_int4", "mx_matmul_int4": "mx_matmul"}
 
 def _proj_shapes(cfg):
     """{(K, N): count} of one scan group's projection weights (one layer's
-    but for jamba; a MoE layer's expert leaves count once per expert)."""
-    from repro_torch.models.transformer import param_shapes, projections
+    but for jamba; a MoE layer's expert leaves count once per expert; an
+    encoder-decoder's one encoder and one decoder layer)."""
+    from repro_torch.models import encdec, transformer
+    if cfg.family == "encdec":
+        shapes = encdec.param_shapes(cfg)
+        groups = [(shapes[k]["blocks"][0], encdec.projections(cfg, k))
+                  for k in ("encoder", "decoder")]
+    else:
+        groups = [(block, transformer.projections(cfg, j)) for j, block in
+                  enumerate(transformer.param_shapes(cfg)["blocks"])]
     out = {}
-    for j, block in enumerate(param_shapes(cfg)["blocks"]):
-        for sub, names in projections(cfg, j).items():
+    for block, subs in groups:
+        for sub, names in subs.items():
             node = block
             for key in sub.split("."):
                 node = node[key]
@@ -3327,13 +3377,17 @@ def _dense_waves(name, cfg, api, eng, fmt, per_layer, seed, totals):
     tok/s, TTFT). A MoE config's contracts are gated in f32 and reported
     in bf16: routing is a discrete function of the router's logits, so a
     bf16 rounding difference upstream can flip a token's experts and move
-    the logits by a routed expert's whole output. Adds B1/B2 launches to
-    ``totals``."""
+    the logits by a routed expert's whole output; so are an RWKV stack's,
+    whose recurrence carries each token's rounding through the prompt.
+    The weight bytes are held against the reference's term plus the leaves
+    it counts otherwise (``mamba_leaf_bytes``, ``rwkv_leaf_bytes``: the
+    residue, reported). Adds B1/B2 launches to ``totals``."""
     import dataclasses
 
     import torch
     from repro_torch.kernels import mx_matmul
     from repro_torch.launch.costmodel import (mamba_leaf_bytes,
+                                              rwkv_leaf_bytes,
                                               serve_weight_stream_bytes)
     from repro_torch.models.transformer import make_model
 
@@ -3341,7 +3395,7 @@ def _dense_waves(name, cfg, api, eng, fmt, per_layer, seed, totals):
     weights = eng.weights_for(fmt)
     prompt = _requests(cfg.vocab, seed)[0].prompt
     contracts = [("bf16", weights, api)]
-    if getattr(cfg, "moe_experts", 0) > 0:
+    if getattr(cfg, "moe_experts", 0) > 0 or cfg.family == "ssm":
         contracts.append(("f32", _as_f32(weights), make_model(
             dataclasses.replace(cfg, compute_dtype=torch.float32))))
     for dtype, wts, capi in contracts:
@@ -3377,8 +3431,9 @@ def _dense_waves(name, cfg, api, eng, fmt, per_layer, seed, totals):
     if bad:
         fail(f"{name} {fmt}: requests {bad} incomplete")
     st = eng.stats()
-    want_bytes = serve_weight_stream_bytes(cfg, fmt) \
-        + mamba_leaf_bytes(cfg, fmt)
+    term = serve_weight_stream_bytes(cfg, fmt)
+    residue = mamba_leaf_bytes(cfg, fmt) + rwkv_leaf_bytes(cfg, fmt)
+    want_bytes = term + residue
     rel = st["weight_bytes"][fmt] / want_bytes - 1
     if abs(rel) > 0.02:
         fail(f"{name} {fmt}: weight bytes {st['weight_bytes'][fmt]} off "
@@ -3398,7 +3453,7 @@ def _dense_waves(name, cfg, api, eng, fmt, per_layer, seed, totals):
         f"{wall2:.3f} s = {total / wall2:.1f} tok/s; decode tick {tick}; "
         f"TTFT s {[round(r.ttft_s, 3) for r in reqs]}; weight-stream bytes "
         f"{st['weight_bytes'][fmt]} ({100 * rel:+.2f}% of the roofline "
-        f"term); streams equal to the eager twin's; launches {mm} (want "
+        f"term {term:.0f} + residue {residue:.0f}); streams equal to the eager twin's; launches {mm} (want "
         f"{per_layer} x {cfg.n_layers} x executables); peak allocated "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
 
@@ -4244,13 +4299,14 @@ def _anchor_by_leaf(cfg, seed: int):
     from repro_torch.core.anchor import AnchorModel
     from repro_torch.core.qat import QATConfig, pytree_block_axis
     from repro_torch.kernels.ops import mx_quantize
+    from repro_torch.models import param_shapes
     from repro_torch.models.transformer import init_leaf, param_leaves
 
     qat = QATConfig(anchor="mxint8")
     fmt = qat.anchor_obj()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     q, raw = {}, {}
-    for path, (shape, init) in param_leaves(cfg):
+    for path, (shape, init) in param_leaves(cfg, param_shapes(cfg)):
         w = init_leaf(shape, init, gen)
         ax = pytree_block_axis(w)
         if (w.ndim >= 2 and qat.is_quantized_path(path)
@@ -4275,6 +4331,93 @@ def _jamba_cut():
     return full, cfg
 
 
+def _guard_waves(name, eng, cfg, seed: int):
+    """A recurrent stack's engine (``eng``, graph ticks) through the
+    guard's and the snapshot's waves: a row poisoned at the anchor rung
+    (the survivors' streams equal the clean wave's), a poisoned mxint4 tick
+    that escalates to mxint6 and replays from the kept state (graph ==
+    eager, the tokens before the fault equal the clean wave's), a mid-wave
+    snapshot resumed on a fresh engine (equal to the uninterrupted wave).
+    Returns the B1/B2 launches."""
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.runtime.fault import FaultInjector, PreemptionGuard
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    # the clean mxint8 wave, then a row poisoned at the anchor rung
+    clean = _requests(cfg.vocab, seed)
+    eng.generate(clean, fmt_override="mxint8")
+    mx_matmul.reset_launches()
+    twin = _twin(eng, fault_injector=FaultInjector(poison_logits={3: 1}))
+    reqs = _requests(cfg.vocab, seed)
+    twin.generate(reqs, fmt_override="mxint8")
+    st = twin.stats()
+    dead = [r.rid for r in reqs if r.status.value == "failed_numeric"]
+    same = [r.rid for r, c in zip(reqs, clean)
+            if r.rid not in dead and r.out_tokens == c.out_tokens]
+    log(f"{name} row poison (tick 3, slot 1, mxint8 = the anchor rung): "
+        f"statuses {st['request_statuses']}, failed {dead}; survivors' "
+        f"streams equal the clean wave's for {len(same)} of "
+        f"{len(reqs) - len(dead)}")
+    if len(dead) != 1 or len(same) != len(reqs) - 1:
+        fail(f"{name} row poison: failed {dead}, survivors equal {same}")
+    add(dict(mx_matmul.launches))
+    # a poisoned mxint4 tick: escalate to mxint6 and replay from the kept
+    # recurrent state; the eager twin the same
+    clean4 = _requests(cfg.vocab, seed)
+    eng.generate(clean4, fmt_override="mxint4")
+    mx_matmul.reset_launches()
+    plan = dict(poison_logits={3: None}, poison_fmt="mxint4")
+    twin = _twin(eng, fault_injector=FaultInjector(**plan))
+    reqs = _requests(cfg.vocab, seed)
+    twin.generate(reqs, fmt_override="mxint4")
+    st = twin.stats()
+    add(dict(mx_matmul.launches))
+    etwin = _eager_twin(eng, fault_injector=FaultInjector(**plan))
+    ereqs = _requests(cfg.vocab, seed)
+    etwin.generate(ereqs, fmt_override="mxint4")
+    events = [(e["tick"], e["from"], e["to"])
+              for e in st["escalation_events"]]
+    # the first SLOTS requests' tokens of the prefill and ticks 0-1
+    early = [r.out_tokens[:3] == c.out_tokens[:3] for r, c in
+             zip(reqs[:SLOTS], clean4)]
+    log(f"{name} poisoned mxint4 tick 3: escalations {events}, replays "
+        f"{st['ticks_replayed']}, statuses {st['request_statuses']}; the "
+        f"tokens before the fault equal the clean wave's for {sum(early)} "
+        f"of {len(early)} requests; streams equal the eager twin's")
+    if events != [(3, "mxint4", "mxint6")] or st["ticks_replayed"] != 1 \
+            or not all(early) or any(r.status.value != "completed"
+                                     for r in reqs):
+        fail(f"{name} poisoned mxint4 wave: escalations {events}, replays "
+             f"{st['ticks_replayed']}, early tokens equal {early}")
+    _check_same_streams(f"{name} poisoned mxint4 wave", reqs, ereqs)
+    del twin, etwin
+    # preempted mid-wave at mxint8, resumed on a fresh engine
+    with tempfile.TemporaryDirectory() as tmp:
+        mx_matmul.reset_launches()
+        twin = _twin(eng, fault_injector=FaultInjector(preempt_at=4))
+        part = twin.generate(_requests(cfg.vocab, seed),
+                             fmt_override="mxint8", guard=PreemptionGuard(),
+                             snapshot_dir=tmp)
+        fresh = _twin(eng)
+        done = fresh.resume(tmp)
+        add(dict(mx_matmul.launches))
+        if all(r.done for r in part) or \
+                [r.out_tokens for r in done] != \
+                [r.out_tokens for r in clean]:
+            fail(f"{name} snapshot / resume: the resumed wave differs from "
+                 "the uninterrupted one")
+        log(f"{name} snapshot at tick 4 ({sum(r.done for r in part)} of "
+            f"{len(part)} done), resumed on a fresh engine: streams equal "
+            "the uninterrupted wave's")
+        del twin, fresh
+    return totals
+
+
 def phase_hybrid(seed: int):
     """jamba-1.5-large at full width, published layers 3-4: an MXINT8
     anchor (B6; A_log quantized, D / conv / dt raw), the dense graph
@@ -4296,7 +4439,6 @@ def phase_hybrid(seed: int):
     from repro_torch.kernels import mx_matmul
     from repro_torch.launch.costmodel import total_params
     from repro_torch.models.transformer import init_params, make_model
-    from repro_torch.runtime.fault import FaultInjector, PreemptionGuard
     from repro_torch.serve.engine import ElasticEngine
 
     full, cfg = _jamba_cut()
@@ -4353,74 +4495,7 @@ def phase_hybrid(seed: int):
         f"MiB, conv {tuple(conv.shape[2:])} {conv.dtype} = "
         f"{conv[0, 0].numel() * conv.element_size() / 2 ** 10:.0f} KiB; "
         f"stats kv_bytes_per_slot {eng.stats()['kv_bytes_per_slot']}")
-
-    # the clean mxint8 wave, then a row poisoned at the anchor rung
-    clean = _requests(cfg.vocab, seed)
-    eng.generate(clean, fmt_override="mxint8")
-    mx_matmul.reset_launches()
-    twin = _twin(eng, fault_injector=FaultInjector(poison_logits={3: 1}))
-    reqs = _requests(cfg.vocab, seed)
-    twin.generate(reqs, fmt_override="mxint8")
-    st = twin.stats()
-    dead = [r.rid for r in reqs if r.status.value == "failed_numeric"]
-    same = [r.rid for r, c in zip(reqs, clean)
-            if r.rid not in dead and r.out_tokens == c.out_tokens]
-    log(f"jamba row poison (tick 3, slot 1, mxint8 = the anchor rung): "
-        f"statuses {st['request_statuses']}, failed {dead}; survivors' "
-        f"streams equal the clean wave's for {len(same)} of "
-        f"{len(reqs) - len(dead)}")
-    if len(dead) != 1 or len(same) != len(reqs) - 1:
-        fail(f"jamba row poison: failed {dead}, survivors equal {same}")
-    add(dict(mx_matmul.launches))
-    # a poisoned mxint4 tick: escalate to mxint6 and replay from the kept
-    # Mamba state; the eager twin the same
-    clean4 = _requests(cfg.vocab, seed)
-    eng.generate(clean4, fmt_override="mxint4")
-    mx_matmul.reset_launches()
-    plan = dict(poison_logits={3: None}, poison_fmt="mxint4")
-    twin = _twin(eng, fault_injector=FaultInjector(**plan))
-    reqs = _requests(cfg.vocab, seed)
-    twin.generate(reqs, fmt_override="mxint4")
-    st = twin.stats()
-    add(dict(mx_matmul.launches))
-    etwin = _eager_twin(eng, fault_injector=FaultInjector(**plan))
-    ereqs = _requests(cfg.vocab, seed)
-    etwin.generate(ereqs, fmt_override="mxint4")
-    events = [(e["tick"], e["from"], e["to"])
-              for e in st["escalation_events"]]
-    # the first SLOTS requests' tokens of the prefill and ticks 0-1
-    early = [r.out_tokens[:3] == c.out_tokens[:3] for r, c in
-             zip(reqs[:SLOTS], clean4)]
-    log(f"jamba poisoned mxint4 tick 3: escalations {events}, replays "
-        f"{st['ticks_replayed']}, statuses {st['request_statuses']}; the "
-        f"tokens before the fault equal the clean wave's for {sum(early)} "
-        f"of {len(early)} requests; streams equal the eager twin's")
-    if events != [(3, "mxint4", "mxint6")] or st["ticks_replayed"] != 1 \
-            or not all(early) or any(r.status.value != "completed"
-                                     for r in reqs):
-        fail(f"jamba poisoned mxint4 wave: escalations {events}, replays "
-             f"{st['ticks_replayed']}, early tokens equal {early}")
-    _check_same_streams("jamba poisoned mxint4 wave", reqs, ereqs)
-    del twin, etwin
-    # preempted mid-wave at mxint8, resumed on a fresh engine
-    with tempfile.TemporaryDirectory() as tmp:
-        mx_matmul.reset_launches()
-        twin = _twin(eng, fault_injector=FaultInjector(preempt_at=4))
-        part = twin.generate(_requests(cfg.vocab, seed),
-                             fmt_override="mxint8", guard=PreemptionGuard(),
-                             snapshot_dir=tmp)
-        fresh = _twin(eng)
-        done = fresh.resume(tmp)
-        add(dict(mx_matmul.launches))
-        if all(r.done for r in part) or \
-                [r.out_tokens for r in done] != \
-                [r.out_tokens for r in clean]:
-            fail("jamba snapshot / resume: the resumed wave differs from "
-                 "the uninterrupted one")
-        log(f"jamba snapshot at tick 4 ({sum(r.done for r in part)} of "
-            f"{len(part)} done), resumed on a fresh engine: streams equal "
-            "the uninterrupted wave's")
-        del twin, fresh
+    add(_guard_waves("jamba", eng, cfg, seed))
     counts = _quant_launches()
     n_q = len(anchor.quantized)
     want = {"mx_quantize": n_q, "ss_convert": 2 * n_q, "fake_quant": 0}
@@ -4459,6 +4534,384 @@ def phase_hybrid(seed: int):
         fail("jamba training: no sequence length ran")
     add(counts)
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def phase_rwkv(seed: int):
+    """rwkv6-7b at full width and depth: an MXINT8 anchor built leaf by
+    leaf (B6; the seven (32, d) ``mix_*`` leaves quantized along the layer
+    axis, ROADMAP C.11; the decay LoRA, ``bonus``, ``decay_base`` and
+    ``ln_scale`` raw), the dense graph engine at mxint8 and mxint4 as in
+    phase 13 (the contracts gated in f32 and reported in bf16, 8 B1/B2
+    launches per layer and executable, weight bytes against the term plus
+    ``rwkv_leaf_bytes``, eager twin, tick wall, tok/s, TTFT) plus the
+    card's idle share and the state bytes per slot; the guard's and the
+    snapshot's waves (``_guard_waves``); then MF-QAT forward and backward
+    at depth RWKV_TRAIN_LAYERS over RWKV_TRAIN_SEQS. Returns the launches
+    of B1, B2, B5, B6, B7."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.launch.costmodel import total_params
+    from repro_torch.models.transformer import init_params, make_model
+    from repro_torch.serve.engine import ElasticEngine
+
+    cfg = get_config("rwkv6-7b")
+    per_layer = _per_layer(cfg)                 # 5 + 3
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    _reset_quant_launches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"rwkv phase: rwkv6-7b at full width and depth ({cfg.n_layers} "
+        f"layers, {total_params(cfg) / 1e9:.2f} B parameters, f32 "
+        f"{4 * total_params(cfg) / 1e9:.1f} GB at init; the anchor is "
+        f"built one stacked leaf at a time), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before "
+        "it; card " + _SMI[0])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    anchor = _anchor_by_leaf(cfg, seed)
+    torch.cuda.synchronize()
+    log(f"rwkv: anchor built in {time.perf_counter() - t0:.1f} s, peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    b = "['blocks'][0]"
+    mix = [f"{b}['{s}']['mix_{m}']" for s, ms in (("rwkv", "rkvgw"),
+                                                   ("cmix", "kr"))
+           for m in ms]
+    raw = [f"{b}['rwkv']['{k}']" for k in ("decay_base", "decay_w1",
+                                            "decay_w2", "bonus", "ln_scale")]
+    if any(k not in anchor.quantized for k in mix) or \
+            any(k not in anchor.raw for k in raw):
+        fail("rwkv: the mix_* leaves not quantized along the layer axis or "
+             "a decay / bonus / scale leaf not raw (the reference's rule, "
+             "ROADMAP C.11)")
+    api = make_model(cfg)
+    eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                        device="cuda")
+    if eng._bucket or eng.prefill_chunk is not None \
+            or eng.scheduler != "sequential":
+        fail("rwkv engine: not the monolithic, unbucketed, sequential "
+             "defaults of a recurrent stack")
+    for fmt in ("mxint8", "mxint4"):
+        _dense_waves("rwkv6-7b", cfg, api, eng, fmt, per_layer, seed,
+                     totals)
+        events = _profile_events(lambda: eng.generate(
+            _requests(cfg.vocab, seed), fmt_override=fmt))
+        pick = lambda t: t["decode"] and not t["prefill_tokens"]
+        share, n, mean_ms = _idle_share(events, eng.tick_trace, pick)
+        del events
+        log(f"rwkv6-7b {fmt}: card idle {100 * share:.1f}% over {n} pure "
+            f"decode ticks (torch.profiler; busy {(1 - share) * mean_ms:.2f}"
+            f" ms of a profiled tick of {mean_ms:.2f} ms)")
+        mx_matmul.reset_launches()
+    c = eng._cache["blocks"][0]
+    per_slot = {k: t[0, 0].numel() * t.element_size() * cfg.n_layers
+                for k, t in c.items()}
+    log(f"rwkv6-7b state per slot over {cfg.n_layers} layers: "
+        + ", ".join(f"{k} {tuple(t.shape[2:])} {t.dtype} "
+                    f"{per_slot[k] / 2 ** 20:.2f} MiB"
+                    for k, t in sorted(c.items()))
+        + f"; stats kv_bytes_per_slot {eng.stats()['kv_bytes_per_slot']}, "
+        f"attn_read_bytes {eng.stats()['attn_read_bytes']}")
+    add(_guard_waves("rwkv6-7b", eng, cfg, seed))
+    counts = _quant_launches()
+    n_q = len(anchor.quantized)
+    want = {"mx_quantize": n_q, "ss_convert": 2 * n_q, "fake_quant": 0}
+    log(f"rwkv6-7b anchor and format builds (mxint4, mxint6): launches "
+        f"{counts} (want {want}: one per stacked leaf, the mix_* included)")
+    if counts != want:
+        fail(f"rwkv6-7b: anchor and builds launched {counts}, want {want}")
+    add(counts)
+    del eng, anchor, api
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MF-QAT training at depth RWKV_TRAIN_LAYERS
+    tcfg = dataclasses.replace(cfg, n_layers=RWKV_TRAIN_LAYERS)
+    log(f"DEPTH CUT: rwkv6-7b training runs {RWKV_TRAIN_LAYERS} of "
+        f"{cfg.n_layers} layers (widths unchanged, "
+        f"{total_params(tcfg) / 1e9:.2f} B parameters), batch 1")
+    qat = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    params = init_params(tcfg, seed, device="cuda")
+    _reset_quant_launches()
+    longest = None
+    for seq in RWKV_TRAIN_SEQS:
+        try:
+            rise, fb_ms = _fb_peak(tcfg, qat, params, seq, seed)
+        except torch.cuda.OutOfMemoryError as e:
+            log(f"rwkv6-7b depth {RWKV_TRAIN_LAYERS} seq {seq}: out of "
+                f"memory ({e})")
+            break
+        longest = seq
+        log(f"rwkv6-7b depth {RWKV_TRAIN_LAYERS} MF-QAT train_loss "
+            f"(mxint4) forward + backward, seq {seq} x 1: {fb_ms:.1f} ms "
+            f"(CUDA events), peak {rise:.2f} GB above the weights")
+    counts = _quant_launches()
+    log(f"rwkv6-7b training: the longest sequence tried that trains is "
+        f"{longest} (of {RWKV_TRAIN_SEQS}); B7 launches "
+        f"{counts['fake_quant']} (8 stacked leaves per call)")
+    if longest is None or counts["fake_quant"] != 8 * (
+            RWKV_TRAIN_SEQS.index(longest) + 1):
+        fail(f"rwkv6-7b training: longest {longest}, B7 launches "
+             f"{counts['fake_quant']}")
+    add(counts)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def _encdec_batches(cfg, seed: int):
+    """ENCDEC_REQ requests: a prompt of 16-200 tokens and its own
+    (1, ENCDEC_FRAMES, d) frame embeddings from the seed, on the card."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 21)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    return [{"tokens": torch.as_tensor(rng.integers(
+                0, cfg.vocab, size=(1, int(rng.integers(16, 201)))).astype(
+                np.int32), device="cuda"),
+             "frame_embeds": torch.randn(
+                (1, ENCDEC_FRAMES, cfg.d_model), generator=gen,
+                device="cuda").to(cfg.compute_dtype)}
+            for _ in range(ENCDEC_REQ)]
+
+
+def _encdec_contract(api, weights, batch):
+    """One request's prefill and first decode tick through the kernel and
+    the densify contracts on one slot, both fed the kernel path's first
+    token: [(max|kernel - densify|, max|densify|)] per step."""
+    import torch
+    from repro_torch.kernels.dispatch import make_qmm
+    got, nxt = {}, None
+    for mode in ("kernel", "densify"):
+        mapi = api.with_serving(make_qmm(mode))
+        cache = mapi.init_cache(1, MAX_LEN, s_enc=ENCDEC_FRAMES,
+                                device="cuda")
+        lg, cache, clen = mapi.prefill_slot(weights, batch, cache, 0)
+        if nxt is None:
+            nxt = torch.argmax(lg)[None, None].to(torch.int32)
+        lg2, _ = mapi.serve_step(weights, {"tokens": nxt}, cache,
+                                 clen[None])
+        got[mode] = (lg.float(), lg2[0].float())
+        del cache
+    return [(float((a - b).abs().max()), float(b.abs().max()))
+            for a, b in zip(got["kernel"], got["densify"])]
+
+
+def phase_encdec(seed: int):
+    """seamless-m4t-large-v2 at full width and depth: an MXINT8 anchor
+    (B6), packed mxint8 and mxint4 trees (B5); ENCDEC_REQ requests with
+    their own ENCDEC_FRAMES frame embeddings through ``prefill_slot`` into
+    one dense cache, then ENCDEC_STEPS greedy ``serve_step``s of all of
+    them, every projection of both stacks through B1/B2 (the launches per
+    prefill and per step as the structure predicts); one request's prefill
+    and first decode tick within FUSED_TOL of densify in f32 (bf16
+    reported); the engine's refusal (ROADMAP C.12); then MF-QAT forward
+    and backward of the whole model at ENCDEC_TRAIN. Returns the launches
+    of B1, B2, B5, B6, B7."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.core.tree import flatten_paths, unflatten_paths
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels.dispatch import make_qmm
+    from repro_torch.launch.costmodel import total_params
+    from repro_torch.models import encdec, get_model
+    from repro_torch.serve.engine import ElasticEngine
+    from repro_torch.serve.packed_params import make_packed_params
+
+    cfg = get_config("seamless-m4t-large-v2")
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"encdec phase: seamless-m4t-large-v2 at full width and depth "
+        f"({cfg.enc_layers} + {cfg.n_layers} layers, "
+        f"{total_params(cfg) / 1e9:.2f} B parameters, vocab {cfg.vocab}), "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated before "
+        "it; card " + _SMI[0])
+    _reset_quant_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    anchor = _anchor_by_leaf(cfg, seed)
+    log(f"seamless: anchor built in {time.perf_counter() - t0:.1f} s, peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    api = get_model(cfg)
+    try:
+        ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                      device="cuda")
+        fail("seamless: the engine took an encoder-decoder config")
+    except ValueError as e:
+        if "C.12" not in str(e):
+            fail(f"seamless: the engine refused with {e!r}, not C.12")
+        log(f"seamless: the engine refuses the config: {e}")
+    weights = {fmt: make_packed_params(anchor, target_fmt=fmt,
+                                       dtype=cfg.compute_dtype)
+               for fmt in ("mxint8", "mxint4")}
+    n_q = len(anchor.quantized)
+    counts = _quant_launches()
+    want = {"mx_quantize": n_q, "ss_convert": n_q, "fake_quant": 0}
+    if counts != want:
+        fail(f"seamless: anchor and mxint4 build launched {counts}, want "
+             f"{want}")
+    add(counts)
+    del anchor
+    gc.collect()
+    torch.cuda.empty_cache()
+    batches = _encdec_batches(cfg, seed)
+    enc, dec = (sum(len(v) for v in encdec.projections(cfg, k).values())
+                for k in ("encoder", "decoder"))
+    # a prefill runs every projection of both stacks; a decode step the
+    # decoder's but the cross attention's K/V, cached at prefill
+    per_pre = cfg.enc_layers * enc + cfg.n_layers * dec
+    per_step = cfg.n_layers * (dec - 2)
+    log(f"seamless requests: prompts {[b['tokens'].shape[1] for b in batches]}"
+        f" tokens, each over {ENCDEC_FRAMES} frames; B1/B2 launches per "
+        f"prefill {per_pre}, per decode step {per_step}; cross K/V "
+        f"{2 * cfg.n_layers * ENCDEC_FRAMES * cfg.n_kv_heads * cfg.hd * 2 / 1e6:.1f}"
+        " MB per slot")
+    for fmt in ("mxint8", "mxint4"):
+        kapi = api.with_serving(make_qmm("kernel"))
+        cache = kapi.init_cache(ENCDEC_REQ, MAX_LEN, s_enc=ENCDEC_FRAMES,
+                                device="cuda")
+        mx_matmul.reset_launches()
+        pre_ms, firsts, lens, pre_l = [], [], [], []
+        for i, batch in enumerate(batches):
+            before = sum(mx_matmul.launches.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache, clen = kapi.prefill_slot(weights[fmt], batch, cache, i)
+            firsts.append(int(torch.argmax(lg)))
+            torch.cuda.synchronize()
+            pre_ms.append(1e3 * (time.perf_counter() - t0))
+            pre_l.append(sum(mx_matmul.launches.values()) - before)
+            lens.append(int(clen))
+        tokens = torch.tensor(firsts, dtype=torch.int32,
+                              device="cuda")[:, None]
+        cache_len = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        walls, step_l, streams = [], [], [[t] for t in firsts]
+        for _ in range(ENCDEC_STEPS):
+            before = sum(mx_matmul.launches.values())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, cache = kapi.serve_step(weights[fmt], {"tokens": tokens},
+                                        cache, cache_len)
+            nxt = torch.argmax(lg, -1).to(torch.int32)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            step_l.append(sum(mx_matmul.launches.values()) - before)
+            if not torch.isfinite(lg).all():
+                fail(f"seamless {fmt}: decode logits not finite")
+            for i, t in enumerate(nxt.tolist()):
+                streams[i].append(t)
+            tokens = nxt[:, None]
+            cache_len = cache_len + 1
+        add(dict(mx_matmul.launches))
+        kernel = "mx_matmul_int4" if fmt == "mxint4" else "mx_matmul"
+        if set(pre_l) != {per_pre} or set(step_l) != {per_step} \
+                or mx_matmul.launches[_OTHER[kernel]]:
+            fail(f"seamless {fmt}: B1/B2 launches per prefill {pre_l}, per "
+                 f"step {sorted(set(step_l))}, want {per_pre} / {per_step} "
+                 f"of {kernel}")
+        log(f"seamless {fmt}: prefill ms per request "
+            f"{[round(m, 1) for m in pre_ms]} (host wall to a synchronize, "
+            f"eager); decode step of {ENCDEC_REQ} rows median "
+            f"{np.median(walls):.2f} ms ({min(walls):.2f}-{max(walls):.2f},"
+            f" n {len(walls)}, eager); launches per prefill {pre_l[0]}, per "
+            f"step {step_l[0]}; {sum(len(x) for x in streams)} tokens; peak "
+            f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        del cache
+        torch.cuda.empty_cache()
+    # the contracts, bf16 reported and f32 gated (launches made to
+    # compare, not counted)
+    mm_before = dict(mx_matmul.launches)
+    cfg32 = dataclasses.replace(cfg, compute_dtype=torch.float32)
+    api32 = get_model(cfg32)
+    b32 = dict(batches[0], frame_embeds=batches[0]["frame_embeds"].float())
+    for fmt in ("mxint8", "mxint4"):
+        for dtype, capi, wts, batch in (
+                ("bf16", api, weights[fmt], batches[0]),
+                ("f32", api32, _as_f32(weights[fmt]), b32)):
+            errs = _encdec_contract(capi, wts, batch)
+            log(f"seamless {fmt} {dtype} contract, request 0: prefill and "
+                "first decode tick max|kernel - densify| / max|densify| "
+                f"{[(round(e, 6), round(m, 4)) for e, m in errs]}")
+            for step, (e, m) in enumerate(errs):
+                if not math.isfinite(e) or (dtype == "f32"
+                                            and e > FUSED_TOL * m):
+                    fail(f"seamless {fmt} {dtype} step {step}: kernel "
+                         f"differs from densify by {e:.4g} > {FUSED_TOL} "
+                         f"* {m:.4g}")
+    mx_matmul.launches.update(mm_before)
+    del weights, api32, b32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # MF-QAT training of the whole model
+    bsz, ntok, nfr = ENCDEC_TRAIN
+    qat = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    tapi = get_model(cfg, qat=qat)
+    params = tapi.init_params(seed, device="cuda")
+    flat = flatten_paths(params)
+    leaves = [p.requires_grad_(True) for _, p in flat]
+    tree = unflatten_paths({k: p for (k, _), p in zip(flat, leaves)})
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    toks = torch.randint(0, cfg.vocab, (bsz, ntok), generator=gen,
+                         device="cuda")
+    batch = {"tokens": toks, "labels": toks,
+             "frame_embeds": torch.randn((bsz, nfr, cfg.d_model),
+                                         generator=gen, device="cuda")}
+    _reset_quant_launches()
+    rows = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        loss, _ = tapi.train_loss(tree, batch, 1)
+        grads = torch.autograd.grad(loss, leaves)
+        end.record()
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(loss)) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        rows.append((start.elapsed_time(end),
+                     (torch.cuda.max_memory_allocated() - base) / 1e9,
+                     float(loss.detach()), finite))
+        del grads, loss
+    counts = _quant_launches()
+    if not all(r[3] for r in rows) or counts["fake_quant"] != 2 * n_q:
+        fail(f"seamless training: finite {[r[3] for r in rows]}, B7 "
+             f"launches {counts['fake_quant']} (want {2 * n_q})")
+    add(counts)
+    log(f"seamless MF-QAT train_loss (mxint4) forward + backward, the whole "
+        f"model, batch {bsz} x {ntok} tokens over {nfr} frames: "
+        f"{[round(r[0], 1) for r in rows]} ms (CUDA events; the first warms "
+        f"up), peak {[round(r[1], 2) for r in rows]} GB above the weights, "
+        f"loss {rows[-1][2]:.4f}, loss and gradients finite; B7 launches "
+        f"{counts['fake_quant']} ({n_q} stacked leaves per call)")
+    del tree, leaves, params, flat, tapi
     gc.collect()
     torch.cuda.empty_cache()
     return totals
@@ -4524,6 +4977,14 @@ def main() -> int:
                     help="card, build, B1/B2 at the jamba shapes and the "
                          "hybrid phase (jamba served and trained) only; no "
                          "result line")
+    ap.add_argument("--rwkv-only", action="store_true",
+                    help="card, build, B1/B2 at the rwkv6-7b shapes and the "
+                         "RWKV phase (rwkv6-7b served and trained) only; no "
+                         "result line")
+    ap.add_argument("--encdec-only", action="store_true",
+                    help="card, build, B1/B2 at the seamless shapes and the "
+                         "encoder-decoder phase (seamless served and "
+                         "trained) only; no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="card, build and smollm-135m training runs A and B "
                          "only, for a same-call A/B of two trees; no result "
@@ -4571,6 +5032,16 @@ def main() -> int:
         phase_family_kernels(args.seed, HYBRID, HYBRID_MS)
         phase_hybrid(args.seed)
         log(f"hybrid only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.rwkv_only:
+        phase_family_kernels(args.seed, RWKV, FAMILY_MS)
+        phase_rwkv(args.seed)
+        log(f"rwkv only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.encdec_only:
+        phase_family_kernels(args.seed, ENCDEC, FAMILY_MS)
+        phase_encdec(args.seed)
+        log(f"encdec only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
     if args.train_long_only:
         phase_train_long(args.seed)
@@ -4682,12 +5153,14 @@ def main() -> int:
         else:
             launches[k] = launches.get(k, 0) + v
     phase_cli(args.src)
-    # the MoE family, long-sequence training, llava and jamba; each phase
-    # reads its counts from 0
+    # the MoE family, long-sequence training, llava, jamba, rwkv6-7b and
+    # seamless; each phase reads its counts from 0
     moe_rows = phase_family_kernels(args.seed, MOE, MOE_MS)
     hybrid_rows = phase_family_kernels(args.seed, HYBRID, HYBRID_MS)
+    rwkv_rows = phase_family_kernels(args.seed, RWKV, FAMILY_MS)
+    encdec_rows = phase_family_kernels(args.seed, ENCDEC, FAMILY_MS)
     for phase in (phase_moe_serving, phase_train_long, phase_vlm,
-                  phase_hybrid):
+                  phase_hybrid, phase_rwkv, phase_encdec):
         for k, v in phase(args.seed).items():
             if k in quant_launches:
                 quant_launches[k] += v
@@ -4720,6 +5193,9 @@ def main() -> int:
             "family_shapes": [r for r in family_rows if r["kernel"] == name],
             "moe_shapes": [r for r in moe_rows if r["kernel"] == name],
             "hybrid_shapes": [r for r in hybrid_rows
+                              if r["kernel"] == name],
+            "rwkv_shapes": [r for r in rwkv_rows if r["kernel"] == name],
+            "encdec_shapes": [r for r in encdec_rows
                               if r["kernel"] == name],
         })
     for name, a in paged_rec.items():

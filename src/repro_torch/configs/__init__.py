@@ -14,6 +14,8 @@ _MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen2-72b": "qwen2_72b",
     "qwen3-4b": "qwen3_4b",
+    "rwkv6-7b": "rwkv6_7b",
+    "seamless-m4t-large-v2": "seamless_m4t_large_v2",
     "smollm-135m": "smollm_135m",
     "starcoder2-3b": "starcoder2_3b",
 }

@@ -7,7 +7,9 @@ for a JAX param tree — and returns the port's nested tree on ``device``,
 after checking that every path and shape is the one ``cfg`` expects (MoE
 layers: ``['blocks'][j]['moe']['router']`` and
 ``['blocks'][j]['moe']['experts'][...]``; a hybrid stack's in-group
-positions hold ``['attn']`` or ``['mamba'][...]`` by ``mixer_kind``). With
+positions hold ``['attn']`` or ``['mamba'][...]`` by ``mixer_kind``, an
+RWKV layer ``['rwkv'][...]`` and ``['cmix'][...]``; the encoder-decoder
+family ``['encoder']`` and ``['decoder']`` trees). With
 the same weights, both packages compute the same function.
 ``train_state_from_numpy`` does the same for a JAX ``TrainState`` (params,
 AdamW moments and steps), as a JAX training checkpoint stores it. bf16
@@ -23,8 +25,8 @@ import torch
 
 from repro_torch.core.tree import unflatten_paths
 from repro_torch.devices import resolve_device
+from repro_torch.models import param_shapes
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import param_shapes
 from repro_torch.train.state import TrainState
 
 

@@ -6,7 +6,9 @@ Loads the anchor checkpoint at ``--anchor-ckpt`` when that directory exists
 (one the JAX package saved reads the same), else makes an MXINT8 anchor
 from seeded random weights and, given ``--anchor-ckpt``, saves it there;
 then serves ``--requests`` greedy requests of 8 random prompt tokens and
-prints the first four streams and the engine's stats.
+prints the first four streams and the engine's stats. An encoder-decoder
+config is refused by the engine (ROADMAP C.12: a ``Request`` carries no
+frame embeddings; the reference fails at its first admission).
 
 ``--reduced`` (the default) serves the reduced test widths. The reference
 declares the flag ``store_true`` with ``default=True``, so it can never be
@@ -25,7 +27,7 @@ from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.core.anchor import make_anchor
 from repro_torch.core.formats import get_format
 from repro_torch.core.qat import QATConfig
-from repro_torch.models.transformer import init_params, make_model
+from repro_torch.models import get_model
 from repro_torch.serve.engine import ElasticEngine, Request
 from repro_torch.serve.policy import FormatPolicy
 
@@ -45,7 +47,7 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
-    api = make_model(cfg)
+    api = get_model(cfg)
     qat = QATConfig(formats=("mxint4", "mxint8"), anchor="mxint8",
                     block_size=32)
 
@@ -54,7 +56,7 @@ def main(argv=None):
         print(f"loaded anchor checkpoint {args.anchor_ckpt} "
               f"({anchor.fmt_name})")
     else:
-        params = init_params(cfg, 0, device=args.device)
+        params = api.init_params(0, device=args.device)
         anchor = make_anchor(params, qat, get_format("mxint8", 32),
                              device=args.device)
         del params

@@ -15,7 +15,7 @@ from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.core.formats import TRAIN_FORMATS_MXFP, TRAIN_FORMATS_MXINT
 from repro_torch.core.qat import QATConfig
 from repro_torch.data.pipeline import DataConfig, LMDataset
-from repro_torch.models.transformer import make_model
+from repro_torch.models import get_model
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.loop import LoopConfig, run_training
 
@@ -44,7 +44,7 @@ def main():
             "none": ()}[args.formats]
     qat = QATConfig(formats=fmts, anchor=args.anchor, block_size=32) \
         if fmts else None
-    api = make_model(cfg, qat=qat)
+    api = get_model(cfg, qat=qat)
     data = LMDataset(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                 global_batch=args.batch))
     opt = AdamWConfig(lr=args.lr,

@@ -27,7 +27,13 @@ class ModelConfig:
     serves: the fields of ``repro/models/common.py::ModelConfig`` that the
     dense configs (qwen3-4b, smollm-135m, starcoder2-3b, qwen2-72b), the
     MoE configs (mixtral-8x7b, mixtral-8x22b), the hybrid jamba-1.5-large
-    and the vision-language llava-next-mistral-7b set. ``act``: the SwiGLU
+    the vision-language llava-next-mistral-7b, the RWKV6 rwkv6-7b
+    (family ``"ssm"``: every layer an RWKV time mix and channel mix of
+    ``rwkv_head_dim`` heads) and the encoder-decoder seamless-m4t-large-v2
+    (family ``"encdec"``: ``enc_layers`` bidirectional encoder layers over
+    frame embeddings, ``n_layers`` decoder layers with cross attention;
+    ``audio_downsample`` sets the default encoder length of a serving
+    cache) set. ``act``: the SwiGLU
     or the tanh-gelu MLP; ``qkv_bias`` / ``mlp_bias``: biases on the q/k/v
     projections and on the MLP's up and down projections;
     ``sliding_window``: attention sees the last W positions (mixtral's
@@ -42,7 +48,7 @@ class ModelConfig:
     package's defaults."""
 
     name: str
-    family: str                     # dense | moe | hybrid | vlm
+    family: str                     # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -73,7 +79,10 @@ class ModelConfig:
     mamba_d_conv: int = 4
     mamba_expand: int = 2
     mamba_dt_rank: int = 0          # 0 -> ceil(d_model / 16)
+    rwkv_head_dim: int = 64
+    enc_layers: int = 0
     vision_tokens: int = 0          # llava anyres patch embeds
+    audio_downsample: int = 0       # seamless: enc frames = seq // this
     compute_dtype: Any = torch.bfloat16
     scan_group: int = 1             # layers per stacked group
     seq_chunk: int = 1024           # flash-attention / loss chunking
@@ -91,6 +100,8 @@ class ModelConfig:
         return self.n_layers // self.scan_group
 
     def is_attn_layer(self, i: int) -> bool:
+        if self.family == "ssm":
+            return False
         if self.attn_every <= 0:
             return True
         return i % self.attn_every == self.attn_offset
@@ -128,6 +139,13 @@ class QuantCtx:
         if b is not None:
             y = y + b.to(x.dtype)
         return y
+
+
+def at_use(w, dtype) -> torch.Tensor:
+    """A non-projection leaf in ``dtype``: a packed one densified here."""
+    if is_packed_leaf(w):
+        return densify_leaf(w, None, dtype, serving_axis=True)
+    return w.to(dtype)
 
 
 def is_paged_cache(cache) -> bool:

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_mixed_attention)
 from repro_torch.models.common import ModelConfig, QuantCtx
-from repro_torch.models.flash_vjp import flash_attention_vjp
+from repro_torch.models.flash_vjp import flash_attention_vjp, fwd_pass
 from repro_torch.serve.packed_params import layer_slice
 
 
@@ -75,6 +75,23 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v32 = torch.where((kpos < q_offset + s)[:, None, None], v32, 0.0)
     out = torch.einsum("bkgqt,btkd->bqkgd", p, v32)
     return out.reshape(b, s, h, d).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    chunk: int = 1024) -> torch.Tensor:
+    """q (B,Sq,H,D), k/v (B,Skv,Hkv,D) -> (B,Sq,H,D): the chunked online
+    softmax of the JAX package's ``flash_attention`` (queries and keys at
+    positions from 0), f32 inside, differentiated by autograd through the
+    chunks as JAX differentiates its scans. The encoder-decoder's cross
+    attention (``causal=False``, Sq != Skv) runs it at prefill and in
+    training."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, sq, hkv, h // hkv, d).to(torch.float32)
+    out, _ = fwd_pass(qg, k.to(torch.float32), v.to(torch.float32), causal,
+                      window, chunk)
+    return out.reshape(b, sq, h, d).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -229,14 +246,15 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
                     positions: torch.Tensor, name: str, kv_cache=None,
                     cache_len=None, block_table=None,
                     chunk_start: Optional[int] = None, q_len=None,
-                    attn_impl: str = "gather"):
+                    attn_impl: str = "gather", causal: bool = True):
     """Self-attention; K/V land in ``kv_cache`` in place.
 
-      no ``kv_cache``   training or monolithic prefill: causal attention
-                        over the sequence, ``flash_attention_vjp`` when
+      no ``kv_cache``   training or monolithic prefill: attention over the
+                        sequence, causal unless ``causal=False`` (the
+                        encoder), ``flash_attention_vjp`` when
                         ``cfg.flash_vjp`` (as in JAX), ``prefill_attention``
-                        otherwise; returns ``(out, (k, v))`` for the caller
-                        to store.
+                        (``flash_attention`` when not causal) otherwise;
+                        returns ``(out, (k, v))`` for the caller to store.
       ``chunk_start``   chunked prefill: ``x`` is one prompt chunk at that
                         cursor; its K/V are written there (through the block
                         table when paged) and its queries attend over the
@@ -270,10 +288,13 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     mode = "kernel" if attn_impl == "paged_kernel" else "gather"
     if kv_cache is None:
         if cfg.flash_vjp:
-            out = flash_attention_vjp(q, k, v, causal=True, window=window,
+            out = flash_attention_vjp(q, k, v, causal=causal, window=window,
                                       chunk=cfg.seq_chunk)
-        else:
+        elif causal:
             out = prefill_attention(q, k, v, window=window)
+        else:
+            out = flash_attention(q, k, v, causal=False, window=window,
+                                  chunk=cfg.seq_chunk)
         new_kv = (k, v)
     else:
         kc, vc = kv_cache
@@ -315,6 +336,17 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
             out = decode_attention(q, kc, vc, cache_len + 1, window=window)
     out = ctx.dense(out.reshape(b, s, h * hd), p["wo"], name + ".wo")
     return out, new_kv
+
+
+def cross_kv_from_memory(ctx: QuantCtx, memory: torch.Tensor, p,
+                         cfg: ModelConfig, name: str):
+    """The encoder-side K/V (B, Se, Hkv, D) of a decoder layer's cross
+    attention, from the encoder output ``memory`` (B, Se, d); no RoPE."""
+    b, se, _ = memory.shape
+    k = ctx.dense(memory, p["wk"], name + ".wk")
+    v = ctx.dense(memory, p["wv"], name + ".wv")
+    return (k.reshape(b, se, cfg.n_kv_heads, cfg.hd),
+            v.reshape(b, se, cfg.n_kv_heads, cfg.hd))
 
 
 def mlp_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,

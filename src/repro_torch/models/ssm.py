@@ -14,9 +14,9 @@ operands at a time, as the JAX scan does.
 A served tree may hold a packed ``A_log`` (the anchor quantizes it:
 ``core/qat.py::DEFAULT_EXCLUDE`` matches ``A_log`` against the lowercased
 path, ROADMAP C.9): every non-projection leaf is densified where it is
-used, the densify contract. The projections (``in_proj``, ``x_proj``,
-``out_proj``) go through ``QuantCtx.dense``; ``dt_w`` is applied as a
-plain product, never through the dispatch.
+used (``common.at_use``), the densify contract. The projections
+(``in_proj``, ``x_proj``, ``out_proj``) go through ``QuantCtx.dense``;
+``dt_w`` is applied as a plain product, never through the dispatch.
 """
 from __future__ import annotations
 
@@ -26,8 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import ModelConfig, QuantCtx
-from repro_torch.serve.packed_params import densify_leaf, is_packed_leaf
+from repro_torch.models.common import ModelConfig, QuantCtx, at_use
 
 SCAN_CHUNK = 256
 
@@ -48,13 +47,6 @@ def mamba_param_shapes(cfg: ModelConfig, g: int) -> Dict:
             "A_log": ((g, di, n), "a_log"),
             "D": ((g, di), "ones"),
             "out_proj": ((g, di, d), 0.02 / cfg.n_layers ** 0.5)}
-
-
-def _at_use(w, dtype) -> torch.Tensor:
-    """A non-projection leaf in ``dtype``: a packed one densified here."""
-    if is_packed_leaf(w):
-        return densify_leaf(w, None, dtype, serving_axis=True)
-    return w.to(dtype)
 
 
 def _causal_conv1d(x, w, b, conv_state):
@@ -106,7 +98,7 @@ def selective_scan(dt, a_log, b_in, c_in, xi, h0, chunk: int = SCAN_CHUNK):
     c_in (B, S, N), xi (B, S, di), h0 (B, di, N) or None for zeros.
     Returns (y (B, S, di) f32, h_final (B, di, N) f32)."""
     bsz, s, di = dt.shape
-    a = -torch.exp(_at_use(a_log, torch.float32))           # (di, N)
+    a = -torch.exp(at_use(a_log, torch.float32))           # (di, N)
     n = a.shape[1]
     c = _chunk_len(s, chunk)
     h = torch.zeros((bsz, di, n), dtype=torch.float32, device=dt.device) \
@@ -134,19 +126,19 @@ def mamba_block(ctx: QuantCtx, x, p, cfg: ModelConfig, name: str,
 
     xz = ctx.dense(x, p["in_proj"], name + ".in_proj")
     xi, z = torch.chunk(xz, 2, dim=-1)
-    xi, conv_state = _causal_conv1d(xi, _at_use(p["conv_w"], xi.dtype),
-                                    _at_use(p["conv_b"], torch.float32),
+    xi, conv_state = _causal_conv1d(xi, at_use(p["conv_w"], xi.dtype),
+                                    at_use(p["conv_b"], torch.float32),
                                     conv0)
     xi = F.silu(xi)
 
     bcd = ctx.dense(xi, p["x_proj"], name + ".x_proj").to(torch.float32)
     dt_lo, b_in, c_in = torch.split(bcd, [dtr, n, n], dim=-1)
-    dt = F.softplus(dt_lo @ _at_use(p["dt_w"], torch.float32)
-                    + _at_use(p["dt_bias"], torch.float32))
+    dt = F.softplus(dt_lo @ at_use(p["dt_w"], torch.float32)
+                    + at_use(p["dt_bias"], torch.float32))
 
     xf = xi.to(torch.float32)
     y, h = selective_scan(dt, p["A_log"], b_in, c_in, xf, h0)
-    y = y + _at_use(p["D"], torch.float32) * xf
+    y = y + at_use(p["D"], torch.float32) * xf
     y = y.to(x.dtype) * F.silu(z)
     out = ctx.dense(y, p["out_proj"], name + ".out_proj")
     return out, (h, conv_state)

@@ -1,7 +1,7 @@
-"""Decoder-only LM (dense, MoE, the attention/Mamba hybrid and the
+"""Decoder-only LM (dense, MoE, the attention/Mamba hybrid, RWKV6 and the
 vision-prefixed backbone): init, KV cache, prefill, chunks, decode, mixed.
 
-Counterpart of the dense, MoE, hybrid and vlm families of
+Counterpart of the dense, MoE, hybrid, ssm and vlm families of
 ``repro/models/transformer.py``. The parameter tree keeps the JAX layout —
 ``{"embed", "blocks": [group], ...}`` with every block leaf stacked over
 layer groups (G, ...), expert leaves over groups and experts (G, E, ...) —
@@ -14,11 +14,13 @@ table), is updated in place; a Mamba layer's recurrent state, ``h``
 (G, B, d_inner, N) f32 and ``conv`` (G, B, d_conv-1, d_inner), lives in the
 same cache, dense layout only, and a decode step overwrites it in place
 (so a replayed decode must first put back the pre-tick state: the serving
-engine keeps a copy). A ``"vlm"`` batch carries ``vision_embeds`` (B, V,
-d), prepended to the token embeddings in training and prefill; the loss
-drops those positions and prefill counts them in ``cache_len``. Chunked
-prefill, the mixed tick and the verify refuse a vision prefix and
-recurrent mixers with the reference's messages.
+engine keeps a copy). An RWKV layer's state, ``shift_t`` / ``shift_c``
+(G, B, 1, d) and ``wkv`` (G, B, H, hd, hd) f32, lives there the same way.
+A ``"vlm"`` batch carries ``vision_embeds`` (B, V, d), prepended to the
+token embeddings in training and prefill; the loss drops those positions
+and prefill counts them in ``cache_len``. Chunked prefill, the mixed tick
+and the verify refuse a vision prefix and recurrent mixers with the
+reference's messages.
 
 Entry points (``ModelApi``): ``train_loss`` (the MF-QAT training loss, with
 autograd), ``prefill``, ``prefill_slot`` (one request into one slot of the
@@ -49,39 +51,35 @@ from repro_torch.core.qat import QATConfig
 from repro_torch.core.tree import unflatten_paths
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models import ssm
+from repro_torch.models import rwkv, ssm
 from repro_torch.models.common import ModelConfig, QuantCtx, is_paged_cache
-from repro_torch.serve.packed_params import is_packed_leaf, layer_slice
+from repro_torch.serve.packed_params import (densify_leaf, is_packed_leaf,
+                                             layer_slice)
 
 
 # =============================================================================
 # Init
 # =============================================================================
 def mixer_kind(cfg: ModelConfig, j: int) -> str:
-    """The mixer of in-group layer ``j``: "attn" or "mamba"."""
+    """The mixer of in-group layer ``j``: "attn", "mamba" or (family
+    "ssm") "rwkv"."""
+    if cfg.family == "ssm":
+        return "rwkv"
     return "attn" if cfg.is_attn_layer(j) else "mamba"
 
 
 def ffn_kind(cfg: ModelConfig, j: int) -> str:
-    """The feed-forward of in-group layer ``j``: "moe" or "mlp"."""
+    """The feed-forward of in-group layer ``j``: "moe", "mlp" or (family
+    "ssm") the RWKV channel mix "cmix"."""
+    if cfg.family == "ssm":
+        return "cmix"
     return "moe" if cfg.is_moe_layer(j) else "mlp"
 
 
-def param_shapes(cfg: ModelConfig) -> Dict:
-    """Nested {name: (shape, init)} with init "ones", "zeros", a
-    truncated-normal std, ``("full", v)`` or "a_log" (log(1..N) along the
-    last axis, ``models/ssm.py``) — the shapes and inits of the JAX init.
-    A Mamba layer holds ``mamba`` (``ssm.mamba_param_shapes``). Biases
-    (``qkv_bias``: bq / bk / bv; ``mlp_bias``: b_up / b_down) are stacked
-    (G, n) like every block leaf and start at zero, as in JAX. A MoE layer
-    holds ``moe``: a raw ``router`` (G, d, E) and ``experts`` (G, E, d, f)
-    / (G, E, f, d)."""
-    if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
-        raise ValueError(f"the port serves the dense, MoE, hybrid and vlm "
-                         f"families, got {cfg.family!r}")
-    d, h, hkv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
-        cfg.d_ff
-    g = cfg.n_groups
+def attn_shapes(cfg: ModelConfig, g: int) -> Dict:
+    """An attention layer's (G, ...) leaves: projections, the biases and
+    q/k norms the config asks for."""
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     down = 0.02 / cfg.n_layers ** 0.5
     attn = {"wq": ((g, d, h * hd), 0.02), "wk": ((g, d, hkv * hd), 0.02),
             "wv": ((g, d, hkv * hd), 0.02), "wo": ((g, h * hd, d), down)}
@@ -90,7 +88,14 @@ def param_shapes(cfg: ModelConfig) -> Dict:
                     bv=((g, hkv * hd), "zeros"))
     if cfg.qk_norm:
         attn.update(q_norm=((g, hd), "ones"), k_norm=((g, hd), "ones"))
-    mlp = {"w_up": ((g, d, f), 0.02), "w_down": ((g, f, d), down)}
+    return attn
+
+
+def mlp_shapes(cfg: ModelConfig, g: int) -> Dict:
+    """An MLP layer's (G, ...) leaves (SwiGLU or gelu, biases)."""
+    d, f = cfg.d_model, cfg.d_ff
+    mlp = {"w_up": ((g, d, f), 0.02),
+           "w_down": ((g, f, d), 0.02 / cfg.n_layers ** 0.5)}
     if cfg.act == "swiglu":
         mlp["w_gate"] = ((g, d, f), 0.02)
     elif cfg.act != "gelu":
@@ -98,6 +103,27 @@ def param_shapes(cfg: ModelConfig) -> Dict:
                          "'gelu')")
     if cfg.mlp_bias:
         mlp.update(b_up=((g, f), "zeros"), b_down=((g, d), "zeros"))
+    return mlp
+
+
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """Nested {name: (shape, init)} with init "ones", "zeros", a
+    truncated-normal std, ``("full", v)`` or "a_log" (log(1..N) along the
+    last axis, ``models/ssm.py``) — the shapes and inits of the JAX init.
+    A Mamba layer holds ``mamba`` (``ssm.mamba_param_shapes``), an RWKV
+    layer ``rwkv`` and ``cmix`` (``rwkv.rwkv_param_shapes``). Biases
+    (``qkv_bias``: bq / bk / bv; ``mlp_bias``: b_up / b_down) are stacked
+    (G, n) like every block leaf and start at zero, as in JAX. A MoE layer
+    holds ``moe``: a raw ``router`` (G, d, E) and ``experts`` (G, E, d, f)
+    / (G, E, f, d)."""
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "vlm"):
+        raise ValueError(f"the decoder-only stack builds the dense, MoE, "
+                         f"hybrid, ssm and vlm families, got {cfg.family!r}"
+                         " (encdec: models/encdec.py)")
+    d, f = cfg.d_model, cfg.d_ff
+    g = cfg.n_groups
+    down = 0.02 / cfg.n_layers ** 0.5
+    attn, mlp = attn_shapes(cfg, g), mlp_shapes(cfg, g)
     e = cfg.moe_experts
     moe = {"router": ((g, d, e), 0.02),
            "experts": {"w_gate": ((g, e, d, f), 0.02),
@@ -106,6 +132,9 @@ def param_shapes(cfg: ModelConfig) -> Dict:
 
     def block(j):
         blk = {"mixer_norm": ((g, d), "ones"), "ffn_norm": ((g, d), "ones")}
+        if mixer_kind(cfg, j) == "rwkv":
+            blk.update(rwkv.rwkv_param_shapes(cfg, g))
+            return blk
         if mixer_kind(cfg, j) == "attn":
             blk["attn"] = attn
         else:
@@ -124,9 +153,10 @@ def param_shapes(cfg: ModelConfig) -> Dict:
     return shapes
 
 
-def param_leaves(cfg: ModelConfig):
-    """[(keystr path, (shape, init))] of ``param_shapes`` in
-    ``init_params``' order (dict keys sorted, as JAX flattens)."""
+def param_leaves(cfg: ModelConfig, shapes=None):
+    """[(keystr path, (shape, init))] of ``shapes`` (default
+    ``param_shapes(cfg)``) in ``init_params``' order (dict keys sorted, as
+    JAX flattens)."""
     def walk(node, prefix):
         if isinstance(node, dict):
             for k in sorted(node):
@@ -136,7 +166,7 @@ def param_leaves(cfg: ModelConfig):
                 yield from walk(v, f"{prefix}[{i}]")
         else:
             yield prefix, node
-    return list(walk(param_shapes(cfg), ""))
+    return list(walk(param_shapes(cfg) if shapes is None else shapes, ""))
 
 
 def init_leaf(shape, init, gen: torch.Generator) -> torch.Tensor:
@@ -156,12 +186,14 @@ def init_leaf(shape, init, gen: torch.Generator) -> torch.Tensor:
     return t.mul_(init)
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Dict:
-    """Float32 master weights from a seeded ``torch.Generator`` on
-    ``device``: truncated normal at ±2 std, the JAX init's stds."""
+def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
+                shapes=None) -> Dict:
+    """Float32 master weights of ``shapes`` (default ``param_shapes(cfg)``)
+    from a seeded ``torch.Generator`` on ``device``: truncated normal at
+    ±2 std, the JAX init's stds."""
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
-    return unflatten_paths({path: init_leaf(shape, init, gen)
-                            for path, (shape, init) in param_leaves(cfg)})
+    return unflatten_paths({path: init_leaf(shape, init, gen) for path,
+                            (shape, init) in param_leaves(cfg, shapes)})
 
 
 # =============================================================================
@@ -174,13 +206,27 @@ def _group_params(tree, g: int):
     return layer_slice(tree, g)
 
 
+def _densify_group_axis(tree):
+    """A stacked block tree with every packed leaf whose MX blocks run
+    along the layer axis densified (float32): at G % 32 == 0 the anchor
+    quantizes a (G, d) vector leaf that way (rwkv6-7b's ``mix_*``, ROADMAP
+    C.11), so no layer owns a block and a row is read from the whole
+    leaf. Once per forward, instead of once per layer in ``layer_slice``."""
+    if isinstance(tree, dict):
+        return {k: _densify_group_axis(v) for k, v in tree.items()}
+    if is_packed_leaf(tree) and tree.block_axis == 0:
+        return densify_leaf(tree, None, torch.float32)
+    return tree
+
+
 def _layer(ctx: QuantCtx, x, p, cfg: ModelConfig, j: int, positions,
            cs, cache_len, block_table, monolithic: bool,
            chunk_start, q_len, attn_impl: str):
     """One block against ``cs``, the layer group's cache slice (None in
     training): K/V land in ``cs["k"]`` / ``cs["v"]`` (or the page pools),
-    a Mamba layer's state in ``cs["h"]`` / ``cs["conv"]``, in place.
-    Returns (x, aux): the MoE layer's aux loss, None for an MLP layer."""
+    a Mamba layer's state in ``cs["h"]`` / ``cs["conv"]``, an RWKV layer's
+    in ``cs["shift_t"]`` / ``cs["wkv"]`` / ``cs["shift_c"]``, in place.
+    Returns (x, aux): the MoE layer's aux loss, None otherwise."""
     mk = mixer_kind(cfg, j)
     if mk != "attn" and cs is not None and not monolithic:
         chunked = chunk_start is not None
@@ -191,8 +237,23 @@ def _layer(ctx: QuantCtx, x, p, cfg: ModelConfig, j: int, positions,
                 f"{cfg.family!r} is {mk!r} (its recurrent state cannot "
                 "resume mid-prompt) — use monolithic admission")
     h = L.rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    carried = cs is not None and not monolithic
+    if mk == "rwkv":
+        out, (shift, wkv) = rwkv.rwkv_time_mix(
+            ctx, h, p["rwkv"], cfg, f"blk{j}.rwkv",
+            state=(cs["shift_t"], cs["wkv"]) if carried else None)
+        x = x + out
+        h = L.rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+        out, shift_c = rwkv.rwkv_channel_mix(
+            ctx, h, p["cmix"], cfg, f"blk{j}.cmix",
+            state=cs["shift_c"] if carried else None)
+        if cs is not None:
+            cs["shift_t"].copy_(shift)
+            cs["wkv"].copy_(wkv)
+            cs["shift_c"].copy_(shift_c)
+        return x + out, None
     if mk == "mamba":
-        state = None if cs is None or monolithic else (cs["h"], cs["conv"])
+        state = (cs["h"], cs["conv"]) if carried else None
         out, (hst, conv) = ssm.mamba_block(ctx, h, p["mamba"], cfg,
                                            f"blk{j}.mamba", state=state)
         if cs is not None:
@@ -248,6 +309,7 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
     block_table = cache.get("block_table") if cache is not None else None
     monolithic = prefill and chunk_start is None
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
+    blocks = [_densify_group_axis(b) for b in params["blocks"]]
 
     def layer_fn(j):
         def run(xv, p, cs):
@@ -267,7 +329,7 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
 
         def group_body(xv, aux, g=g, slices=slices):
             for j in range(cfg.scan_group):
-                p = _group_params(params["blocks"][j], g)
+                p = _group_params(blocks[j], g)
                 xv, a = layers[j](xv, p, slices[j])
                 if a is not None:
                     aux = aux + a
@@ -330,10 +392,16 @@ PROJECTIONS = {
 # ``D``, ``conv``), as JAX's ``dense`` never sees them.
 MAMBA_PROJECTIONS = {"mamba": ("in_proj", "x_proj", "out_proj")}
 
+# An RWKV layer's eight: the decay LoRA is a plain product in JAX too.
+RWKV_PROJECTIONS = {"rwkv": ("wr", "wk", "wv", "wg", "wo"),
+                    "cmix": ("w_key", "w_value", "w_recept")}
+
 
 def projections(cfg: ModelConfig, j: int) -> Dict:
     """``PROJECTIONS`` of in-group layer ``j`` (a Mamba layer's mixer
-    ``MAMBA_PROJECTIONS``)."""
+    ``MAMBA_PROJECTIONS``, an RWKV layer ``RWKV_PROJECTIONS``)."""
+    if mixer_kind(cfg, j) == "rwkv":
+        return RWKV_PROJECTIONS
     out = PROJECTIONS["moe" if ffn_kind(cfg, j) == "moe" else cfg.act]
     if mixer_kind(cfg, j) == "mamba":
         out = dict(MAMBA_PROJECTIONS, **{k: v for k, v in out.items()
@@ -341,31 +409,37 @@ def projections(cfg: ModelConfig, j: int) -> Dict:
     return out
 
 
-def fake_quant_blocks(qat: QATConfig, fmt_idx: int, params,
-                      cfg: ModelConfig):
-    """``params`` with every stacked projection leaf fake-quantized (STE) at
-    format ``fmt_idx`` once for the whole stack, in the compute dtype. A
+def fake_quant_projections(qat: QATConfig, fmt_idx: int, blk, subs: Dict,
+                           cfg: ModelConfig, prefix: str):
+    """The stacked block tree ``blk`` with the leaves ``subs`` names
+    (``{dotted sub-tree: leaf names}``) fake-quantized (STE) at format
+    ``fmt_idx`` once for the whole stack, in the compute dtype. A
     (G, d_in, d_out) leaf, or a (G, E, d_in, d_out) expert leaf, is blocked
     at ndim-2 (``qat.pytree_block_axis``), so each layer and expert slice
     gets the value JAX's ``dense`` gives it."""
-    blocks = []
-    for j, blk in enumerate(params["blocks"]):
-        blk = dict(blk)
-        for sub, names in projections(cfg, j).items():
-            path = sub.split(".")
-            node = blk
-            for key in path[:-1]:
-                node[key] = dict(node[key])
-                node = node[key]
-            leaves = node[path[-1]] = dict(node[path[-1]])
-            for n in names:
-                w = leaves[n]
-                leaves[n] = qat.apply(
-                    w, f"blk{j}.{sub}.{n}", fmt_idx,
-                    axis=qat.block_axis % 2 + w.ndim - 2,
-                    out_dtype=cfg.compute_dtype)
-        blocks.append(blk)
-    return dict(params, blocks=blocks)
+    blk = dict(blk)
+    for sub, names in subs.items():
+        path = sub.split(".")
+        node = blk
+        for key in path[:-1]:
+            node[key] = dict(node[key])
+            node = node[key]
+        leaves = node[path[-1]] = dict(node[path[-1]])
+        for n in names:
+            w = leaves[n]
+            leaves[n] = qat.apply(w, f"{prefix}.{sub}.{n}", fmt_idx,
+                                  axis=qat.block_axis % 2 + w.ndim - 2,
+                                  out_dtype=cfg.compute_dtype)
+    return blk
+
+
+def fake_quant_blocks(qat: QATConfig, fmt_idx: int, params,
+                      cfg: ModelConfig):
+    """``params`` with every block's ``projections`` fake-quantized."""
+    return dict(params, blocks=[
+        fake_quant_projections(qat, fmt_idx, blk, projections(cfg, j), cfg,
+                               f"blk{j}")
+        for j, blk in enumerate(params["blocks"])])
 
 
 def _lm_head_w(params, cfg: ModelConfig):
@@ -470,7 +544,9 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         """KV cache, with room for ``s_max`` tokens behind the vision
         prefix. ``"dense"``: per stacked group, K and V (G, B, s_max, Hkv,
         D) for an attention layer, ``h`` (G, B, d_inner, N) f32 and
-        ``conv`` (G, B, d_conv-1, d_inner) for a Mamba layer. ``"paged"``
+        ``conv`` (G, B, d_conv-1, d_inner) for a Mamba layer, ``shift_t``
+        and ``shift_c`` (G, B, 1, d) and ``wkv`` (G, B, H, hd, hd) f32 for
+        an RWKV layer. ``"paged"``
         (pure-attention stacks only): per stacked group, page pools
         (G, P, ps, Hkv, D) for K and V plus a ``block_table``
         (B, ceil(s_max/ps)) int32 of physical page ids; page 0 is scratch,
@@ -490,6 +566,12 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                 if mixer_kind(cfg, j) == "attn":
                     shape = (g, b, s_max, cfg.n_kv_heads, cfg.hd)
                     blocks.append({"k": zeros(shape), "v": zeros(shape)})
+                elif mixer_kind(cfg, j) == "rwkv":
+                    d, hd = cfg.d_model, cfg.rwkv_head_dim
+                    blocks.append({
+                        "shift_t": zeros((g, b, 1, d)),
+                        "wkv": zeros((g, b, d // hd, hd, hd), torch.float32),
+                        "shift_c": zeros((g, b, 1, d))})
                 else:
                     di = cfg.mamba_d_inner
                     blocks.append({

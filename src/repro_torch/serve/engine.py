@@ -116,18 +116,21 @@ no guard replay, not speculative) after a format's first is folded into
 that format's calibration. The first is skipped as the reference skips its
 jit warm-up: here it runs eagerly, or is the CUDA-graph capture.
 
-Stacks that are not pure attention (jamba's Mamba layers) serve as the
-reference serves them: on the dense layout, prompts prefilled whole at their
-own length (a recurrent state would fold bucket padding in), no chunked
-admission, no mixed tick, no speculation. A decode tick writes the Mamba
-state in place, so the guard keeps a copy of it before each guarded tick
-and puts it back before a replay: every attempt starts from the pre-tick
-state, as the reference's functional step does.
+Stacks that are not pure attention (jamba's Mamba layers, rwkv6-7b's
+RWKV layers) serve as the reference serves them: on the dense layout,
+prompts prefilled whole at their own length (a recurrent state would fold
+bucket padding in), no chunked admission, no mixed tick, no speculation. A
+decode tick writes the recurrent state (Mamba's ``h`` / ``conv``, RWKV's
+``shift_t`` / ``wkv`` / ``shift_c``) in place, so the guard keeps a copy of
+it before each guarded tick and puts it back before a replay: every
+attempt starts from the pre-tick state, as the reference's functional step
+does.
 
 Left out of this slice: tensor parallelism (refused with
-``NotImplementedError`` naming ROADMAP A.9), and configs with a vision
-prefix, which a ``Request`` has no field to carry (refused at
-construction, ROADMAP C.10; the reference fails at its first admission).
+``NotImplementedError`` naming ROADMAP A.9), configs with a vision prefix
+and the encoder-decoder family, whose frames or image embeddings a
+``Request`` has no field to carry (refused at construction, ROADMAP C.10
+and C.12; the reference fails at its first admission).
 """
 from __future__ import annotations
 
@@ -359,10 +362,20 @@ class ElasticEngine:
                 "first admission with KeyError: 'vision_embeds'). Call the "
                 "ModelApi's prefill / serve_step with batch['vision_embeds'] "
                 "instead")
+        if cfg.family == "encdec":
+            raise ValueError(
+                f"{cfg.name!r} is an encoder-decoder whose frame embeddings "
+                "a Request cannot carry: the engine serves decoder-only "
+                "text configs (ROADMAP C.12; the reference engine has no "
+                "qmm hook for the family and its densify path fails at the "
+                "first admission with KeyError: 'frame_embeds'). Call the "
+                "ModelApi's prefill_slot / serve_step with "
+                "batch['frame_embeds'] instead")
         # Length bucketing needs exact masking of right-padded prompts; a
         # recurrent mixer folds pad tokens into its state, so only
         # pure-attention stacks bucket (the reference's rule).
-        pure_attn = cfg.attn_every <= 0
+        pure_attn = cfg.family not in ("ssm", "encdec") \
+            and cfg.attn_every <= 0
         self._bucket = bucket_prompts and pure_attn
 
         if kv_layout not in ("dense", "paged"):
@@ -480,8 +493,9 @@ class ElasticEngine:
         self._verify_bufs: Dict[int, Dict[str, torch.Tensor]] = {}
         self._draft_len: Optional[torch.Tensor] = None   # the draft cursor
         self._draft_tok: Optional[torch.Tensor] = None   # and tokens
-        self._state_copy: List[torch.Tensor] = []   # the Mamba state as a
-        #                                             guarded tick found it
+        self._state_copy: List[torch.Tensor] = []   # the recurrent state
+        #                                             as a guarded tick
+        #                                             found it
 
         # every cache leaf's bytes (KV, Mamba state, block table), from
         # shapes alone; init_cache refuses a recurrent stack paged here
@@ -579,10 +593,11 @@ class ElasticEngine:
         return self._cache, self._cache_len, self._tokens
 
     def _state_leaves(self) -> List[torch.Tensor]:
-        """The Mamba layers' ``h`` and ``conv`` buffers (none for a
+        """The recurrent layers' state buffers: Mamba's ``h`` and ``conv``,
+        RWKV's ``shift_t``, ``wkv`` and ``shift_c`` (none for a
         pure-attention stack)."""
-        return [c[k] for c in self._cache["blocks"] for k in ("h", "conv")
-                if k in c]
+        return [c[k] for c in self._cache["blocks"]
+                for k in ("h", "conv", "shift_t", "wkv", "shift_c") if k in c]
 
     def _keep_state(self) -> None:
         """Copy the recurrent state aside before a guarded tick."""

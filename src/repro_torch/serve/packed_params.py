@@ -61,7 +61,12 @@ def layer_slice(leaf, g: int):
     """Leaf ``g`` of a stacked (G, ...) leaf: views, no copies. Packed
     containers keep their (now stale) metadata, like a scan-sliced leaf.
     Applied again to a layer's (E, K, N) expert leaf it gives expert
-    ``g``'s 2-D (K, N) slice, the operand of the dequant-GEMM dispatch."""
+    ``g``'s 2-D (K, N) slice, the operand of the dequant-GEMM dispatch.
+    A packed (G, n) leaf blocked along G itself (rwkv6-7b's ``mix_*`` at
+    32 layers, ROADMAP C.11) has no block of its own per layer: its row
+    ``g`` comes from the whole leaf densified (float32), a copy."""
+    if is_packed_leaf(leaf) and leaf.block_axis == 0:
+        return densify_leaf(leaf, None, torch.float32)[g]
     if isinstance(leaf, MXTensor):
         return MXTensor(codes=leaf.codes[g], scale_exp=leaf.scale_exp[g],
                         fmt=leaf.fmt, block_axis=leaf.block_axis)

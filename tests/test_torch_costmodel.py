@@ -3,10 +3,15 @@ package's, and against what the port's engine measures.
 
 - every ``serve_*`` term, ``total_params`` and ``layer_param_macs`` equal
   the reference's exactly, for every config the port serves, at reduced
-  and full width;
+  and full width; so do ``stack_macs_per_token``, ``mixer_state_macs``
+  and the recurrent-state term of ``hbm_decode`` (``decode_state_bytes``)
+  for a config of each family that has one (rwkv6-7b, the encoder-decoder,
+  jamba) and a dense one;
 - the engine's ``stats()["weight_bytes"]`` per cached tree within rel 0.02
   of ``serve_weight_stream_bytes`` (the analytic term drops norm vectors
-  and biases), as ``tests/test_costmodel.py`` holds the JAX engine;
+  and biases), as ``tests/test_costmodel.py`` holds the JAX engine; the
+  leaves a hybrid's or an RWKV stack's term counts otherwise than the tree
+  holds them are added back (``mamba_leaf_bytes``, ``rwkv_leaf_bytes``);
 - on the gather read path the engine's ``attn_tokens_read`` equals decode
   ticks x slots x ``serve_attn_read_span`` exactly, dense and paged, and
   ``attn_read_bytes`` is that times ``serve_attn_bytes_per_row(cfg, 1)``.
@@ -16,11 +21,13 @@ import pytest
 
 from repro.configs import get_config as jget_config
 from repro.configs import get_reduced as jget_reduced
+from repro.configs.shapes import ShapeSpec
 from repro.launch import costmodel as jcm
 from repro_torch.configs import get_config, get_reduced, list_archs
 from repro_torch.core.anchor import make_anchor, materialize
 from repro_torch.core.qat import QATConfig
 from repro_torch.launch import costmodel as cm
+from repro_torch.models import get_model
 from repro_torch.models.transformer import init_params, make_model
 from repro_torch.serve.engine import ElasticEngine, Request
 from repro_torch.serve.packed_params import (make_packed_params,
@@ -62,6 +69,48 @@ def test_serve_terms_equal_the_reference(arch, width):
         cm.serve_roofline_terms(cfg, FMTS, max_len=64, n_model=0)
 
 
+@pytest.mark.parametrize("width", ["reduced", "full"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "seamless-m4t-large-v2",
+                                  "jamba-1.5-large-398b", "qwen3-4b"])
+def test_family_terms_equal_the_reference(arch, width):
+    """``stack_macs_per_token``, ``mixer_state_macs`` and the state term of
+    ``hbm_decode`` (its total less the weight and KV terms, on a one-chip
+    mesh) equal the reference's."""
+    cfg, jcfg = _pair(arch, width)
+    for active in (True, False):
+        assert cm.stack_macs_per_token(cfg, active) == \
+            jcm.stack_macs_per_token(jcfg, active)
+    for s, b in ((1, 1), (1, 128), (4096, 8)):
+        assert cm.mixer_state_macs(cfg, s, b) == \
+            jcm.mixer_state_macs(jcfg, s, b)
+    mesh = jcm.MeshDesc(pod=1, data=1, model=1)
+    for b in (1, 128):
+        shape = ShapeSpec("d", 4096, b, "decode")
+        weights = jcm.active_params(jcfg) * 16 / 8
+        kv = 2 * jcm._attn_layers(jcfg) * jcfg.n_kv_heads * jcfg.hd \
+            * 4096 * 2 * b
+        state = jcm.hbm_decode(jcfg, shape, mesh) - weights - kv
+        assert cm.decode_state_bytes(cfg, b) == pytest.approx(
+            state, rel=1e-9, abs=1e-3)
+    assert (cm.decode_state_bytes(cfg, 1) > 0) == \
+        (cfg.family in ("ssm", "hybrid"))
+
+
+def test_rwkv_leaf_bytes_count_the_packed_mix_leaves_at_32_layers():
+    """At 32 layers the lerp vectors are packed (codes and scales), below
+    that raw; the residue is 0 at bf16 and for other families."""
+    d = 64                                      # reduced: f32, 2 layers
+    assert cm.rwkv_leaf_bytes(get_reduced("rwkv6-7b"), "mxint8") == \
+        pytest.approx(2 * (2 * d * 64 * (4 - 1 - 1 / 32) + 3 * d * 4
+                           + 7 * d * 4))
+    big = get_config("rwkv6-7b")                # bf16, 32 layers
+    assert cm.rwkv_leaf_bytes(big, "mxint8") == pytest.approx(
+        32 * (2 * 4096 * 64 * (2 - 1 - 1 / 32) + 3 * 4096 * 2
+              + 7 * 4096 * (1 + 1 / 32)))
+    assert cm.rwkv_leaf_bytes(big, "bf16") == 0.0
+    assert cm.rwkv_leaf_bytes(get_config("qwen3-4b"), "mxint8") == 0.0
+
+
 def _engine(arch, **kw):
     cfg = get_reduced(arch)
     params = init_params(cfg, 0, device="cpu")
@@ -72,14 +121,15 @@ def _engine(arch, **kw):
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_weight_stream_bytes_match_packed_trees(arch):
-    """The engine's cached trees; for llava, which the engine refuses
-    (ROADMAP C.10), the same packed trees built directly. A hybrid stack's
-    Mamba leaves the reference's term leaves out are added back
-    (``mamba_leaf_bytes``)."""
+    """The engine's cached trees; for llava and seamless, which the engine
+    refuses (ROADMAP C.10, C.12), the same packed trees built directly. A
+    hybrid stack's Mamba leaves and an RWKV stack's raw leaves the
+    reference's term counts otherwise are added back (``mamba_leaf_bytes``,
+    ``rwkv_leaf_bytes``)."""
     fmts = ("mxint4", "mxint6", "mxint8", "bf16")
-    if get_reduced(arch).vision_tokens:
-        cfg = get_reduced(arch)
-        anchor = make_anchor(init_params(cfg, 0, device="cpu"),
+    cfg = get_reduced(arch)
+    if cfg.vision_tokens or cfg.family == "encdec":
+        anchor = make_anchor(get_model(cfg).init_params(0, device="cpu"),
                              QATConfig(anchor="mxint8"), device="cpu")
         measured = {f: weight_stream_bytes(
             materialize(anchor, cfg.compute_dtype) if f == "bf16" else
@@ -92,7 +142,8 @@ def test_weight_stream_bytes_match_packed_trees(arch):
         measured = eng.stats()["weight_bytes"]
     for fmt in fmts:
         analytic = cm.serve_weight_stream_bytes(cfg, fmt, block_size=32) \
-            + cm.mamba_leaf_bytes(cfg, fmt, block_size=32)
+            + cm.mamba_leaf_bytes(cfg, fmt, block_size=32) \
+            + cm.rwkv_leaf_bytes(cfg, fmt, block_size=32)
         assert analytic == pytest.approx(measured[fmt], rel=0.02), \
             (fmt, analytic, measured[fmt])
     assert measured["mxint4"] < measured["mxint8"] < measured["bf16"]

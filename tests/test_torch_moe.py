@@ -187,7 +187,7 @@ def test_planted_ties_keep_the_lower_index_first(cf):
 # =============================================================================
 def test_configs_match_the_reference():
     assert {"mixtral-8x7b", "mixtral-8x22b"} <= set(list_archs())
-    assert len(list_archs()) == 8
+    assert len(list_archs()) == 10
     for arch in ARCHS:
         for get, jget in ((get_config, jget_config),
                           (get_reduced, jreduced)):

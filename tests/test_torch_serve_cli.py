@@ -2,11 +2,14 @@
 package's (``repro/launch/serve.py``).
 
 The JAX CLI's ``main()`` writes an MXINT8 anchor of a reduced smollm-135m
-(and of a reduced mixtral-8x7b, the MoE family) and serves it; the port's ``main()`` (argv patched, in-process, on the CPU)
-serves the same directory with the same flags. The printed ``req`` lines
-must be equal: the same prompts (numpy's seed 0), the same greedy streams
-at mxint8 and mxint4. ``--no-reduced`` is accepted (the reference's
-``--reduced`` cannot be turned off).
+(and of a reduced mixtral-8x7b, the MoE family, and of a reduced rwkv6-7b,
+served unbucketed) and serves it; the port's ``main()`` (argv patched,
+in-process, on the CPU) serves the same directory with the same flags. The
+printed ``req`` lines must be equal: the same prompts (numpy's seed 0),
+the same greedy streams at mxint8 and mxint4. ``--no-reduced`` is accepted
+(the reference's ``--reduced`` cannot be turned off). seamless-m4t-large-v2
+is refused with the engine's ROADMAP C.12 error, where the JAX CLI fails
+at its first admission with ``KeyError: 'frame_embeds'``.
 """
 import sys
 
@@ -48,6 +51,23 @@ def test_moe_req_lines_equal_the_jax_cli(fmt, tmp_path, capsys,
                                          monkeypatch):
     """The same with ``--arch mixtral-8x7b``: the MoE family."""
     _req_lines_equal("mixtral-8x7b", fmt, tmp_path, capsys, monkeypatch)
+
+
+@pytest.mark.parametrize("fmt", ["mxint8", "mxint4"])
+def test_rwkv_req_lines_equal_the_jax_cli(fmt, tmp_path, capsys,
+                                          monkeypatch):
+    """The same with ``--arch rwkv6-7b``: the RWKV family."""
+    _req_lines_equal("rwkv6-7b", fmt, tmp_path, capsys, monkeypatch)
+
+
+def test_encdec_is_refused(capsys, monkeypatch):
+    argv = ["--arch", "seamless-m4t-large-v2", "--requests", "2",
+            "--max-new", "2"]
+    monkeypatch.setattr(sys, "argv", ["serve"] + argv)
+    with pytest.raises(KeyError, match="frame_embeds"):
+        jserve.main()
+    with pytest.raises(ValueError, match="C.12"):
+        serve.main(argv + ["--device", "cpu"])
 
 
 def test_makes_saves_and_reloads_its_own_anchor(tmp_path, capsys):
