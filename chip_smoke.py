@@ -14,6 +14,7 @@ check them.
     python3 chip_smoke.py --hybrid-only
     python3 chip_smoke.py --rwkv-only
     python3 chip_smoke.py --encdec-only
+    python3 chip_smoke.py --eval-only
     python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
@@ -21,7 +22,8 @@ check them.
 1, 2, 3b, 13 and 14, ``--moe-only`` phases 1, 2 and 15,
 ``--train-long-only`` phases 1, 2 and 16, ``--vlm-only`` phases 1, 2 and
 17, ``--hybrid-only`` phases 1, 2 and 18, ``--rwkv-only`` phases 1, 2 and
-19, ``--encdec-only`` phases 1, 2 and 20, ``--train-only`` phases 1 and 2
+19, ``--encdec-only`` phases 1, 2 and 20, ``--eval-only`` phases 1, 2 and
+21, ``--train-only`` phases 1 and 2
 and then phase 6's smollm-135m runs A and B, each step split into its
 parts (with ``--src``, another tree's, for a same-call A/B of the training
 step), ``--serve-only`` phases 1 and 2 and then greedy
@@ -129,7 +131,7 @@ Phases (any failure exits non-zero before the result line):
      one escalation, mxint4 -> mxint6 (captured mid-wave), with the tokens
      before the fault equal to the clean wave's, and the eager twin
      escalating the same way to the same streams;
-  9. paged serving, always at all 36 layers: ElasticEngine(kv_layout=
+  9. paged serving, at phase 8's depth: ElasticEngine(kv_layout=
      "paged", kv_page_size=16, prefill_chunk=64) — the mixed scheduler,
      every attention read through B3/B4, decode and mixed ticks as CUDA
      graphs — serves the same 8 requests at mxint8 and mxint4; launch
@@ -269,7 +271,33 @@ Phases (any failure exits non-zero before the result line):
      the densify contract in f32 (bf16 reported); prefill ms per request,
      the eager step; then MF-QAT forward + backward of the whole model at
      batch 4 x 512 tokens over 2048 frames: ms, peak, finite loss and
-     gradients.
+     gradients;
+ 21. the paper's evaluation path: B1 at mxfp6 and mxfp4 at every
+     smollm-135m and qwen3-4b projection shape at M = 4 and 256, held
+     against the plain version (phase 3's tolerance) and timed beside
+     torch's bf16 matmul and the bound, no B2 launch; then Fig. 4's
+     protocol on smollm-135m at full width and depth through
+     ``train/harness.py`` (HarnessConfig(reduced=False): EVAL_EXAMPLES of
+     the reference's 128 examples, seq 64, batch 8, one epoch per format,
+     lr 5e-4, from a base pretrained EVAL_PRETRAIN_STEPS of its 600 steps
+     at lr 2e-3, batch 16; flash_vjp and remat on): plain multi-format
+     MXINT 2/4/6/8, interleaved with an mxint8 anchor, plain multi-format
+     MXFP 4/6/8, interleaved with an mxfp8 anchor, each with its step ms (CUDA events), losses and B5 / B6 / B7
+     launches per step as the structure predicts; held-out PPL at mxint2-8
+     and mxfp4-8, by PTQ (plain) and by anchor + Slice-and-Scale
+     (anchored), and the FP base's: the Fig. 4 table with its rel_gap,
+     every value finite, PTQ at mxint8 / mxfp8 equal to the anchor route
+     within 1e-6 (the same weight values), the plain MXINT variant's
+     held-out accuracy; then the mxfp8-anchored weights -> make_anchor (B6)
+     -> save_anchor / load_anchor -> the dense graph engine with the MXFP
+     ladder (B5 builds mxfp6 / mxfp4) serving 8 greedy requests at mxfp8,
+     mxfp6 and mxfp4 as in 13 (7 B1 launches per layer per executable, no
+     B2).
+``--layers N`` serves qwen3-4b at N of its 36 layers in phases 8a-12 and
+in the modes that run them alone; the default is all 36.
+The training phases (6, 16-21) and the llava and seamless prefills print
+``launch/costmodel.py::roofline``'s bound for one H100 beside each
+measured time, at the depth, width, batch and sequence the phase runs.
 The last two lines of standard output are the kernels' JSON record and
 {"ok": true, "device": {...}}.
 """
@@ -380,6 +408,20 @@ RWKV_TRAIN_SEQS = (2048, 8192)
 ENCDEC = ("seamless-m4t-large-v2",)
 ENCDEC_REQ, ENCDEC_FRAMES, ENCDEC_STEPS = 4, 1024, 16
 ENCDEC_TRAIN = (4, 512, 2048)
+# The evaluation phase (21): B1 at the MXFP rungs the serving path had not
+# run, at smollm-135m's and qwen3-4b's projection shapes; Fig. 4's protocol
+# on smollm-135m at full width and depth (train/harness.py, the reference's
+# defaults but the base's pretraining steps and the fine-tuning pool's size,
+# cut to what the phase's gates need: every format trained, the launches per
+# step, PTQ = the anchor route, the MXFP rungs served), then its
+# mxfp8-anchored weights served down the MXFP ladder. A quality cell of the
+# protocol needs the reference's sizes and a run of its own.
+EVAL_ARCHS = ("smollm-135m", "qwen3-4b")
+EVAL_CASES = (("mx_matmul", "mxfp6"), ("mx_matmul", "mxfp4"))
+EVAL_PRETRAIN_STEPS = 32      # of the reference's 600
+EVAL_EXAMPLES = 32            # of its 128: 4 steps a format at batch 8
+MXFP_LADDER = ((32, "mxfp4"), (8, "mxfp6"), (0, "mxfp8"))
+PPL_ID_TOL = 1e-6      # PTQ at the anchor format vs the anchor route, rel.
 _SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
 
@@ -415,6 +457,22 @@ def cuda_time_ms(fn, n_iter: int) -> float:
     ms = start.elapsed_time(end) / n_iter
     del graph
     return ms
+
+
+def _bound(cfg, kind: str, seq: int, batch: int, ms: float) -> str:
+    """The least time one H100 could take for the entry point ``kind``
+    ("train" or "prefill") of ``cfg`` (at the depth and width the phase
+    runs) on ``batch`` sequences of ``seq`` tokens:
+    ``launch/costmodel.py::roofline(cfg, ShapeSpec, MeshDesc(1, 1, 1))``'s
+    ``step_time_lower_bound``, beside a measured ``ms`` and the share of
+    the bound it reaches (bound / measured)."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.costmodel import MeshDesc, roofline
+    r = roofline(cfg, ShapeSpec(kind, seq, batch, kind), MeshDesc(1, 1, 1))
+    b = 1e3 * r["step_time_lower_bound"]
+    return (f"roofline bound {b:.3f} ms ({r['dominant']}, {kind} {batch} x "
+            f"{seq}, one H100) against {ms:.2f} ms measured: "
+            f"{100 * b / ms:.2f}% of the bound")
 
 
 # ---------------------------------------------------------------------------
@@ -1488,7 +1546,8 @@ def _train(label, cfg, qat, schedule, steps, seed, seq=TRAIN_SEQ,
     log(f"{label}: {cfg.name} layers={cfg.n_layers} d={cfg.d_model} "
         f"seq {seq} x batch {batch}; step ms {np.round(ms, 2)}; "
         f"steady-state mean {np.mean(ms[1:]):.2f} ms; peak allocated "
-        f"{peak:.2f} GB; launches {counts} (want {want})")
+        f"{peak:.2f} GB; launches {counts} (want {want}); "
+        + _bound(cfg, "train", seq, batch, float(np.mean(ms[1:]))))
     if not all(np.isfinite([h["loss"] for h in hist] +
                            [h["grad_norm"] for h in hist])):
         fail(f"{label}: a loss or grad norm is not finite")
@@ -1753,9 +1812,8 @@ def qwen3_4b(n_layers: int):
     from repro_torch.configs import get_config
     cfg = get_config("qwen3-4b")
     if n_layers != cfg.n_layers:
-        log(f"DEPTH CUT: the dense serving phase runs {n_layers} of "
-            f"{cfg.n_layers} layers (widths unchanged); the paged phase "
-            "runs all of them")
+        log(f"DEPTH CUT: qwen3-4b runs {n_layers} of {cfg.n_layers} layers "
+            "(widths unchanged)")
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg
 
@@ -3033,9 +3091,9 @@ def phase_preemption(peng, cfg, seed: int):
     return counts
 
 
-def phase_serve_walls(seed: int):
+def phase_serve_walls(seed: int, n_layers: int):
     """Greedy graph ticks for a same-call A/B of two trees: the dense and
-    the paged (mixed scheduler) engine, qwen3-4b at 36 layers, 4 slots, at
+    the paged (mixed scheduler) engine, qwen3-4b at ``n_layers``, 4 slots, at
     mxint8 and mxint4; a capturing wave, then three timed waves; the
     median tick wall (and quartiles) per kind over the three, and a digest
     of the streams."""
@@ -3045,7 +3103,7 @@ def phase_serve_walls(seed: int):
     import torch
     from repro_torch.models.transformer import make_model
     from repro_torch.serve.engine import ElasticEngine
-    cfg = qwen3_4b(36)
+    cfg = qwen3_4b(n_layers)
     anchor = build_anchor(cfg, seed, save=False)
     api = make_model(cfg)
     layouts = {
@@ -3118,11 +3176,14 @@ def _per_layer(cfg) -> int:
     return total // cfg.scan_group
 
 
-def phase_family_kernels(seed: int, archs=FAMILY, ms_=FAMILY_MS):
-    """B1 (mxint8, mxfp8) and B2 (mxint4) at every projection shape of
-    ``archs`` (starcoder2-3b and qwen2-72b; the mixtral configs' attention
-    and expert shapes in phase 15), at each M of ``ms_`` (4: the decode
-    body; 256: the tiled body), held against their plain versions (the
+def phase_family_kernels(seed: int, archs=FAMILY, ms_=FAMILY_MS,
+                         cases=KERNEL_CASES):
+    """B1 (mxint8, mxfp8) and B2 (mxint4), or the (kernel, format)
+    ``cases``, at every projection shape of ``archs`` (starcoder2-3b and
+    qwen2-72b; the mixtral configs' attention and expert shapes in phase
+    15; mxfp6 and mxfp4 at smollm-135m's and qwen3-4b's in phase 21), at
+    each M of ``ms_`` (4: the decode body; 256: the tiled body), held
+    against their plain versions (the
     tolerance of phase 3) and timed beside the plain version, torch.matmul
     of the densified bf16 weight and the bound. Returns one record per
     case."""
@@ -3144,7 +3205,7 @@ def phase_family_kernels(seed: int, archs=FAMILY, ms_=FAMILY_MS):
     for arch in archs:
         for (k, n), mult in _proj_shapes(get_config(arch)).items():
             w = torch.randn((k, n), generator=gen, device=dev) * 0.02
-            for name, fname in KERNEL_CASES:
+            for name, fname in cases:
                 int4 = name == "mx_matmul_int4"
                 t = quantize(w, get_format(fname, 32), axis=0)
                 if int4:
@@ -3198,7 +3259,7 @@ def phase_family_kernels(seed: int, archs=FAMILY, ms_=FAMILY_MS):
             del w
             torch.cuda.empty_cache()
     for arch in archs:
-        for name, fname in KERNEL_CASES:
+        for name, fname in cases:
             for m in ms_:
                 sel = [r for r in rows if (r["arch"], r["kernel"],
                                            r["format"], r["M"])
@@ -3893,7 +3954,8 @@ def phase_train_long(seed: int):
             f"remat={rm!s:5s} step ms {np.round(ms, 2)} (last "
             f"{ms[-1]:.2f}), step peak {peak:.2f} GB; forward + backward "
             f"{fb_ms:.2f} ms, its peak {rise:.2f} GB above the weights "
-            "(activations and gradients)")
+            "(activations and gradients); the step's "
+            + _bound(qwen, "train", seq, 1, fb_ms))
     h, hkv = qwen.n_heads, qwen.n_kv_heads
     log(f"qwen3-4b at seq {LONG_SEQ} with both levers off is not run: "
         f"autograd through prefill_attention keeps f32 (B, H, S, S) "
@@ -3912,7 +3974,8 @@ def phase_train_long(seed: int):
     log(f"qwen3-4b depth 4 seq {LONG_SEQ} x 1: step ms {np.round(ms, 2)}, "
         f"step peak {peak:.2f} GB, losses "
         f"{[round(h_['loss'], 4) for h_ in hist]}; forward + backward "
-        f"{fb_ms:.2f} ms, its peak {rise:.2f} GB above the weights")
+        f"{fb_ms:.2f} ms, its peak {rise:.2f} GB above the weights; the "
+        "step's " + _bound(qwen, "train", LONG_SEQ, 1, fb_ms))
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3950,7 +4013,7 @@ def phase_train_long(seed: int):
         f"{[round(h_['loss'], 4) for h_ in hist]}, aux loss {aux:.6f}; B7 "
         f"fake-quantizes expert leaves of shape {shape}; forward + "
         f"backward {fb_ms:.2f} ms, its peak {rise:.2f} GB above the "
-        "weights")
+        "weights; the step's " + _bound(mix, "train", LONG_SEQ, 1, fb_ms))
     if not (math.isfinite(aux) and aux > 0 and math.isfinite(float(loss))):
         fail(f"mixtral-8x7b training: aux loss {aux}, loss {float(loss)}")
     del state, api
@@ -4182,6 +4245,10 @@ def phase_vlm(seed: int):
                 f"max|kernel - densify| {err[0]:.4g} of max|densify| "
                 f"{err[1]:.4g}; peak allocated "
                 f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            for b, m in zip(batches, pre_ms):
+                log(f"llava {fmt} {layout} prefill of "
+                    f"{cfg.vision_tokens} + {b['tokens'].shape[1]}: "
+                    + _bound(cfg, "prefill", b["tokens"].shape[1], 1, m))
         agree = sum(a == b for x, y in zip(streams["dense"], streams["paged"])
                     for a, b in zip(x, y))
         total = sum(len(x) for x in streams["dense"])
@@ -4282,7 +4349,8 @@ def phase_vlm(seed: int):
         f"{[round(r[0], 1) for r in rows]} ms (CUDA events; the first "
         f"warms up), peak {[round(r[1], 2) for r in rows]} GB above the "
         f"weights, loss {rows[-1][2]:.4f}, loss and gradients finite; B7 "
-        f"launches {counts['fake_quant']} (7 stacked leaves per call)")
+        f"launches {counts['fake_quant']} (7 stacked leaves per call); the "
+        "step's " + _bound(tcfg, "train", VLM_TRAIN_TEXT, 1, rows[-1][0]))
     del tree, leaves, params, flat, tapi
     gc.collect()
     torch.cuda.empty_cache()
@@ -4526,7 +4594,7 @@ def phase_hybrid(seed: int):
         longest = seq
         log(f"jamba layer 2 MF-QAT train_loss forward + backward, seq {seq} "
             f"x 1: {fb_ms:.1f} ms (CUDA events), peak {rise:.2f} GB above "
-            "the weights")
+            "the weights; the step's " + _bound(tcfg, "train", seq, 1, fb_ms))
     counts = _quant_launches()
     log(f"jamba training: the longest sequence that runs is {longest}; B7 "
         f"launches {counts['fake_quant']}")
@@ -4656,7 +4724,8 @@ def phase_rwkv(seed: int):
         longest = seq
         log(f"rwkv6-7b depth {RWKV_TRAIN_LAYERS} MF-QAT train_loss "
             f"(mxint4) forward + backward, seq {seq} x 1: {fb_ms:.1f} ms "
-            f"(CUDA events), peak {rise:.2f} GB above the weights")
+            f"(CUDA events), peak {rise:.2f} GB above the weights; the "
+            "step's " + _bound(tcfg, "train", seq, 1, fb_ms))
     counts = _quant_launches()
     log(f"rwkv6-7b training: the longest sequence tried that trains is "
         f"{longest} (of {RWKV_TRAIN_SEQS}); B7 launches "
@@ -4840,6 +4909,11 @@ def phase_encdec(seed: int):
             f" n {len(walls)}, eager); launches per prefill {pre_l[0]}, per "
             f"step {step_l[0]}; {sum(len(x) for x in streams)} tokens; peak "
             f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        for b, m in zip(batches, pre_ms):
+            # the term counts seq // audio_downsample encoder frames, fewer
+            # than the ENCDEC_FRAMES run: a looser bound
+            log(f"seamless {fmt} prefill of {b['tokens'].shape[1]} tokens: "
+                + _bound(cfg, "prefill", b["tokens"].shape[1], 1, m))
         del cache
         torch.cuda.empty_cache()
     # the contracts, bf16 reported and f32 gated (launches made to
@@ -4910,11 +4984,238 @@ def phase_encdec(seed: int):
         f"{[round(r[0], 1) for r in rows]} ms (CUDA events; the first warms "
         f"up), peak {[round(r[1], 2) for r in rows]} GB above the weights, "
         f"loss {rows[-1][2]:.4f}, loss and gradients finite; B7 launches "
-        f"{counts['fake_quant']} ({n_q} stacked leaves per call)")
+        f"{counts['fake_quant']} ({n_q} stacked leaves per call); the step's "
+        + _bound(cfg, "train", ntok, bsz, rows[-1][0])
+        + f" (the term counts {ntok} // {cfg.audio_downsample} encoder "
+        f"frames of the {nfr} run)")
     del tree, leaves, params, flat, tapi
     gc.collect()
     torch.cuda.empty_cache()
     return totals
+
+
+def _eval_launches(hc, anchored_api: bool, fmt, ss: bool, leaves: int):
+    """B5 / B6 / B7 launches of one ``eval_ppl``: PTQ fake-quantizes each
+    projection leaf once (B7); the anchor route quantizes each to the
+    anchor (B6) and converts it unless the format is the anchor's (B5); an
+    anchored variant's api runs its anchor fake-quant in every eval batch's
+    forward (``train_loss(..., None)``: B6 per leaf)."""
+    anchor = hc.anchor or ("mxint8" if fmt.startswith("mxint") else "mxfp8")
+    per_batch = leaves * hc.n_eval_batches if anchored_api else 0
+    if ss:
+        return {"fake_quant": 0, "mx_quantize": leaves + per_batch,
+                "ss_convert": 0 if fmt == anchor else leaves}
+    return {"fake_quant": leaves, "mx_quantize": per_batch, "ss_convert": 0}
+
+
+def phase_eval(seed: int):
+    """Phase 21: (a) B1 at mxfp6 / mxfp4 at smollm-135m's and qwen3-4b's
+    projection shapes, M 4 and 256, against the plain version (no B2
+    launch); (b) Fig. 4's protocol on smollm-135m at full width and depth
+    through ``train/harness.py`` (the harness's defaults but
+    EVAL_PRETRAIN_STEPS and EVAL_EXAMPLES: a pretrained base, then plain
+    multi-format MXINT, interleaved with an mxint8 anchor, plain
+    multi-format MXFP, interleaved with an mxfp8 anchor):
+    step ms (CUDA events), losses, B5 / B6 / B7 launches per step as the
+    structure predicts; (c) held-out PPL at every format of EVAL_MXINT /
+    EVAL_MXFP, by PTQ for the plain variants and by anchor + Slice-and-
+    Scale for the anchored ones, the FP base's, the Fig. 4 table with its
+    rel_gap, the plain MXINT variant's accuracy; gates: every value finite,
+    PTQ at the anchor format equal to the anchor route within PPL_ID_TOL
+    (mxint8, mxfp8); (d) the mxfp8-anchored weights -> make_anchor (B6) ->
+    save_anchor / load_anchor -> the dense graph engine with the MXFP
+    ladder, 8 greedy requests at mxfp8, mxfp6 and mxfp4 (``_dense_waves``).
+    Returns (the main path's launches of B1 and B5-B7, the kernel rows of
+    (a))."""
+    import dataclasses
+
+    import torch
+    from repro_torch.checkpoint.anchor_ckpt import load_anchor, save_anchor
+    from repro_torch.core.anchor import make_anchor
+    from repro_torch.core.formats import TRAIN_FORMATS_MXFP, \
+        TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+    from repro_torch.serve.policy import FormatPolicy
+    from repro_torch.train import harness as H
+    from repro_torch.train.loop import make_schedule
+
+    t_phase = time.perf_counter()
+    b2 = mx_matmul.launches["mx_matmul_int4"]
+    rows = phase_family_kernels(seed, EVAL_ARCHS, FAMILY_MS, EVAL_CASES)
+    if mx_matmul.launches["mx_matmul_int4"] != b2:
+        fail("eval phase: B2 launched at an MXFP rung")
+    t_kernels = time.perf_counter() - t_phase
+
+    totals = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def timed(what, fn, want):
+        """``fn()`` between CUDA events, its B5-B7 launches held to
+        ``want``; (result, device ms)."""
+        _reset_quant_launches()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        counts = _quant_launches()
+        if counts != want:
+            fail(f"eval phase, {what}: launches {counts}, want {want}")
+        add(counts)
+        return out, start.elapsed_time(end)
+
+    base_hc = H.HarnessConfig(arch="smollm-135m", reduced=False,
+                              pretrain_steps=EVAL_PRETRAIN_STEPS,
+                              n_examples=EVAL_EXAMPLES, seed=seed)
+    cfg = base_hc.model_config()
+    leaves = _n_proj_leaves(cfg)
+    log(f"eval phase: Fig. 4's protocol on {cfg.name} at full width and "
+        f"depth ({cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab}, "
+        f"flash_vjp={cfg.flash_vjp}, remat={cfg.remat}); "
+        f"HarnessConfig(reduced=False): {base_hc.n_examples} examples, seq "
+        f"{base_hc.seq_len}, batch {base_hc.batch}, "
+        f"{base_hc.epochs_per_format} epoch per format, lr {base_hc.lr}; "
+        f"base pretrained {base_hc.pretrain_steps} steps at lr "
+        f"{base_hc.pretrain_lr}, batch 16")
+    log(f"SIZE CUT: the base pretrains {EVAL_PRETRAIN_STEPS} of the "
+        f"reference's 600 steps and fine-tunes on {EVAL_EXAMPLES} of its 128 "
+        "examples: the phase checks the path, not the paper's quality")
+    zero = {"fake_quant": 0, "mx_quantize": 0, "ss_convert": 0}
+    base, ms = timed("pretraining", lambda: H.pretrained_base(
+        base_hc, device="cuda"), zero)
+    per = ms / base_hc.pretrain_steps
+    log(f"pretraining: {base_hc.pretrain_steps} steps in {ms / 1e3:.2f} s, "
+        f"{per:.2f} ms per step (CUDA events over the run); "
+        + _bound(cfg, "train", base_hc.seq_len, 16, per))
+
+    variants = {}
+    for name, fmts, anchor, sched in (
+            ("MF-QAT MXINT", TRAIN_FORMATS_MXINT, None, "multiformat"),
+            ("MF-QAT MXINT + mxint8 anchor", TRAIN_FORMATS_MXINT, "mxint8",
+             "interleaved"),
+            ("MF-QAT MXFP", TRAIN_FORMATS_MXFP, None, "multiformat"),
+            ("MF-QAT MXFP + mxfp8 anchor", TRAIN_FORMATS_MXFP, "mxfp8",
+             "interleaved")):
+        hc = dataclasses.replace(base_hc, train_formats=fmts, anchor=anchor)
+        steps = H._build(hc, sched)[3]
+        order = make_schedule(sched, len(fmts), steps)
+        if anchor is None:
+            want = dict(zero, fake_quant=leaves * steps)
+        else:
+            moved = sum(fmts[int(i)] != anchor for i in order)
+            want = dict(zero, mx_quantize=leaves * steps,
+                        ss_convert=leaves * moved)
+        out, ms = timed(name, lambda: H.train_variant(hc, sched,
+                                                      device="cuda"), want)
+        losses = [h["loss"] for h in out["history"]]
+        if len(losses) != steps or not all(map(math.isfinite, losses)):
+            fail(f"eval phase, {name}: losses {losses}")
+        per = ms / steps
+        log(f"{name} ({sched}, {steps} steps, formats {fmts}): "
+            f"{per:.2f} ms per step (CUDA events over the run), losses "
+            f"{[round(x, 4) for x in losses]}; per step B7 "
+            f"{want['fake_quant'] / steps:g}, B6 "
+            f"{want['mx_quantize'] / steps:g}, B5 "
+            f"{want['ss_convert'] / steps:g} launches as the structure "
+            "predicts; " + _bound(cfg, "train", hc.seq_len, hc.batch, per))
+        variants[name] = (hc, out)
+
+    def ppl(name, fmt, ss=False):
+        hc, out = variants[name]
+        want = zero if fmt is None else _eval_launches(
+            hc, hc.anchor is not None, fmt, ss, leaves)
+        val, _ = timed(f"{name} eval {fmt}", lambda: H.eval_ppl(
+            out["cfg"], out["api"], out["params"], fmt, hc,
+            use_anchor_ss=ss), want)
+        if not math.isfinite(val):
+            fail(f"eval phase, {name} at {fmt}: PPL {val}")
+        return val
+
+    plain_int = variants["MF-QAT MXINT"]
+    fp_base, _ = timed("FP base eval", lambda: H.eval_ppl(
+        cfg, plain_int[1]["api"], base, None, base_hc), zero)
+    if not math.isfinite(fp_base):
+        fail(f"eval phase: the FP base's PPL {fp_base}")
+    log(f"FP base (pretrained, no quantization): held-out PPL {fp_base:.3f}")
+    worst = 0.0
+    table = {}
+    for kind, evals, plain, anchored in (
+            ("mxint", H.EVAL_MXINT, "MF-QAT MXINT",
+             "MF-QAT MXINT + mxint8 anchor"),
+            ("mxfp", H.EVAL_MXFP, "MF-QAT MXFP",
+             "MF-QAT MXFP + mxfp8 anchor")):
+        log(f"# fig4 {kind}: plain MF-QAT (PTQ) vs MF-QAT + anchor storage "
+            "+ SS; fmt,ppl_multiformat,ppl_anchor_ss,rel_gap")
+        for f in evals:
+            p_plain, p_ss = ppl(plain, f), ppl(anchored, f, ss=True)
+            gap = abs(p_ss - p_plain) / p_plain
+            worst = max(worst, gap)
+            table[f] = (p_plain, p_ss, gap)
+            log(f"{f},{p_plain:.3f},{p_ss:.3f},{gap:.4f}")
+        anchor = variants[anchored][0].anchor
+        p_ptq = ppl(anchored, anchor)
+        rel = abs(p_ptq - table[anchor][1]) / table[anchor][1]
+        log(f"{anchored}: PTQ at {anchor} {p_ptq!r} vs the anchor route "
+            f"{table[anchor][1]!r}: rel {rel:.3g} (limit {PPL_ID_TOL})")
+        if not rel <= PPL_ID_TOL:
+            fail(f"eval phase: PTQ at {anchor} differs from the anchor "
+                 f"route by {rel:.3g}")
+    log(f"fig4 worst rel_gap {worst:.4f}")
+    accs = []
+    for f in [None] + H.EVAL_MXINT:
+        a, _ = timed(f"accuracy {f}", lambda: H.eval_accuracy(
+            plain_int[1]["cfg"], plain_int[1]["api"], plain_int[1]["params"],
+            f, plain_int[0]), dict(zero, fake_quant=0 if f is None
+                                    else leaves))
+        if not 0.0 <= a <= 1.0:
+            fail(f"eval phase: accuracy {a} at {f}")
+        accs.append(a)
+    log("MF-QAT MXINT held-out next-token accuracy (Table 1-2 stand-in): "
+        + ", ".join(f"{f or 'fp'} {a:.4f}"
+                    for f, a in zip([None] + H.EVAL_MXINT, accs)))
+    t_train_eval = time.perf_counter() - t_phase - t_kernels
+
+    # (d) the mxfp8-anchored weights served down the MXFP ladder
+    t0 = time.perf_counter()
+    out = variants["MF-QAT MXFP + mxfp8 anchor"][1]
+    del variants, base, plain_int
+    _reset_quant_launches()
+    anchor = make_anchor(out["params"], QATConfig(anchor="mxfp8"),
+                         device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        nbytes = save_anchor(os.path.join(tmp, "anchor"), anchor)
+        del anchor
+        anchor = load_anchor(os.path.join(tmp, "anchor"), device="cuda")
+    del out
+    api = make_model(cfg)
+    eng = ElasticEngine(api, anchor, batch_slots=SLOTS, max_len=MAX_LEN,
+                        device="cuda", policy=FormatPolicy(
+                            anchor="mxfp8", ladder=MXFP_LADDER))
+    log(f"eval phase serving: the mxfp8-anchored variant's weights -> "
+        f"anchor {nbytes / 1e6:.1f} MB -> dense graph engine, ladder "
+        f"{MXFP_LADDER}")
+    for fmt in ("mxfp8", "mxfp6", "mxfp4"):
+        _dense_waves(cfg.name, cfg, api, eng, fmt, leaves, seed, totals)
+    counts = _quant_launches()
+    want = dict(zero, mx_quantize=leaves, ss_convert=2 * leaves)
+    if counts != want:
+        fail(f"eval phase serving: anchor and builds launched {counts}, "
+             f"want {want}")
+    add(counts)
+    del eng, anchor, api
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"eval phase: {time.perf_counter() - t_phase:.1f} s (B1 kernels "
+        f"{t_kernels:.1f} s, training and evaluation {t_train_eval:.1f} s, "
+        f"serving {time.perf_counter() - t0:.1f} s)")
+    return totals, rows
 
 
 def phase_cli(src: str):
@@ -4944,7 +5245,9 @@ def phase_cli(src: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--layers", type=int, default=36,
-                    help="qwen3-4b depth to serve (default: all 36)")
+                    help="qwen3-4b depth of the format build, serving, "
+                         "speculative, preemption and SLO phases (default: "
+                         "all 36)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="card, build and dequant-GEMM phases only; no "
@@ -4985,6 +5288,10 @@ def main() -> int:
                     help="card, build, B1/B2 at the seamless shapes and the "
                          "encoder-decoder phase (seamless served and "
                          "trained) only; no result line")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="card, build and the evaluation phase (B1 at "
+                         "mxfp6 / mxfp4, Fig. 4's protocol on smollm-135m, "
+                         "its mxfp8 anchor served) only; no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="card, build and smollm-135m training runs A and B "
                          "only, for a same-call A/B of two trees; no result "
@@ -5004,12 +5311,12 @@ def main() -> int:
     phase_card()
     phase_build()
     if args.serve_only:
-        phase_serve_walls(args.seed)
+        phase_serve_walls(args.seed, args.layers)
         log(f"greedy graph ticks only, {args.src}: "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
     if args.slo_only:
-        cfg = qwen3_4b(36)
+        cfg = qwen3_4b(args.layers)
         phase_slo(cfg, build_anchor(cfg, args.seed, save=False), args.seed)
         log(f"SLO phase only, {args.src}: "
             f"{time.perf_counter() - t_all:.1f} s")
@@ -5043,6 +5350,10 @@ def main() -> int:
         phase_encdec(args.seed)
         log(f"encdec only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
+    if args.eval_only:
+        phase_eval(args.seed)
+        log(f"eval only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
     if args.train_long_only:
         phase_train_long(args.seed)
         log(f"long-sequence training only, {args.src}: "
@@ -5057,18 +5368,30 @@ def main() -> int:
         return 0
     if args.quant_only:
         phase_quant_kernels(args.seed)
-        cfg = qwen3_4b(36)
+        cfg = qwen3_4b(args.layers)
         phase_format_build(cfg, build_anchor(cfg, args.seed, save=False))
         log(f"quantize kernels and format build only, {args.src}: "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
+    mark = [time.perf_counter()]
+
+    def lap(what: str) -> None:
+        """The wall seconds since the last lap: where the script's time
+        goes, against its time limit."""
+        now = time.perf_counter()
+        log(f"wall: {what} {now - mark[0]:.1f} s (total {now - t_all:.1f})")
+        mark[0] = now
+
     agg = phase_kernels(args.seed)
     family_rows = phase_family_kernels(args.seed)
+    lap("dequant-GEMM kernels")
     if args.kernels_only:
         log(f"kernels only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
     paged_rec = phase_paged_kernels(args.seed)
+    lap("paged-attention kernels")
     quant_rec = phase_quant_kernels(args.seed)
+    lap("quantize kernels")
     # B5 / B6 / B7 launches: the sum over every run of the main path, each
     # read from counts set to 0 just before it
     quant_launches = {k: 0 for k in quant_rec}
@@ -5081,8 +5404,9 @@ def main() -> int:
     add(counts)
     add(phase_pipeline(train_cfg, trained, args.seed))
     del trained
+    lap("training and pipeline")
     torch.cuda.empty_cache()
-    cfg = qwen3_4b(36)
+    cfg = qwen3_4b(args.layers)
     _reset_quant_launches()
     anchor = build_anchor(cfg, args.seed)
     counts = _quant_launches()
@@ -5091,18 +5415,12 @@ def main() -> int:
         fail(f"qwen3-4b make_anchor: kernel launches {counts}")
     add(counts)
     add(phase_format_build(cfg, anchor))
+    lap("qwen3-4b anchor and format build")
     _reset_quant_launches()
     _draw_cost(args.seed)
-    if args.layers != cfg.n_layers:
-        dense_cfg = qwen3_4b(args.layers)
-        launches, dense_streams, dense_eng = phase_serving(
-            dense_cfg, build_anchor(dense_cfg, args.seed), args.seed)
-        streams = None
-    else:
-        dense_cfg = cfg
-        launches, streams, dense_eng = phase_serving(cfg, anchor, args.seed)
-        dense_streams = streams
+    launches, streams, dense_eng = phase_serving(cfg, anchor, args.seed)
     torch.cuda.empty_cache()
+    lap("dense serving")
     # B1/B2 launches: the dense waves' and the paged waves' (prefill chunks,
     # mixed and pure decode ticks), greedy, sampled, chaos, speculative and
     # resumed; B3/B4: the paged waves'
@@ -5110,27 +5428,27 @@ def main() -> int:
                                                           args.seed, streams)
     for k, v in paged.items():
         launches[k] = launches.get(k, 0) + v
-    for phase_cfg, label, eng, plain in (
-            (dense_cfg, "dense", dense_eng, dense_streams["mxint8"]),
-            (cfg, "paged", paged_eng, paged_streams["mxint8"])):
-        for k, v in phase_speculative(label, eng, phase_cfg, args.seed,
+    lap("paged serving and chaos")
+    for label, eng, plain in (("dense", dense_eng, streams["mxint8"]),
+                              ("paged", paged_eng, paged_streams["mxint8"])):
+        for k, v in phase_speculative(label, eng, cfg, args.seed,
                                       plain).items():
             launches[k] = launches.get(k, 0) + v
+    lap("speculative")
     for k, v in phase_preemption(paged_eng, cfg, args.seed).items():
         launches[k] = launches.get(k, 0) + v
+    lap("preemption")
     del dense_eng, paged_eng
     torch.cuda.empty_cache()
     counts = _quant_launches()
-    # make_anchor of the dense phase's own anchor when it is cut in depth (7
-    # leaves, one B6 launch each); five format builds — the dense phase's
-    # fused, unfused and poisoned engines at mxint4, the poisoned one's
-    # mxint6 and the paged engine's mxint4 — one B5 launch per leaf each
-    # (the sampling, chaos, speculative and preemption engines serve their
-    # phase engine's trees, and chaos wave B no longer escalates); the
-    # mxint8 builds are the anchor itself and launch nothing
-    n_anchors = 0 if args.layers == cfg.n_layers else 1
-    want = {"mx_quantize": PROJ_PER_LAYER * n_anchors,
-            "ss_convert": PROJ_PER_LAYER * 5, "fake_quant": 0}
+    # five format builds — the dense phase's fused, unfused and poisoned
+    # engines at mxint4, the poisoned one's mxint6 and the paged engine's
+    # mxint4 — one B5 launch per leaf each (the sampling, chaos,
+    # speculative and preemption engines serve their phase engine's trees,
+    # and chaos wave B no longer escalates); the mxint8 builds are the
+    # anchor itself and launch nothing
+    want = {"mx_quantize": 0, "ss_convert": PROJ_PER_LAYER * 5,
+            "fake_quant": 0}
     log(f"qwen3-4b serving phases (every format build): "
         f"launches {counts} (want {want})")
     if counts != want:
@@ -5143,6 +5461,7 @@ def main() -> int:
             quant_launches[k] += v
         else:
             launches[k] = launches.get(k, 0) + v
+    lap("SLO")
     del anchor
     gc.collect()        # what deleted engines may still hold, before the
     #                     family's anchors (the largest of the run)
@@ -5152,13 +5471,16 @@ def main() -> int:
             quant_launches[k] += v
         else:
             launches[k] = launches.get(k, 0) + v
+    lap("dense family")
     phase_cli(args.src)
+    lap("CLI")
     # the MoE family, long-sequence training, llava, jamba, rwkv6-7b and
     # seamless; each phase reads its counts from 0
     moe_rows = phase_family_kernels(args.seed, MOE, MOE_MS)
     hybrid_rows = phase_family_kernels(args.seed, HYBRID, HYBRID_MS)
     rwkv_rows = phase_family_kernels(args.seed, RWKV, FAMILY_MS)
     encdec_rows = phase_family_kernels(args.seed, ENCDEC, FAMILY_MS)
+    lap("B1/B2 at the other families' shapes")
     for phase in (phase_moe_serving, phase_train_long, phase_vlm,
                   phase_hybrid, phase_rwkv, phase_encdec):
         for k, v in phase(args.seed).items():
@@ -5166,6 +5488,15 @@ def main() -> int:
                 quant_launches[k] += v
             else:
                 launches[k] = launches.get(k, 0) + v
+        lap(phase.__name__)
+    # the evaluation path: Fig. 4's protocol and the MXFP rungs served
+    counts, eval_rows = phase_eval(args.seed)
+    for k, v in counts.items():
+        if k in quant_launches:
+            quant_launches[k] += v
+        else:
+            launches[k] = launches.get(k, 0) + v
+    lap("phase_eval")
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5197,6 +5528,7 @@ def main() -> int:
             "rwkv_shapes": [r for r in rwkv_rows if r["kernel"] == name],
             "encdec_shapes": [r for r in encdec_rows
                               if r["kernel"] == name],
+            "mxfp_shapes": [r for r in eval_rows if r["kernel"] == name],
         })
     for name, a in paged_rec.items():
         kernels.append({

@@ -66,3 +66,9 @@ def slice_and_scale(t: MXTensor, low: MXFormat) -> MXTensor:
     if t.fmt.kind == "int":
         return ss_mxint(t, low)
     return ss_mxfp(t, low)
+
+
+def ss_quantize_dequantize(t: MXTensor, low: MXFormat, dtype=torch.float32):
+    """dequantize(slice_and_scale(t, low)) — runtime target weights W_t."""
+    from repro_torch.core.mx import dequantize
+    return dequantize(slice_and_scale(t, low), dtype=dtype)

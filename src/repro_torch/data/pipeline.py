@@ -8,7 +8,7 @@ each data-parallel host slices its own rows (no global shuffle state).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -49,3 +49,20 @@ class LMDataset:
             "tokens": seqs[:, :-1].astype(np.int32),
             "labels": seqs[:, 1:].astype(np.int32),
         }
+
+    def epoch_steps(self) -> int:
+        if self._pool is None:
+            raise ValueError("infinite dataset has no epochs")
+        return max(1, self._pool.shape[0] // self.cfg.global_batch)
+
+    def iter_from(self, step: int) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield self.batch_at(step)
+            step += 1
+
+
+def eval_batches(cfg: DataConfig, n_batches: int, offset: int = 10 ** 6):
+    """Held-out eval split: the SAME generating process (same seed/table),
+    a disjoint far-offset stream region (cheap: chunks seek in O(1))."""
+    ds = LMDataset(dataclasses.replace(cfg, n_examples=None))
+    return [ds.batch_at(offset + i) for i in range(n_batches)]

@@ -7,7 +7,8 @@ loss drops well below the unigram entropy: next-token logits follow a
 per-state transition row (few successors per token) plus periodic copy
 motifs. The stream is generated in self-contained 64k chunks — chunk i is a
 pure function of (config, i) — so any absolute position is seekable in
-O(needed chunks), which the resumable pipeline relies on.
+O(needed chunks), which the resumable pipeline and far-offset eval splits
+rely on.
 """
 from __future__ import annotations
 
@@ -67,3 +68,13 @@ def make_tokens(cfg: SyntheticConfig, n: int, start: int = 0) -> np.ndarray:
         hi = min(start + n, (ci + 1) * CHUNK)
         out[lo - start:hi - start] = buf[lo - ci * CHUNK:hi - ci * CHUNK]
     return out
+
+
+def token_stream(cfg: SyntheticConfig, start: int = 0):
+    """Iterator view (kept for API compatibility)."""
+    pos = start
+    while True:
+        chunk = make_tokens(cfg, CHUNK - (pos % CHUNK), pos)
+        for t in chunk:
+            yield int(t)
+        pos += len(chunk)

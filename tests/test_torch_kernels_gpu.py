@@ -54,7 +54,8 @@ def _close(got, want):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
 
 
-@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp4"])
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp6",
+                                  "mxfp4"])
 @pytest.mark.parametrize("mkn", SHAPES)
 def test_mx_matmul_matches_plain(name, mkn):
     dev = _card()
@@ -110,7 +111,8 @@ def _b2(x, leaf, fmt):
     return mx_matmul.mx_matmul_int4(x, leaf.packed, leaf.scale_exp, fmt)
 
 
-@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp4"])
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp6",
+                                  "mxfp4"])
 @pytest.mark.parametrize("kn", QWEN_KN)
 @pytest.mark.parametrize("m", [1, 4, 16, 17])
 def test_mx_matmul_decode_shapes_match_plain(m, kn, name):
@@ -175,7 +177,8 @@ def test_decode_body_bit_identical_eager_and_in_a_cuda_graph(kn, case):
 
 # B1 / B2 tiled body (M > 16): the prefill buckets, the mixed tick's live
 # tokens (67: 3 decode rows and a 64-token chunk, ragged) and its M = 256.
-@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp4"])
+@pytest.mark.parametrize("name", ["mxint8", "mxfp8", "mxint6", "mxfp6",
+                                  "mxfp4"])
 @pytest.mark.parametrize("kn", QWEN_KN)
 @pytest.mark.parametrize("m", [32, 67, 128, 256])
 def test_mx_matmul_tiled_shapes_match_plain(m, kn, name):

@@ -22,7 +22,7 @@ from repro_torch.core.mx import MXTensor, quantize
 from repro_torch.kernels import dispatch, mx_matmul
 from repro_torch.serve.packed_params import pack_leaf_int4
 
-FORMATS = ["mxint8", "mxfp8", "mxint6", "mxint4"]
+FORMATS = ["mxint8", "mxfp8", "mxint6", "mxint4", "mxfp6", "mxfp4"]
 # (M, K, N): M below a tile, odd N, K needing padding on the TPU side;
 # then M > 16, the shapes of the card's tiled body (67: the mixed tick's
 # live tokens).
