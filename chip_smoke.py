@@ -15,6 +15,7 @@ check them.
     python3 chip_smoke.py --rwkv-only
     python3 chip_smoke.py --encdec-only
     python3 chip_smoke.py --eval-only
+    python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
@@ -23,12 +24,12 @@ check them.
 ``--train-long-only`` phases 1, 2 and 16, ``--vlm-only`` phases 1, 2 and
 17, ``--hybrid-only`` phases 1, 2 and 18, ``--rwkv-only`` phases 1, 2 and
 19, ``--encdec-only`` phases 1, 2 and 20, ``--eval-only`` phases 1, 2 and
-21, ``--train-only`` phases 1 and 2
+21, ``--mesh-only`` phases 1, 2 and 22, ``--train-only`` phases 1 and 2
 and then phase 6's smollm-135m runs A and B, each step split into its
 parts (with ``--src``, another tree's, for a same-call A/B of the training
 step), ``--serve-only`` phases 1 and 2 and then greedy
 waves of the
-dense and the paged graph engine (qwen3-4b, 36 layers) at mxint8 and
+dense and the paged graph engine (qwen3-4b, at ``--layers``) at mxint8 and
 mxint4, a capturing wave and three timed ones each, printing the median
 tick wall per kind of tick and a digest of the streams (no result line in
 any of them): with ``--src`` naming another tree's ``src`` (one whose
@@ -158,7 +159,7 @@ Phases (any failure exits non-zero before the result line):
      resume and the original engine's (no new capture) both equal the
      uninterrupted wave, pages balanced; snapshot bytes, save and resume
      seconds;
- 12. SLO serving: a fresh paged graph engine (qwen3-4b, 36 layers) with
+ 12. SLO serving: a fresh paged graph engine (qwen3-4b, phase 8's depth) with
      FormatPolicy(cost=CostModel.from_roofline(...)) over mxint4 / 6 / 8
      and admission_order="slo" serves one seeded trace of 12 requests (4
      latency-tier with TTFT and TPOT budgets, 4 throughput-tier, 4
@@ -292,9 +293,31 @@ Phases (any failure exits non-zero before the result line):
      -> save_anchor / load_anchor -> the dense graph engine with the MXFP
      ladder (B5 builds mxfp6 / mxfp4) serving 8 greedy requests at mxfp8,
      mxfp6 and mxfp4 as in 13 (7 B1 launches per layer per executable, no
-     B2).
+     B2);
+ 22. replicas, tensor parallelism and gradient compression, qwen3-4b at
+     full width and MESH_LAYERS layers: a ReplicaSet(n_replicas=2, tp=1)
+     of graph engines and a lone engine serve 8 greedy requests at mxint8
+     and mxint4 (streams equal per request, home and partition by rid % 2,
+     tok/s of both); then MESH_TP processes on the one card in a gloo
+     group (each rebuilds the anchor from the seed: equal digests) run
+     ElasticEngine(mesh=make_debug_mesh(1, 2)) — eager ticks, half the
+     heads, d_ff and vocabulary each, split-N leaves repacked per shard —
+     on the dense and the paged layout (chunked, mixed scheduler) at
+     mxint8 and mxint4: greedy streams equal between the ranks and to the
+     single-process eager engine's, launches as the structure predicts on
+     each rank (B3 / B4 at 4 local kv heads), last-position logits within
+     5% of max|logit| of the single process's, per-chip weight bytes
+     within 1% of half, the eager tick and the share of a wave spent in
+     collectives (timed in a second wave, synchronized); B1 / B2 at every
+     rank's shard shapes of one layer at M = 4 and 256 against their plain
+     versions (each repacked shard dequantizing to its slice of the whole
+     weight), B3 / B4 at (16, 4, 128) as in 4; ef_compress_leaf of a
+     (2560, 9728) f32 leaf bit-identical to the plain path with the error
+     feedback exact, and compressed_bytes of qwen3-4b against 4 bytes a
+     parameter.
 ``--layers N`` serves qwen3-4b at N of its 36 layers in phases 8a-12 and
-in the modes that run them alone; the default is all 36.
+in the modes that run them alone; the default is QWEN3_LAYERS (28), cut
+from 36 to give back phase 22's time.
 The training phases (6, 16-21) and the llava and seamless prefills print
 ``launch/costmodel.py::roofline``'s bound for one H100 beside each
 measured time, at the depth, width, batch and sequence the phase runs.
@@ -380,11 +403,11 @@ LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 4608, 16, 4736
 # (flash_vjp, remat) settings, then at seq 8192; mixtral-8x7b at one layer.
 LONG_SEQ_LEVERS = (2048, 2)       # (seq, steps) per (flash_vjp, remat)
 LONG_SEQ = 8192
-# The SLO phase: the paged graph engine (qwen3-4b, 36 layers) with a cost
+# The SLO phase: the paged graph engine (qwen3-4b at --layers) with a cost
 # model, serving one seeded trace of 12 requests per round: rounds at a
 # latency-tier TPOT budget between the paged pure-decode ticks measured at
-# mxint8 and mxint4 (14.44 and 16.34 ms, NVIDIA H100 80GB HBM3, 700 W,
-# PERF.md), then rounds at one below both.
+# mxint8 and mxint4 at 36 layers (14.44 and 16.34 ms, NVIDIA H100 80GB
+# HBM3, 700 W, PERF.md), then rounds at one below both.
 SLO_ROUNDS = ((15.4, 3), (11.0, 4))     # (latency TPOT budget ms, rounds)
 SLO_TTFT_MS = {"latency": 250.0, "throughput": 2000.0}
 SLO_FMTS = ("mxint4", "mxint6", "mxint8")
@@ -422,6 +445,16 @@ EVAL_PRETRAIN_STEPS = 32      # of the reference's 600
 EVAL_EXAMPLES = 32            # of its 128: 4 steps a format at batch 8
 MXFP_LADDER = ((32, "mxfp4"), (8, "mxfp6"), (0, "mxfp8"))
 PPL_ID_TOL = 1e-6      # PTQ at the anchor format vs the anchor route, rel.
+# The mesh phase (22): qwen3-4b at full width and this depth, served by a
+# ReplicaSet of two single-device replicas and by a tensor-parallel engine
+# of MESH_TP processes on the one card (gloo); MX gradient compression of
+# one qwen3-4b-sized leaf (w_gate's (2560, 9728)).
+MESH_LAYERS, MESH_TP = 4, 2
+# qwen3-4b's depth on the serving path (format build, dense and paged
+# serving, speculation, preemption, SLO): cut from 36 to give back phase
+# 22's time within the script's limit (PERF.md §4).
+QWEN3_LAYERS = 28
+MESH_GRAD = (2560, 9728)
 _SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
 
@@ -953,16 +986,18 @@ def _nan_live_page(gen, pa, ref):
         del q, kp, vp, kp_n, vp_n
 
 
-def _paged_other_heads(gen, pa, ref):
-    """B3 and B4 at the head layouts no serving phase runs: G = 3 (smollm-
-    135m, 9 query heads over 3 kv heads, D 64) and G = 12 (starcoder2-3b,
-    24 over 2, D 128). Each held against its plain version (same
-    tolerance), NaN in every dead page leaving it bit-identical, dead lanes
-    exact zeros; timed beside the plain version."""
+def _paged_other_heads(gen, pa, ref, layouts=(("G 3, D 64", (9, 3, 64)),
+                                               ("G 12, D 128",
+                                                (24, 2, 128)))):
+    """B3 and B4 at head layouts (H, Hkv, D) the qwen3-4b serving phases do
+    not run (default: G = 3, smollm-135m's 9 query heads over 3 kv heads,
+    D 64, and G = 12, starcoder2-3b's 24 over 2, D 128). Each held against
+    its plain version (same tolerance), NaN in every dead page leaving it
+    bit-identical, dead lanes exact zeros; timed beside the plain
+    version."""
     import torch
     log(f"{'kernel':20s}{'case':26s}{'max_err':>10s}{'ms':>9s}{'plain':>9s}")
-    for label, heads in (("G 3, D 64", (9, 3, 64)),
-                         ("G 12, D 128", (24, 2, 128))):
+    for label, heads in layouts:
         # B3 rows are (cache_len - 1, 1): one of cache_len 0
         for name, rows in (
                 ("paged_attention", [(199, 1), (-1, 1), (36, 1), (510, 1)]),
@@ -5218,6 +5253,492 @@ def phase_eval(seed: int):
     return totals, rows
 
 
+def _anchor_digest(anchor):
+    """Sums of every anchor leaf's bytes: equal digests, the same anchor."""
+    import torch
+    tot = 0
+    for t in list(anchor.quantized.values()) + list(anchor.raw.values()):
+        for x in ((t.codes, t.scale_exp) if hasattr(t, "codes") else (t,)):
+            tot += int(x.contiguous().view(torch.uint8).to(torch.int64).sum())
+    return tot
+
+
+def _mesh_serve(eng, cfg, seed: int, fmt: str, timed: bool):
+    """One greedy wave of ``_requests`` at ``fmt`` on ``eng``: its streams,
+    host seconds, tick trace and the launches of B1-B4 (counted from 0);
+    with ``timed`` the engine's collectives are timed (synchronized)."""
+    import torch
+    from repro_torch.kernels import mx_matmul
+    from repro_torch.kernels import paged_attention as pa
+    tp = eng.tensor_parallel
+    if tp is not None:
+        tp.timed, tp.collective_s = timed, 0.0
+    reqs = _requests(cfg.vocab, seed)
+    mx_matmul.reset_launches()
+    pa.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(reqs, fmt_override=fmt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(r.status.value != "completed" or len(r.out_tokens) != MAX_NEW
+           for r in reqs):
+        fail(f"mesh phase {fmt}: requests incomplete "
+             f"{[r.status.value for r in reqs]}")
+    return dict(streams=[r.out_tokens for r in reqs], wall=wall,
+                trace=list(eng.tick_trace),
+                launches={**mx_matmul.launches, **pa.launches},
+                collective_s=tp.collective_s if tp is not None else 0.0)
+
+
+def _first_logits(eng, fmt: str, prompt):
+    """The logits of ``prompt``'s last position (``prefill_slot``) and of
+    one decode step after it (``serve_step`` on the prompt's last token)
+    through the model of ``eng`` (a dense-layout engine) at ``fmt``: on a
+    mesh, the sharded model, gathered to the global vocab. (2, V) f32 on
+    the host."""
+    import torch
+    api, w = eng._api_for(fmt), eng.weights_for(fmt)
+    cache = eng._init_cache(1)
+    lg, cache, clen = api.prefill_slot(
+        w, {"tokens": torch.as_tensor(prompt[None], device="cuda")}, cache, 0)
+    tok = torch.full((1, 1), int(prompt[-1]), dtype=torch.int32,
+                     device="cuda")
+    lg2, _ = api.serve_step(w, {"tokens": tok}, cache, clen[None])
+    return torch.stack([lg.float(), lg2[0].float()]).cpu()
+
+
+MESH_LAYOUTS = {"dense": {}, "paged": dict(kv_layout="paged",
+                                           kv_page_size=PAGE,
+                                           prefill_chunk=CHUNK)}
+MESH_FMTS = (("mxint8", "mx_matmul"), ("mxint4", "mx_matmul_int4"))
+
+
+def _mesh_rank(rank: int, port: int, seed: int, q) -> None:
+    """One process of phase 22's tensor-parallel engine, on cuda:0 in a
+    gloo group of MESH_TP: rebuilds the anchor from the seed, then per
+    layout and format a wave (its streams, tick walls, launches) and a
+    wave with the collectives timed, the last-position logits of one
+    prompt and the weight bytes; puts the record (or the error) on ``q``."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=MESH_TP, rank=rank)
+        try:
+            q.put((rank, "ok", _mesh_rank_work(seed)))
+        finally:
+            dist.destroy_process_group()
+    except (Exception, SystemExit):     # fail() raises SystemExit; the
+        #                                 parent reports the traceback
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def _mesh_rank_work(seed: int):
+    import torch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import ElasticEngine
+
+    cfg = qwen3_4b(MESH_LAYERS)
+    _reset_quant_launches()
+    anchor = build_anchor(cfg, seed, save=False)
+    out = {"digest": _anchor_digest(anchor), "waves": {}, "logits": {},
+           "bytes": {}}
+    mesh = make_debug_mesh(1, MESH_TP)
+    prompt = _requests(cfg.vocab, seed)[0].prompt
+    for layout, kw in MESH_LAYOUTS.items():
+        eng = ElasticEngine(make_model(cfg), anchor, batch_slots=SLOTS,
+                            max_len=MAX_LEN, device="cuda", mesh=mesh, **kw)
+        for fmt, _ in MESH_FMTS:
+            eng.weights_for(fmt)              # build outside the timing
+            plain = _mesh_serve(eng, cfg, seed, fmt, timed=False)
+            timed = _mesh_serve(eng, cfg, seed, fmt, timed=True)
+            out["waves"][layout, fmt] = dict(
+                plain, timed_wall=timed["wall"],
+                collective_s=timed["collective_s"],
+                timed_same=timed["streams"] == plain["streams"])
+            if layout == "dense":       # numpy: a tensor would travel
+                #                             the queue as a shared fd
+                out["logits"][fmt] = _first_logits(eng, fmt,
+                                                   prompt).numpy()
+        st = eng.stats()
+        out["bytes"][layout] = (st["weight_bytes"],
+                                st["weight_bytes_per_chip"], st["mesh"],
+                                st["cuda_graphs"], st["kv_cache_bytes"])
+        del eng
+        torch.cuda.empty_cache()
+    out["quant"] = _quant_launches()
+    return out
+
+
+def _near_ties(eng, fmt: str, cfg, seed: int, got, want, first,
+               what: str) -> None:
+    """Where a tensor-parallel stream leaves the single process's, the
+    single process's own logits at that position (``prefill`` of the
+    prompt and the common prefix) hold the two tokens within
+    ``2 * FUSED_TOL`` of max|logit| of each other: a flip the logits
+    contract allows (a near tie under reordered f32 sums), not a wrong
+    token."""
+    import torch
+    prompts = [r.prompt for r in _requests(cfg.vocab, seed)]
+    for i, p in enumerate(first):
+        if p is None:
+            continue
+        seq = list(prompts[i]) + list(want[i][:p])
+        lg = _first_logits(eng, fmt, torch.tensor(seq).numpy())[0]
+        scale = float(lg.abs().max())
+        margin = float(lg[want[i][p]] - lg[got[i][p]])
+        top2 = torch.topk(lg, 2).values
+        log(f"mesh phase {what} stream {i} at position {p}: single process "
+            f"{want[i][p]}, tp {got[i][p]}; the single process's prefill "
+            f"logits there: margin {margin:.4g} ({100 * margin / scale:.3f}% "
+            f"of max|logit| {scale:.4g}; its top-2 gap "
+            f"{float(top2[0] - top2[1]):.4g})")
+        if abs(margin) > 2 * FUSED_TOL * scale:
+            fail(f"mesh phase {what} stream {i}: tp token {got[i][p]} at "
+                 f"position {p} is {margin:.4g} below the single process's "
+                 f"{want[i][p]}, beyond 2 x {FUSED_TOL} of max|logit|")
+
+
+def _run_mesh_ranks(seed: int):
+    """Start the MESH_TP processes of the tensor-parallel engine together
+    and return their records in rank order; fails if one fails."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, port, seed, q))
+             for r in range(MESH_TP)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, kind, val = q.get(timeout=600)
+            got[rank] = (kind, val)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = [f"rank {r}: {v}" for r, (k, v) in got.items() if k != "ok"]
+    if errors:
+        fail("tensor-parallel ranks failed:\n" + "\n".join(errors))
+    return [got[r][1] for r in range(MESH_TP)]
+
+
+def _shard_kernels(anchor, cfg, gen):
+    """B1 / B2 at the shard shapes of a (1, MESH_TP) mesh, every rank's
+    layer-0 projections (column-parallel N / tp, row-parallel K / tp) at
+    M = 4 (decode) and 256 (the mixed tick), B2 on the leaves repacked per
+    shard: each shard's dequantized weight equal to its slice of the
+    global one, the kernel held against its plain version (phase 3's
+    tolerance); one layer's seven shard projections timed at M = 4 beside
+    the whole projections'."""
+    import numpy as np
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.tree import flatten_paths
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.dispatch import qmatmul
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.transformer import param_axes
+    from repro_torch.serve.packed_params import (
+        MXTensor, densify_leaf, layer_slice, local_shard, make_packed_params,
+        packed_param_specs, repack_splitn_for_tp)
+    mesh = Mesh(np.arange(MESH_TP).reshape(1, MESH_TP), ("data", "model"))
+    axes = param_axes(cfg)
+    rec = {}
+    for fmt, kernel in MESH_FMTS:
+        w = make_packed_params(anchor, target_fmt=fmt)
+        specs = packed_param_specs(w, axes, mesh)
+        rep = repack_splitn_for_tp(w, specs, mesh)
+        whole = {k: layer_slice(v, 0) for k, v in flatten_paths(w)
+                 if "'blocks'" in k and hasattr(v, "scale_exp")}
+        err, ms_shard = 0.0, 0.0
+        for r in range(MESH_TP):
+            local = dict(flatten_paths(local_shard(
+                rep, specs, mesh, {"data": 0, "model": r})))
+            for k, g in whole.items():
+                leaf = layer_slice(local[k], 0)
+                dg = densify_leaf(g, None, torch.float32, serving_axis=True)
+                dl = densify_leaf(leaf, None, torch.float32,
+                                  serving_axis=True)
+                kk, nn = dl.shape
+                rows = slice(None) if kk == dg.shape[0] else \
+                    slice(r * kk, (r + 1) * kk)
+                cols = slice(None) if nn == dg.shape[1] else \
+                    slice(r * nn, (r + 1) * nn)
+                if not torch.equal(dl, dg[rows, cols]):
+                    fail(f"mesh phase {fmt} {k} rank {r}: the shard "
+                         "(repacked) does not dequantize to its slice of "
+                         "the whole weight")
+                for m in (4, SLOTS * CHUNK):
+                    x = torch.randn((m, kk), generator=gen,
+                                    device="cuda").to(torch.bfloat16)
+                    got = qmatmul(x, leaf, out_dtype=torch.float32)
+                    if isinstance(leaf, MXTensor):
+                        want = ref.ref_mx_matmul(x, leaf.codes,
+                                                 leaf.scale_exp, leaf.fmt)
+                    else:
+                        want = ref.ref_mx_matmul_int4(
+                            x, leaf.packed, leaf.scale_exp,
+                            get_format(leaf.fmt_name, 32))
+                    scale = float(want.abs().max())
+                    e = float((got - want).abs().max())
+                    if not torch.allclose(got, want, rtol=1e-4,
+                                          atol=1e-4 * scale):
+                        fail(f"mesh phase {kernel} {k} rank {r} M={m} "
+                             f"(K {kk}, N {nn}): max abs err {e:.3g} vs "
+                             f"max|plain| {scale:.3g}")
+                    err = max(err, e)
+                    if m == 4 and r == 0:
+                        ms_shard += cuda_time_ms(
+                            lambda i: qmatmul(x, leaf), 50)
+        x4 = {k: torch.randn((4, densify_leaf(
+            g, None, torch.float32, serving_axis=True).shape[0]),
+            generator=gen, device="cuda").to(torch.bfloat16)
+            for k, g in whole.items()}
+        ms_whole = sum(cuda_time_ms(lambda i: qmatmul(x4[k], g), 50)
+                       for k, g in whole.items())
+        log(f"mesh phase {kernel} [{fmt}] at the shard shapes of tp "
+            f"{MESH_TP} ({len(whole)} projections x {MESH_TP} ranks, M 4 "
+            f"and {SLOTS * CHUNK}): max abs err {err:.3g} against the plain "
+            f"version; one layer at M = 4: rank 0's shards {ms_shard:.4f} "
+            f"ms, the whole projections {ms_whole:.4f} ms (device, CUDA "
+            "graph of 50)")
+        rec[kernel] = dict(max_abs_err=err, shard_ms=ms_shard,
+                           whole_ms=ms_whole)
+        del w, rep
+    return rec
+
+
+def phase_mesh(seed: int):
+    """Phase 22: data-parallel replicas, tensor-parallel serving and MX
+    gradient compression on the one card. Returns the launch counts of the
+    main path (the replicas' waves, the ranks' waves; B5 / B6 of every
+    build and of the compression) and the shard-shape kernel record."""
+    import numpy as np
+    import torch
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.mx import dequantize
+    from repro_torch.kernels import mx_matmul, ref
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import param_shapes
+    from repro_torch.models.transformer import make_model, param_leaves
+    from repro_torch.serve.engine import ElasticEngine
+    from repro_torch.serve.replicas import ReplicaSet
+    from repro_torch.train.compression import (compressed_bytes,
+                                               ef_compress_leaf)
+
+    t_phase = time.perf_counter()
+    cfg = qwen3_4b(MESH_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 22)
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    _reset_quant_launches()
+    anchor = build_anchor(cfg, seed, save=False)
+    digest = _anchor_digest(anchor)
+    api = make_model(cfg)
+    kw = dict(batch_slots=SLOTS, max_len=MAX_LEN, device="cuda")
+
+    # ---- 1. two single-device replicas against a lone engine (graphs)
+    lone = ElasticEngine(api, anchor, **kw)
+    rs = ReplicaSet(api, anchor, n_replicas=2, **kw)
+    for fmt, _ in MESH_FMTS:
+        lone.weights_for(fmt)
+        for e in rs.engines:
+            e.weights_for(fmt)
+        for what, server in (("lone", lone), ("replicas", rs)):
+            server.generate(_requests(cfg.vocab, seed), fmt_override=fmt)
+        res = {}
+        for what, server in (("lone", lone), ("replicas", rs)):
+            reqs = _requests(cfg.vocab, seed)
+            mx_matmul.reset_launches()
+            pa.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            server.generate(reqs, fmt_override=fmt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            add({**mx_matmul.launches, **pa.launches})
+            res[what] = (reqs, wall)
+        (lreqs, lwall), (rreqs, rwall) = res["lone"], res["replicas"]
+        if {r.rid: r.out_tokens for r in rreqs} != \
+                {r.rid: r.out_tokens for r in lreqs}:
+            fail(f"mesh phase {fmt}: a replica's stream differs from the "
+                 "lone engine's")
+        homes = [rs.home(r.rid) for r in rreqs]
+        parts = [[r.rid for r in p] for p in rs.partition(rreqs)]
+        if homes != [r.rid % 2 for r in rreqs] or parts != [
+                [r.rid for r in rreqs if r.rid % 2 == h] for h in (0, 1)]:
+            fail(f"mesh phase {fmt}: home / partition {homes} {parts}")
+        if any(r.status.value != "completed" for r in rreqs):
+            fail(f"mesh phase {fmt}: replica requests incomplete")
+        tokens = N_REQ * MAX_NEW
+        st = rs.stats()
+        log(f"mesh phase replicas {fmt}: ReplicaSet(n_replicas=2, tp=1) "
+            f"{tokens} tokens in {rwall:.3f} s = {tokens / rwall:.1f} tok/s "
+            f"(replicas serve one after another) beside the lone engine's "
+            f"{tokens / lwall:.1f} tok/s ({lwall:.3f} s); streams equal; "
+            f"homes {homes}; ticks {st['ticks']} (lone "
+            f"{lone.stats()['ticks']})")
+    del lone, rs
+    torch.cuda.empty_cache()
+
+    # ---- 2. the single-process reference of the tensor-parallel engine
+    prompt = _requests(cfg.vocab, seed)[0].prompt
+    single = {}
+    want_logits = {}
+    single_bytes = {}
+    for layout, lkw in MESH_LAYOUTS.items():
+        eng = ElasticEngine(api, anchor, cuda_graphs=False, **kw, **lkw)
+        for fmt, _ in MESH_FMTS:
+            eng.weights_for(fmt)
+            single[layout, fmt] = _mesh_serve(eng, cfg, seed, fmt, False)
+            if layout == "dense":
+                want_logits[fmt] = _first_logits(eng, fmt, prompt)
+        single_bytes[layout] = eng.stats()["weight_bytes"]
+        if layout == "dense":
+            dense_single = eng      # kept: the near-tie check below
+        else:
+            del eng
+    add(_quant_launches())
+    torch.cuda.empty_cache()
+    ranks = _run_mesh_ranks(seed)
+    for r, rec in enumerate(ranks):
+        if rec["digest"] != digest:
+            fail(f"mesh phase: rank {r}'s anchor differs from the parent's")
+        add(rec["quant"])
+    for layout, _ in MESH_LAYOUTS.items():
+        for fmt, kernel in MESH_FMTS:
+            ref_w = single[layout, fmt]
+            for r, rec in enumerate(ranks):
+                wv = rec["waves"][layout, fmt]
+                _check_launches(
+                    f"mesh phase rank {r} {layout} {fmt}", wv["trace"],
+                    MESH_LAYERS, {k: v for k, v in wv["launches"].items()
+                                  if k.startswith("mx_matmul")},
+                    {k: v for k, v in wv["launches"].items()
+                     if k.startswith("paged")}
+                    if layout == "paged" else None)
+                if not wv["timed_same"]:
+                    fail(f"mesh phase rank {r} {layout} {fmt}: the timed "
+                         "wave's streams differ from the untimed one's")
+                add(wv["launches"])
+            w0 = ranks[0]["waves"][layout, fmt]
+            if any(rec["waves"][layout, fmt]["streams"] != w0["streams"]
+                   for rec in ranks):
+                fail(f"mesh phase {layout} {fmt}: the ranks' streams differ")
+            same, total, first = _agreement(w0["streams"], ref_w["streams"])
+            pick = (lambda t: t["decode"] and not t["prefill_chunks"]
+                    and not t["prefill_tokens"])
+            tick = lambda tr: float(np.median(
+                [1e3 * t["wall_s"] for t in tr if pick(t)]))
+            share = max(rec["waves"][layout, fmt]["collective_s"]
+                        / rec["waves"][layout, fmt]["timed_wall"]
+                        for rec in ranks)
+            log(f"mesh phase tp {MESH_TP} {layout} {fmt}: greedy tokens "
+                f"equal to the single-process engine's {same}/{total}, "
+                f"{sum(f is None for f in first)}/{len(first)} streams "
+                f"equal, first differing position per stream {first}; "
+                "eager pure "
+                f"decode tick median {tick(w0['trace']):.2f} ms (single "
+                f"process, eager: {tick(ref_w['trace']):.2f} ms); wave "
+                f"{w0['wall']:.3f} s ({ref_w['wall']:.3f} s); collectives "
+                f"{100 * share:.1f}% of the timed wave's wall (synchronized "
+                "around each collective; a correctness run on one card, "
+                "not a TP speed)")
+            _near_ties(dense_single, fmt, cfg, seed, w0["streams"],
+                       ref_w["streams"], first, f"{layout} {fmt}")
+    del dense_single
+    for fmt, _ in MESH_FMTS:
+        for step, what in enumerate(("prefill, last position",
+                                     "first decode step")):
+            want = want_logits[fmt][step]
+            scale = float(want.abs().max())
+            for r, rec in enumerate(ranks):
+                got = torch.from_numpy(rec["logits"][fmt][step])
+                diff = float((got - want).abs().max())
+                same = int(got.argmax()) == int(want.argmax())
+                log(f"mesh phase {fmt} rank {r} {what}: logits max|tp - "
+                    f"single| = {diff:.4g}, max|single| = {scale:.4g} "
+                    f"({100 * diff / scale:.3f}%), argmax equal: {same}")
+                if not (torch.isfinite(got).all()
+                        and diff <= FUSED_TOL * scale):
+                    fail(f"mesh phase {fmt} rank {r} {what}: logits differ "
+                         f"by {diff:.4g} > {FUSED_TOL} * {scale:.4g}")
+    for layout in MESH_LAYOUTS:
+        for r, rec in enumerate(ranks):
+            glob, chip, mesh_s, graphs, kvb = rec["bytes"][layout]
+            for fmt, _ in MESH_FMTS:
+                ratio = chip[fmt] / single_bytes[layout][fmt]
+                log(f"mesh phase {layout} {fmt} rank {r}: weight bytes per "
+                    f"chip {chip[fmt]} of {single_bytes[layout][fmt]} "
+                    f"({ratio:.4f}); mesh {mesh_s}, cuda_graphs {graphs}, "
+                    f"kv_cache_bytes {kvb}")
+                if glob[fmt] != single_bytes[layout][fmt] or \
+                        abs(ratio - 0.5) > 0.01 * 0.5 or graphs:
+                    fail(f"mesh phase {layout} {fmt} rank {r}: per-chip "
+                         f"weight bytes {chip[fmt]} not within 1% of half "
+                         f"of {single_bytes[layout][fmt]} (global "
+                         f"{glob[fmt]}), or graphs on")
+
+    # ---- 3. B1 / B2 / B3 / B4 at the shard shapes (not counted)
+    _reset_quant_launches()
+    shard_rec = _shard_kernels(anchor, cfg, gen)
+    _paged_other_heads(gen, pa, ref, layouts=(
+        (f"G 4, local (tp {MESH_TP})", (ATTN_H // MESH_TP,
+                                        ATTN_HKV // MESH_TP, ATTN_D)),))
+    del anchor
+    torch.cuda.empty_cache()
+
+    # ---- 4. MX gradient compression of a qwen3-4b-sized leaf
+    fmt = get_format("mxint8", 32)
+    g = torch.randn(MESH_GRAD, generator=gen, device="cuda") * 1e-3
+    err = torch.randn(MESH_GRAD, generator=gen, device="cuda") * 1e-5
+    _reset_quant_launches()
+    t, new_err = ef_compress_leaf(g, err, fmt)
+    torch.cuda.synchronize()
+    add(_quant_launches())
+    pt, pnew = ef_compress_leaf(g.cpu(), err.cpu(), fmt)
+    deq = dequantize(t).reshape(-1)[:g.numel()].reshape(g.shape)
+    if not (torch.equal(t.codes.cpu(), pt.codes)
+            and torch.equal(t.scale_exp.cpu(), pt.scale_exp)
+            and torch.equal(new_err.cpu(), pnew)):
+        fail("mesh phase: ef_compress_leaf on the card differs from the "
+             "plain path")
+    if not torch.equal((g + err) - deq, new_err):
+        fail("mesh phase: corrected - dequant != new error state")
+    ms = cuda_time_ms(lambda i: ef_compress_leaf(g, err, fmt), 5)
+    full = qwen3_4b(36)
+    meta = {k: torch.empty(shape, device="meta") for k, (shape, _) in
+            param_leaves(full, param_shapes(full))}
+    n_par = sum(v.numel() for v in meta.values())
+    cb = compressed_bytes(meta, "mxint8")
+    log(f"mesh phase compression: ef_compress_leaf of a {MESH_GRAD} f32 "
+        f"leaf on the card {ms:.4f} ms (B6 + dequantize + residual; CUDA "
+        f"graph of 5), codes / scales / error bit-identical to the plain "
+        f"path, corrected - dequant == new error exactly; compressed_bytes "
+        f"of qwen3-4b (36 layers, {n_par} parameters) {cb} against "
+        f"{4 * n_par} at 4 bytes a parameter ({cb / (4 * n_par):.4f})")
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches, shard_rec
+
+
 def phase_cli(src: str):
     """The serving CLI at full width as a user runs it, in a process of its
     own: ``python3 -m repro_torch.launch.serve --arch starcoder2-3b
@@ -5244,10 +5765,10 @@ def phase_cli(src: str):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--layers", type=int, default=36,
+    ap.add_argument("--layers", type=int, default=QWEN3_LAYERS,
                     help="qwen3-4b depth of the format build, serving, "
                          "speculative, preemption and SLO phases (default: "
-                         "all 36)")
+                         f"{QWEN3_LAYERS} of 36)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
                     help="card, build and dequant-GEMM phases only; no "
@@ -5292,6 +5813,10 @@ def main() -> int:
                     help="card, build and the evaluation phase (B1 at "
                          "mxfp6 / mxfp4, Fig. 4's protocol on smollm-135m, "
                          "its mxfp8 anchor served) only; no result line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="card, build and the mesh phase (replicas, "
+                         "tensor-parallel serving over gloo, gradient "
+                         "compression) only; no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="card, build and smollm-135m training runs A and B "
                          "only, for a same-call A/B of two trees; no result "
@@ -5349,6 +5874,10 @@ def main() -> int:
         phase_family_kernels(args.seed, ENCDEC, FAMILY_MS)
         phase_encdec(args.seed)
         log(f"encdec only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.mesh_only:
+        phase_mesh(args.seed)
+        log(f"mesh only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
     if args.eval_only:
         phase_eval(args.seed)
@@ -5497,6 +6026,14 @@ def main() -> int:
         else:
             launches[k] = launches.get(k, 0) + v
     lap("phase_eval")
+    # replicas, tensor-parallel serving and gradient compression
+    counts, mesh_rows = phase_mesh(args.seed)
+    for k, v in counts.items():
+        if k in quant_launches:
+            quant_launches[k] += v
+        else:
+            launches[k] = launches.get(k, 0) + v
+    lap("phase_mesh")
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))
@@ -5529,6 +6066,7 @@ def main() -> int:
             "encdec_shapes": [r for r in encdec_rows
                               if r["kernel"] == name],
             "mxfp_shapes": [r for r in eval_rows if r["kernel"] == name],
+            "tp_shard_shapes": mesh_rows.get(name),
         })
     for name, a in paged_rec.items():
         kernels.append({

@@ -127,11 +127,12 @@ def qmatmul(x: torch.Tensor, leaf, *, mode: Optional[str] = None,
 
 
 def make_qmm(mode: Optional[str] = None) -> Callable:
-    """A ``QuantCtx.qmm`` hook: (x, leaf, name) -> y at a fixed mode."""
+    """A ``QuantCtx.qmm`` hook: (x, leaf, name, out_dtype=None) -> y at a
+    fixed mode."""
     resolved = resolve_mode(mode)
 
-    def qmm(x, leaf, name=None):
+    def qmm(x, leaf, name=None, out_dtype=None):
         del name
-        return qmatmul(x, leaf, mode=resolved)
+        return qmatmul(x, leaf, mode=resolved, out_dtype=out_dtype)
 
     return qmm

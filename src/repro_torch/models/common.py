@@ -9,10 +9,17 @@ stacked projection leaves before the layer loop
 already quantized. Weights are (d_in, d_out) with MX blocks along d_in, the
 contraction axis. ``spec_accept_counts`` is the speculative verify tick's
 acceptance rule.
+
+Tensor parallelism (``TensorParallel``, the counterpart of the reference's
+``tp_axis``): a serving forward over head- and ffn-sharded weights runs in
+every process of a ``torch.distributed`` group, and the reference's
+``psum`` / ``all_gather`` inside ``shard_map`` become ``dist.all_reduce`` /
+``dist.all_gather`` over that group.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Optional
 
 import numpy as np
@@ -121,21 +128,88 @@ class ModelConfig:
 
 
 @dataclasses.dataclass
+class TensorParallel:
+    """One process's place on the ``model`` axis of a mesh: its process
+    ``group`` (the default group when None), its ``rank`` there and the
+    axis ``size``. ``timed``: synchronize the device around each collective
+    and add its host seconds to ``collective_s`` (off by default: the
+    synchronizes cost what they measure)."""
+
+    group: Any
+    rank: int
+    size: int
+    timed: bool = False
+    collective_s: float = 0.0
+
+    def _run(self, fn, x: torch.Tensor):
+        if not self.timed:
+            return fn(x)
+        sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+        sync()
+        t0 = time.perf_counter()
+        y = fn(x)
+        sync()
+        self.collective_s += time.perf_counter() - t0
+        return y
+
+    def all_reduce(self, y: torch.Tensor) -> torch.Tensor:
+        """The sum of every shard's ``y``, in ``y``'s dtype. The sum runs in
+        f32: for two shards an f32 sum of two bf16 values is exact, so the
+        rounding back is the one a bf16 add makes (the reference's bf16
+        ``psum``)."""
+        import torch.distributed as dist
+
+        def reduce(x):
+            buf = x.to(torch.float32).contiguous()
+            dist.all_reduce(buf, group=self.group)
+            return buf.to(x.dtype)
+
+        return self._run(reduce, y)
+
+    def all_gather_last(self, y: torch.Tensor) -> torch.Tensor:
+        """Every shard's ``y`` concatenated along the last axis in rank
+        order (the reference's tiled ``all_gather``): no arithmetic."""
+        import torch.distributed as dist
+
+        def gather(x):
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather(parts, x.contiguous(), group=self.group)
+            return torch.cat(parts, dim=-1)
+
+        return self._run(gather, y)
+
+
+@dataclasses.dataclass
 class QuantCtx:
-    """``qmm``: the serving matmul hook ``(x, packed_leaf, name) -> y``."""
+    """``qmm``: the serving matmul hook ``(x, packed_leaf, name) -> y``.
+    ``tp``: the tensor-parallel group a head- and ffn-sharded serving
+    forward runs over (None: one device, no collectives)."""
 
     qmm: Optional[Any] = None
+    tp: Optional[TensorParallel] = None
 
     def dense(self, x: torch.Tensor, w, name: str,
-              b: Optional[torch.Tensor] = None) -> torch.Tensor:
+              b: Optional[torch.Tensor] = None, *,
+              tp_reduce: bool = False) -> torch.Tensor:
         """y = x @ w (+ b) in the activation dtype: the bias, raw in every
-        tree, is added after the product, as the JAX package adds it."""
+        tree, is added after the product, as the JAX package adds it.
+        ``tp_reduce`` marks a row-parallel projection (wo, w_down): under
+        tensor parallelism the shard's partial product is all-reduced
+        before the bias add, so the replicated bias is added once; a
+        dequant-GEMM's partial stays in its f32 accumulator through the
+        all-reduce and is rounded to the activation dtype once, as the
+        single-device product is (the reference's psum adds partials
+        already rounded)."""
+        reduce = tp_reduce and self.tp is not None
         if self.qmm is not None and is_packed_leaf(w):
-            y = self.qmm(x, w, name)
+            y = self.qmm(x, w, name, out_dtype=torch.float32) if reduce \
+                else self.qmm(x, w, name)
         else:
             if is_packed_leaf(w):
                 w = densify_leaf(w, None, x.dtype, serving_axis=True)
             y = torch.matmul(x, w.to(x.dtype))
+        if reduce:
+            y = self.tp.all_reduce(y).to(x.dtype)
         if b is not None:
             y = y + b.to(x.dtype)
         return y

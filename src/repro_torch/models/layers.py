@@ -334,7 +334,8 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
             kc[rows, cache_len.long()] = k[:, 0].to(kc.dtype)
             vc[rows, cache_len.long()] = v[:, 0].to(vc.dtype)
             out = decode_attention(q, kc, vc, cache_len + 1, window=window)
-    out = ctx.dense(out.reshape(b, s, h * hd), p["wo"], name + ".wo")
+    out = ctx.dense(out.reshape(b, s, h * hd), p["wo"], name + ".wo",
+                    tp_reduce=True)
     return out, new_kv
 
 
@@ -362,7 +363,8 @@ def mlp_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     else:
         hidden = F.gelu(ctx.dense(x, p["w_up"], name + ".w_up",
                                   p.get("b_up")), approximate="tanh")
-    return ctx.dense(hidden, p["w_down"], name + ".w_down", p.get("b_down"))
+    return ctx.dense(hidden, p["w_down"], name + ".w_down", p.get("b_down"),
+                     tp_reduce=True)
 
 
 def _topk_stable(x: torch.Tensor, k: int):

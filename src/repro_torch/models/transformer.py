@@ -52,7 +52,8 @@ from repro_torch.core.tree import unflatten_paths
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv, ssm
-from repro_torch.models.common import ModelConfig, QuantCtx, is_paged_cache
+from repro_torch.models.common import (ModelConfig, QuantCtx, TensorParallel,
+                                      is_paged_cache)
 from repro_torch.serve.packed_params import (densify_leaf, is_packed_leaf,
                                              layer_slice)
 
@@ -194,6 +195,58 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     return unflatten_paths({path: init_leaf(shape, init, gen) for path,
                             (shape, init) in param_leaves(cfg, shapes)})
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """Logical axis names of every leaf of the parameter tree, the
+    reference's (``sharding/rules.py`` maps them onto a mesh): q / k / v /
+    gate / up column-parallel, wo / w_down row-parallel, the embedding and
+    the head vocab-sharded, norms replicated; block leaves get a leading
+    None for the stacked group axis. Attention and MLP layers (the dense
+    family) only: tensor-parallel serving shards nothing else."""
+    bad = {(mixer_kind(cfg, j), ffn_kind(cfg, j))
+           for j in range(cfg.scan_group)} - {("attn", "mlp")}
+    if bad:
+        raise ValueError(f"param_axes covers attention + MLP layers; "
+                         f"family {cfg.family!r} has {sorted(bad)}")
+    attn = {"wq": ("fsdp", "model"), "wk": ("fsdp", "model"),
+            "wv": ("fsdp", "model"), "wo": ("model", "fsdp")}
+    if cfg.qkv_bias:
+        attn.update(bq=("model",), bk=("model",), bv=("model",))
+    if cfg.qk_norm:
+        attn.update(q_norm=(None,), k_norm=(None,))
+    mlp = {"w_up": ("fsdp", "mlp"), "w_down": ("mlp", "fsdp")}
+    if cfg.act == "swiglu":
+        mlp["w_gate"] = ("fsdp", "mlp")
+    if cfg.mlp_bias:
+        mlp.update(b_up=("mlp",), b_down=(None,))
+
+    def stacked(tree):
+        return {k: (None,) + v for k, v in tree.items()}
+
+    block = {"mixer_norm": (None, None), "ffn_norm": (None, None),
+             "attn": stacked(attn), "mlp": stacked(mlp)}
+    axes = {"embed": ("vocab", "fsdp"),
+            "blocks": [dict(block) for _ in range(cfg.scan_group)],
+            "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("fsdp", "vocab")
+    return axes
+
+
+def cache_axes(cfg: ModelConfig, kv_layout: str = "dense") -> Dict:
+    """Logical axis names of the KV cache's leaves, the reference's: dense
+    K / V (G, B, S, Hkv, D) over the batch and the sequence, paged pools
+    (G, P, ps, Hkv, D) over the page axis, the block table over the batch.
+    (The tensor-parallel engine places its pools by kv head instead, as
+    the reference's engine does.)"""
+    if kv_layout == "paged":
+        pool = (None, "kv_seq", None, None, None)
+        return {"blocks": [{"k_pages": pool, "v_pages": pool}
+                           for _ in range(cfg.scan_group)],
+                "block_table": ("batch", None)}
+    kv = (None, "batch", "kv_seq", None, None)
+    return {"blocks": [{"k": kv, "v": kv} for _ in range(cfg.scan_group)]}
 
 
 # =============================================================================
@@ -342,14 +395,29 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
-def _embed(params, cfg: ModelConfig, tokens):
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+def _embed(params, cfg: ModelConfig, tokens, tp=None):
+    """Token embeddings. Under tensor parallelism the table is
+    vocab-sharded: each token's row lives on one shard, so the ids are
+    offset into the local range, rows out of it select exact zeros, and the
+    all-reduce gives every shard the true row (bit-identical to the
+    unsharded lookup)."""
+    emb = params["embed"]
+    tokens = tokens.long()
+    if tp is not None and emb.shape[0] != cfg.vocab:
+        v_local = emb.shape[0]
+        local = tokens - tp.rank * v_local
+        ok = (local >= 0) & (local < v_local)
+        rows = emb[torch.where(ok, local, 0)]
+        x = torch.where(ok[..., None], rows, torch.zeros((), dtype=emb.dtype,
+                                                         device=emb.device))
+        return tp.all_reduce(x).to(cfg.compute_dtype)
+    return emb[tokens].to(cfg.compute_dtype)
 
 
-def _embed_prefixed(params, cfg: ModelConfig, batch):
+def _embed_prefixed(params, cfg: ModelConfig, batch, tp=None):
     """Token embeddings behind the batch's ``vision_embeds`` (B, V, d) when
     the config has a vision prefix: (x (B, V + S, d), V)."""
-    x = _embed(params, cfg, batch["tokens"])
+    x = _embed(params, cfg, batch["tokens"], tp)
     if cfg.vision_tokens <= 0:
         return x, 0
     ve = batch["vision_embeds"].to(device=x.device, dtype=cfg.compute_dtype)
@@ -359,12 +427,19 @@ def _embed_prefixed(params, cfg: ModelConfig, batch):
 def _head_logits(ctx: QuantCtx, params, cfg: ModelConfig, h_last):
     """lm-head projection of the last-position hidden states (B, d), in f32.
     A quantized lm_head leaf (non-default exclusions) goes through the
-    dequant-GEMM hook like every other projection."""
+    dequant-GEMM hook like every other projection. Under tensor parallelism
+    the head is vocab-sharded: the shards' logit slices are gathered into
+    the global vocab (a concatenation, so bit-identical)."""
     if not cfg.tie_embeddings and ctx.qmm is not None and \
             is_packed_leaf(params["lm_head"]):
-        return ctx.qmm(h_last.to(torch.float32), params["lm_head"], "lm_head")
-    return torch.matmul(h_last.to(torch.float32),
-                        _lm_head_w(params, cfg).to(torch.float32))
+        logits = ctx.qmm(h_last.to(torch.float32), params["lm_head"],
+                         "lm_head")
+    else:
+        logits = torch.matmul(h_last.to(torch.float32),
+                              _lm_head_w(params, cfg).to(torch.float32))
+    if ctx.tp is not None and logits.shape[-1] != cfg.vocab:
+        logits = ctx.tp.all_gather_last(logits)
+    return logits
 
 
 def _last_hidden(hidden, lengths):
@@ -506,11 +581,18 @@ class ModelApi:
 
 def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                attn_impl: str = "gather",
-               qat: Optional[QATConfig] = None) -> ModelApi:
+               qat: Optional[QATConfig] = None,
+               tp: Optional[TensorParallel] = None) -> ModelApi:
+    """The ModelApi of ``cfg``. ``tp`` (the reference's ``tp_axis``): the
+    serving entry points run on this process's shard of head- and
+    ffn-sharded weights (``cfg`` the local one: heads / tp, ``head_dim``
+    pinned, the global vocab) and all-reduce / all-gather over ``tp``'s
+    group: the row-parallel projections, the vocab-sharded embedding, the
+    head's logit slices. None is the single-device math."""
     if attn_impl not in ("gather", "paged_kernel"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}; one of "
                          "('gather', 'paged_kernel')")
-    ctx = QuantCtx(qmm=qmm)
+    ctx = QuantCtx(qmm=qmm, tp=tp)
     n_fmts = len(qat.formats) if qat else 0
 
     def train_loss(params, batch, fmt_idx=None):
@@ -608,7 +690,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         last real token and cache_len is the true length. A vision config's
         ``batch["vision_embeds"]`` (B, V, d) goes first; cache_len counts
         it."""
-        x, extra = _embed_prefixed(params, cfg, batch)
+        x, extra = _embed_prefixed(params, cfg, batch, tp)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
@@ -651,7 +733,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                 "embeds; use monolithic admission")
         tokens = batch["tokens"]
         b, c = tokens.shape
-        x = _embed(params, cfg, tokens)
+        x = _embed(params, cfg, tokens, tp)
         positions = (start_pos + torch.arange(c, device=x.device)).expand(b, c)
         hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
                                    None, prefill=True, chunk_start=start_pos)
@@ -673,7 +755,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
     @torch.no_grad()
     def serve_step(params, batch, cache, cache_len):
         """One decode step: batch["tokens"] (B, 1) against the cache."""
-        x = _embed(params, cfg, batch["tokens"])
+        x = _embed(params, cfg, batch["tokens"], tp)
         hidden, _ = forward_hidden(ctx, params, cfg, x, cache_len[:, None],
                                    cache, cache_len, prefill=False,
                                    attn_impl=attn_impl)
@@ -693,7 +775,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         tokens = batch["tokens"]
         q_len = batch["q_len"].to(torch.int32)
         b, c = tokens.shape
-        x = _embed(params, cfg, tokens)
+        x = _embed(params, cfg, tokens, tp)
         positions = cache_len[:, None] + torch.arange(c, device=x.device)
         hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
                                    cache_len, prefill=False, q_len=q_len,
@@ -716,7 +798,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         tokens = batch["tokens"]
         q_len = batch["q_len"].to(torch.int32)
         b, c = tokens.shape
-        x = _embed(params, cfg, tokens)
+        x = _embed(params, cfg, tokens, tp)
         positions = cache_len[:, None] + torch.arange(c, device=x.device)
         hidden, _ = forward_hidden(ctx, params, cfg, x, positions, cache,
                                    cache_len, prefill=False, q_len=q_len,
@@ -726,7 +808,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         return logits.reshape(b, c, -1), cache
 
     def with_serving(qmm=None, attn_impl="gather"):
-        return make_model(cfg, qmm, attn_impl, qat)
+        return make_model(cfg, qmm, attn_impl, qat, tp)
 
     return ModelApi(
         cfg=cfg,
@@ -741,7 +823,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         mixed_step=mixed_step,
         verify_step=verify_step,
         # the derived api keeps this one's attn_impl: chaining composes
-        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat),
+        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat, tp),
         with_serving=with_serving,
         attn_impl=attn_impl,
         qat=qat,

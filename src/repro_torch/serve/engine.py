@@ -126,16 +126,34 @@ it before each guarded tick and puts it back before a replay: every
 attempt starts from the pre-tick state, as the reference's functional step
 does.
 
-Left out of this slice: tensor parallelism (refused with
-``NotImplementedError`` naming ROADMAP A.9), configs with a vision prefix
-and the encoder-decoder family, whose frames or image embeddings a
-``Request`` has no field to carry (refused at construction, ROADMAP C.10
-and C.12; the reference fails at its first admission).
+Tensor parallelism (``mesh=``, a ``launch/mesh.py::Mesh`` with a
+``model`` axis): one logical engine whose weights and KV pools are sharded
+over the mesh's ``model`` axis, one process per shard. Every process of the
+axis's group builds the engine with the same arguments and calls
+``generate`` with the same requests; the step functions come from the local
+config (heads / tp, ``head_dim`` pinned, the global vocab) and all-reduce
+the row-parallel projections and the vocab-sharded embedding and gather the
+head's logit slices (``models/common.py::TensorParallel``), so every process
+holds the same logits and runs the same host bookkeeping. Each format's
+packed tree is built whole, its column-sharded split-N leaves repacked per
+shard, and cut to the local shard; the KV pools and the dense cache hold
+the local kv heads, and the block table and the host state stay
+replicated. A meshed engine runs its ticks eagerly: a collective over a
+gloo group cannot be captured in a CUDA graph, so ``cuda_graphs`` resolves
+to False and True raises. A snapshot records the mesh shape and goes to a
+subdirectory per shard; resume refuses another mesh shape. Data
+parallelism is ``serve/replicas.py::ReplicaSet``.
+
+Left out of this slice: configs with a vision prefix and the
+encoder-decoder family, whose frames or image embeddings a ``Request`` has
+no field to carry (refused at construction, ROADMAP C.10 and C.12; the
+reference fails at its first admission).
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
+import os
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -145,21 +163,27 @@ import torch
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.core.anchor import AnchorModel, convert, materialize
 from repro_torch.core.formats import get_format
+from repro_torch.core.tree import flatten_paths
 from repro_torch.devices import resolve_device
 from repro_torch.kernels import mx_matmul, paged_attention
 from repro_torch.kernels.dispatch import make_qmm
 from repro_torch.kernels.paged_attention import pages_read, pages_read_mq
-from repro_torch.models.common import spec_accept_counts
-from repro_torch.models.transformer import ModelApi
+from repro_torch.models.common import TensorParallel, spec_accept_counts
+from repro_torch.models.transformer import ModelApi, make_model, param_axes
 from repro_torch.runtime.fault import FaultInjector, InjectedFault
 from repro_torch.serve.packed_params import (anchor_block_size,
+                                             is_packed_leaf, local_shard,
                                              make_packed_params,
-                                             weight_stream_bytes)
+                                             packed_param_specs,
+                                             repack_splitn_for_tp,
+                                             weight_stream_bytes,
+                                             weight_stream_bytes_local)
 from repro_torch.serve.policy import FormatPolicy, SpecConfig
 from repro_torch.serve.sampling import (fold_in, prng_key, sample_batch,
                                         split)
 from repro_torch.serve.slo import SLOClass, tier_rank
 from repro_torch.serve.tick_graph import TickGraphs
+from repro_torch.sharding.rules import mesh_sizes, param_specs
 
 DENSE_BF16 = "bf16"   # pseudo-format: dense anchor-precision weights
 
@@ -225,11 +249,6 @@ class Request:
         self.cancel_requested = True
 
 
-_UNSUPPORTED = {
-    "mesh": (None, "tensor-parallel serving is not ported yet "
-                   "(ROADMAP A.9)"),
-}
-
 # A graph key's kind -> the ModelApi entry point it runs: a draft step is
 # a serve_step against the draft cursor and tokens, keyed apart from the
 # committed ones'.
@@ -285,7 +304,8 @@ class ElasticEngine:
     ``cuda_graphs`` (None = on where the device is CUDA) runs decode,
     mixed, draft and verify ticks, and a sampled tick's draw, as CUDA
     graphs; False runs every launch eagerly, as ``jax.disable_jit`` does
-    for the reference.
+    for the reference. ``mesh`` shards the engine over the mesh's ``model``
+    axis (module docstring; eager ticks).
     """
 
     def __init__(self, api: ModelApi, anchor: AnchorModel, *,
@@ -302,13 +322,7 @@ class ElasticEngine:
                  speculative: Optional[SpecConfig] = None,
                  admission_order: str = "fifo",
                  cuda_graphs: Optional[bool] = None, device="cuda",
-                 **unsupported):
-        for name, value in unsupported.items():
-            if name not in _UNSUPPORTED:
-                raise TypeError(f"unexpected argument {name!r}")
-            default, why = _UNSUPPORTED[name]
-            if value != default:
-                raise NotImplementedError(f"{name}={value!r}: {why}")
+                 mesh=None):
         if admission_order not in ("fifo", "slo"):
             raise ValueError(f"unknown admission_order {admission_order!r}; "
                              "one of ('fifo', 'slo')")
@@ -322,8 +336,14 @@ class ElasticEngine:
         self.max_step_retries = max_step_retries
         self._fault_injector = fault_injector
         self.device = resolve_device(device)
+        self._tp, self.mesh = self._check_mesh(mesh, api, anchor), mesh
         if cuda_graphs is None:
-            cuda_graphs = self.device.type == "cuda"
+            cuda_graphs = self.device.type == "cuda" and mesh is None
+        elif cuda_graphs and mesh is not None:
+            raise ValueError(
+                "cuda_graphs=True on a mesh: a gloo collective cannot be "
+                "captured in a CUDA graph, so a meshed engine runs its "
+                "ticks eagerly")
         elif cuda_graphs and self.device.type != "cuda":
             raise ValueError(f"cuda_graphs=True needs a CUDA device, got "
                              f"{self.device}; the CPU path runs every tick "
@@ -455,10 +475,24 @@ class ElasticEngine:
         self.last_snapshot: Optional[str] = None
 
         # The serving entry points with both knobs baked in: the packed
-        # contract's GEMM hook, and the paged read path.
-        self._packed_api = api.with_serving(
+        # contract's GEMM hook, and the paged read path. On a mesh they
+        # come from the local model: heads / tp (head_dim pinned: the
+        # derived one would follow d_model), the global vocab, and the
+        # collectives over the model axis' group.
+        self.tensor_parallel: Optional[TensorParallel] = None
+        self._src_api = api
+        if self._tp > 1:
+            self.tensor_parallel = TensorParallel(
+                mesh.group, mesh.coord("model"), self._tp)
+            local_cfg = dataclasses.replace(
+                cfg, n_heads=cfg.n_heads // self._tp,
+                n_kv_heads=cfg.n_kv_heads // self._tp, head_dim=cfg.hd)
+            self._src_api = make_model(local_cfg, qat=api.qat,
+                                       tp=self.tensor_parallel)
+        self._packed_api = self._src_api.with_serving(
             make_qmm(mode="kernel" if self.fused else "densify"), attn_impl)
-        self._plain_api = api.with_serving(None, attn_impl)
+        self._plain_api = self._src_api.with_serving(None, attn_impl)
+        self._weight_bytes: Dict[str, int] = {}   # a mesh's global trees
         self._weights: Dict[str, object] = {}
         self.current_fmt: Optional[str] = None
         self._fmt_swaps = 0
@@ -498,8 +532,9 @@ class ElasticEngine:
         #                                             found it
 
         # every cache leaf's bytes (KV, Mamba state, block table), from
-        # shapes alone; init_cache refuses a recurrent stack paged here
-        shapes = self._init_cache(batch_slots, device="meta")
+        # the global shapes alone; init_cache refuses a recurrent stack
+        # paged here
+        shapes = self._init_cache(batch_slots, device="meta", api=api)
         self._kv_cache_bytes = sum(
             t.numel() * t.element_size() for c in shapes["blocks"]
             for t in c.values())
@@ -514,9 +549,70 @@ class ElasticEngine:
         else:
             self._kv_total_pages = 0
             self._attn_read_span = max_len + cfg.vision_tokens
-        # K+V bytes of one token over every attention layer
+        # K+V bytes of one token over every attention layer; a chip of a
+        # mesh reads its kv heads' 1/tp of them (n_kv_heads % tp == 0)
         self._attn_token_bytes = 2 * attn_layers * cfg.n_kv_heads * cfg.hd \
             * itemsize
+        self._attn_token_bytes_chip = self._attn_token_bytes // self._tp
+
+    def _check_mesh(self, mesh, api: ModelApi, anchor: AnchorModel) -> int:
+        """The reference's tensor-parallel guards, with its messages;
+        returns the ``model`` axis size (1 without a mesh)."""
+        if mesh is None:
+            return 1
+        names = tuple(getattr(mesh, "axis_names", ()))
+        if "model" not in names:
+            raise ValueError(
+                "ElasticEngine(mesh=...) needs a mesh with a 'model' "
+                f"axis; got axes {names}")
+        sizes = mesh_sizes(mesh)
+        tp = sizes["model"]
+        extra = {a: n for a, n in sizes.items() if a != "model" and n != 1}
+        if extra:
+            raise ValueError(
+                "ElasticEngine shards over the 'model' mesh axis only; "
+                f"axes {extra} have size > 1 — run one engine per "
+                "data-parallel slice (serve.replicas.ReplicaSet)")
+        cfg = api.cfg
+        if cfg.family != "dense" or cfg.vision_tokens > 0:
+            raise ValueError(
+                "tensor-parallel serving supports pure-attention dense "
+                f"text stacks only; family {cfg.family!r} is not "
+                "wired for head-sharded step functions")
+        bs = anchor_block_size(anchor)
+        bad = {k: v for k, v in {
+            "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+            "vocab": cfg.vocab, "d_ff": cfg.d_ff}.items() if v % tp}
+        # row-parallel packed scales tile the contraction dim by the MX
+        # block: those dims must split into whole scale rows per shard
+        bad.update({k: v for k, v in {
+            "n_heads*head_dim": cfg.n_heads * cfg.hd,
+            "d_ff": cfg.d_ff}.items() if v % (bs * tp)})
+        if bad:
+            raise ValueError(
+                f"mesh 'model' axis size {tp} cannot shard this "
+                f"config: {bad} not divisible (block_size={bs})")
+        if tp > 1 and getattr(mesh, "group", None) is None:
+            raise ValueError(
+                f"a mesh whose 'model' axis has {tp} shards needs the "
+                "process group of that axis (launch/mesh.py::"
+                "make_debug_mesh over an initialised default group)")
+        return tp
+
+    def _mesh_str(self) -> Optional[str]:
+        """The mesh shape "DxM" (None on one device)."""
+        if self.mesh is None:
+            return None
+        return f"{mesh_sizes(self.mesh).get('data', 1)}x{self._tp}"
+
+    def _weight_specs(self, w):
+        """Specs placing a serving weight tree on the mesh: packed trees
+        through ``packed_param_specs``, dense ones through the logical
+        rules."""
+        axes = param_axes(self.api.cfg)
+        if any(is_packed_leaf(leaf) for _, leaf in flatten_paths(w)):
+            return packed_param_specs(w, axes, self.mesh)
+        return param_specs(axes, w, self.mesh)
 
     # ---- weights ----------------------------------------------------------
     def _serves_packed(self, fmt_name: str) -> bool:
@@ -532,14 +628,24 @@ class ElasticEngine:
                                        dtype=self.api.cfg.compute_dtype)
             else:
                 w = self.dense_weights_for(fmt_name)
+            if self.mesh is not None:
+                self._weight_bytes[fmt_name] = weight_stream_bytes(w)
+                # split-N int4 nibbles interleave the output halves: a
+                # column-sharded leaf is repacked per shard before the cut
+                # (repack_splitn_for_tp), or half of every head's and
+                # ff-block's columns would pair wrong
+                specs = self._weight_specs(w)
+                w = local_shard(repack_splitn_for_tp(w, specs, self.mesh),
+                                specs, self.mesh)
             self._weights[fmt_name] = w
             self._fmt_swaps += 1
             if self.policy.cost is not None:
                 # the analytic weight term becomes the bytes the cached
-                # tree streams (seed() keeps a learned factor)
+                # tree streams (seed() keeps a learned factor); on a mesh
+                # both terms are per chip
                 self.policy.cost.seed(
-                    fmt_name, weight_stream_bytes(w),
-                    self._attn_read_span * self._attn_token_bytes)
+                    fmt_name, weight_stream_bytes_local(w),
+                    self._attn_read_span * self._attn_token_bytes_chip)
         return self._weights[fmt_name]
 
     def dense_weights_for(self, fmt_name: str):
@@ -560,13 +666,16 @@ class ElasticEngine:
             else self._plain_api
 
     # ---- KV cache and the ticks' static buffers -------------------------
-    def _init_cache(self, b: int, device=None):
+    def _init_cache(self, b: int, device=None, api=None):
+        """The cache of ``api`` (default: the step functions' model, whose
+        kv heads are the local ones on a mesh)."""
         device = device or self.device
+        api = api or self._src_api
         if self.kv_layout == "paged":
-            return self.api.init_cache(
+            return api.init_cache(
                 b, self.max_len, device=device, kv_layout="paged",
                 page_size=self.kv_page_size, num_pages=self.kv_num_pages)
-        return self.api.init_cache(b, self.max_len, device=device)
+        return api.init_cache(b, self.max_len, device=device)
 
     def _wave_state(self):
         """The KV cache, ``cache_len`` (B,) and the tokens (B, 1): allocated
@@ -1895,8 +2004,17 @@ class ElasticEngine:
             # string-encoded so the JSON manifest round-trips exactly
             "speculative": (f"{sc.draft_fmt}:k{sc.k}" if sc is not None
                             else None),
-            "mesh": None,               # one device: no tensor parallelism
+            # "DxM" (None on one device): a snapshot taken on a mesh holds
+            # sharded state and resumes only on the same mesh shape
+            "mesh": self._mesh_str(),
         }
+
+    def _snap_root(self, root: str) -> str:
+        """Where this process's snapshot goes: ``root`` on one device, a
+        subdirectory per shard on a mesh (each holds its own kv heads)."""
+        if self.mesh is None:
+            return root
+        return os.path.join(root, f"model{self.mesh.coord('model')}")
 
     def _save_snapshot(self, root: str, requests: List[Request], st: dict,
                        greedy: bool, fmt_override: Optional[str]) -> str:
@@ -1974,7 +2092,7 @@ class ElasticEngine:
             },
         }
         self._snap_step += 1
-        return ckpt_io.save(root, self._snap_step, arrays,
+        return ckpt_io.save(self._snap_root(root), self._snap_step, arrays,
                             extra_meta=meta)
 
     def resume(self, snapshot_dir: str, *, guard=None,
@@ -1989,7 +2107,8 @@ class ElasticEngine:
         snapshot whose fingerprint differs from this engine's raises
         ``ValueError`` naming the fields. Returns the rebuilt request
         list, finished."""
-        arrays, manifest = ckpt_io.restore(snapshot_dir, step)
+        arrays, manifest = ckpt_io.restore(self._snap_root(snapshot_dir),
+                                           step)
         meta = manifest["meta"]
         if meta.get("kind") != "elastic-engine-snapshot":
             raise ValueError(f"{snapshot_dir} holds {meta.get('kind')!r}, "
@@ -2074,8 +2193,13 @@ class ElasticEngine:
     def stats(self) -> Dict[str, object]:
         return {
             "formats_cached": sorted(self._weights),
-            "weight_bytes": {f: weight_stream_bytes(t)
-                             for f, t in self._weights.items()},
+            # the global tree's bytes (a mesh's, recorded before the cut)
+            "weight_bytes": (dict(self._weight_bytes) if self.mesh is not None
+                             else {f: weight_stream_bytes(t)
+                                   for f, t in self._weights.items()}),
+            "weight_bytes_per_chip": {f: weight_stream_bytes_local(t)
+                                      for f, t in self._weights.items()},
+            "mesh": self._mesh_str(),
             "kernel_launches": {**mx_matmul.launches,
                                 **paged_attention.launches},
             "cuda_graphs": self._graphs is not None,

@@ -8,6 +8,13 @@ stacked leaves are (G, K, N), and MoE expert leaves (G, E, K, N), with the
 contraction at ndim-2; scales are in the moved-last (G, [E,] N, K/bs)
 layout; a leaf sliced to one layer (and one expert) keeps its stale
 ``block_axis`` (consumers re-derive the axis as ndim-2).
+
+Tensor-parallel serving (``ElasticEngine(mesh=...)``): ``packed_param_specs``
+places a packed tree on a mesh (codes follow the dense weight's logical
+axes, scales the moved-last layout), ``repack_splitn_for_tp`` re-nibbles
+the column-sharded split-N leaves shard by shard, ``local_shard`` cuts the
+tree to one process's shard, and ``weight_stream_bytes_local`` counts what
+that process streams.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ from repro_torch.core.formats import MXFormat, get_format
 from repro_torch.core.mx import MXTensor, dequantize
 from repro_torch.core.packed import (pack_int4, pack_int4_splitn, splitn_ok,
                                      unpack_int4, unpack_int4_splitn)
-from repro_torch.core.tree import flatten_paths, unflatten_paths
+from repro_torch.core.tree import flatten_paths, tree_map, unflatten_paths
 from repro_torch.kernels.ops import ss_convert, ss_convert_int4_splitn
 
 
@@ -170,3 +177,130 @@ def weight_stream_bytes(params) -> int:
             parts = (leaf,)
         total += sum(p.numel() * p.element_size() for p in parts)
     return total
+
+
+def packed_param_specs(packed_params, axes_tree, mesh, rules=None):
+    """Specs (``sharding/rules.py``) for a packed tree: each container
+    becomes a container of specs (codes or packed bytes, and scales), each
+    raw leaf a spec. Codes shard with the dense weight's logical axes;
+    scales follow the moved-last layout (the block axis' name last);
+    split-N packed bytes keep the dense order (last dim halved), split-K
+    bytes move the block axis last. The reference's
+    ``packed_param_shardings``, with specs in place of NamedShardings."""
+    from repro_torch.sharding.rules import spec_for_axes
+
+    def spec(shape, axes):
+        return spec_for_axes(tuple(shape), axes, mesh, rules)
+
+    def container(leaf, axes):
+        if not is_packed_leaf(leaf):
+            return spec(leaf.shape, axes)
+        ax = leaf.block_axis
+        moved = tuple(a for i, a in enumerate(axes) if i != ax) + (axes[ax],)
+        if isinstance(leaf, MXTensor):
+            return dataclasses.replace(
+                leaf, codes=spec(leaf.codes.shape, axes),
+                scale_exp=spec(leaf.scale_exp.shape, moved))
+        packed_axes = axes if leaf.layout == "splitn" else moved
+        return dataclasses.replace(
+            leaf, packed=spec(leaf.packed.shape, packed_axes),
+            scale_exp=spec(leaf.scale_exp.shape, moved))
+
+    return tree_map(container, packed_params, axes_tree)
+
+
+def _shards(entry, sizes) -> int:
+    """How many pieces a spec entry cuts its dim into on a mesh."""
+    if entry is None:
+        return 1
+    n = 1
+    for a in (entry if isinstance(entry, tuple) else (entry,)):
+        n *= sizes[a]
+    return n
+
+
+def repack_splitn_for_tp(packed_params, specs, mesh):
+    """Re-nibble the split-N int4 leaves whose output (N) axis is sharded.
+
+    Split-N byte column ``j`` pairs output columns ``(j, j + N/2)``: a
+    global interleave. Cut contiguously, a shard's bytes would decode to a
+    permuted column set, while the row-parallel consumer (wo / w_down) cuts
+    its contraction rows contiguously. So each shard's contiguous slice is
+    repacked as a self-contained split-N layout of its own ``N/tp``
+    columns: the local unpack yields exactly the local columns, and B2
+    reads a valid split-N operand (its dims come from the local shapes).
+    Split-K leaves and k-sharded split-N leaves slice cleanly and pass
+    through, as do leaves whose last axis is split by size-1 axes only."""
+    from repro_torch.sharding.rules import mesh_sizes
+    sizes = mesh_sizes(mesh)
+
+    def fix(leaf, spec):
+        if not (isinstance(leaf, PackedInt4Leaf) and leaf.layout == "splitn"):
+            return leaf
+        pspec = spec.packed
+        last = pspec[-1] if len(pspec) == leaf.packed.ndim else None
+        n_shards = _shards(last, sizes)
+        if n_shards <= 1:
+            return leaf
+        codes = unpack_int4_splitn(leaf.packed)
+        n = codes.shape[-1]
+        if n % (2 * n_shards):
+            raise ValueError(f"cannot repack split-N leaf with N={n} over "
+                             f"{n_shards} shards")
+        n_loc = n // n_shards
+        packed = torch.cat(
+            [pack_int4_splitn(codes[..., s * n_loc:(s + 1) * n_loc])
+             for s in range(n_shards)], dim=-1)
+        return dataclasses.replace(leaf, packed=packed.contiguous())
+
+    return tree_map(fix, packed_params, specs)
+
+
+def local_shard(tree, specs, mesh, coords=None):
+    """The shard of ``tree`` (a weight tree, packed or raw) that the process
+    at ``coords`` ({axis: index}; default ``mesh.coords``) holds under
+    ``specs``: each dim with a spec entry is cut into as many contiguous
+    pieces as the entry's axes have (the first axis major, as a
+    ``PartitionSpec`` reads), and this process's piece is copied out, so
+    every local leaf is contiguous. Container metadata stays global
+    (``shape``), as in a JAX array's shard."""
+    from repro_torch.sharding.rules import mesh_sizes
+    sizes = mesh_sizes(mesh)
+    coords = mesh.coords if coords is None else coords
+    coords = coords or {}
+
+    def cut(t, spec):
+        idx = []
+        for dim, entry in zip(t.shape, spec):
+            n = _shards(entry, sizes)
+            if n == 1:
+                idx.append(slice(None))
+                continue
+            k = 0
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                k = k * sizes[a] + coords.get(a, 0)
+            step = dim // n
+            idx.append(slice(k * step, (k + 1) * step))
+        return t[tuple(idx)].contiguous()
+
+    def one(leaf, spec):
+        if isinstance(leaf, MXTensor):
+            return dataclasses.replace(
+                leaf, codes=cut(leaf.codes, spec.codes),
+                scale_exp=cut(leaf.scale_exp, spec.scale_exp))
+        if isinstance(leaf, PackedInt4Leaf):
+            return dataclasses.replace(
+                leaf, packed=cut(leaf.packed, spec.packed),
+                scale_exp=cut(leaf.scale_exp, spec.scale_exp))
+        return cut(leaf, spec)
+
+    return tree_map(one, tree, specs)
+
+
+def weight_stream_bytes_local(local_params) -> int:
+    """Per-chip weight-stream bytes: the number the per-chip roofline of a
+    tensor-parallel engine is seeded with. The reference sizes each leaf's
+    shard from its sharding; a process of the port holds only its own
+    shard (``local_shard``), so this is that tree's ``weight_stream_bytes``
+    (about 1/tp of the global tree's, plus the replicated norms)."""
+    return weight_stream_bytes(local_params)
