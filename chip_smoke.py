@@ -16,6 +16,7 @@ check them.
     python3 chip_smoke.py --encdec-only
     python3 chip_smoke.py --eval-only
     python3 chip_smoke.py --mesh-only
+    python3 chip_smoke.py --mesh-train-only
     python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
@@ -24,7 +25,8 @@ check them.
 ``--train-long-only`` phases 1, 2 and 16, ``--vlm-only`` phases 1, 2 and
 17, ``--hybrid-only`` phases 1, 2 and 18, ``--rwkv-only`` phases 1, 2 and
 19, ``--encdec-only`` phases 1, 2 and 20, ``--eval-only`` phases 1, 2 and
-21, ``--mesh-only`` phases 1, 2 and 22, ``--train-only`` phases 1 and 2
+21, ``--mesh-only`` phases 1, 2 and 22, ``--mesh-train-only`` phases 1, 2
+and 23, ``--train-only`` phases 1 and 2
 and then phase 6's smollm-135m runs A and B, each step split into its
 parts (with ``--src``, another tree's, for a same-call A/B of the training
 step), ``--serve-only`` phases 1 and 2 and then greedy
@@ -314,10 +316,26 @@ Phases (any failure exits non-zero before the result line):
      weight), B3 / B4 at (16, 4, 128) as in 4; ef_compress_leaf of a
      (2560, 9728) f32 leaf bit-identical to the plain path with the error
      feedback exact, and compressed_bytes of qwen3-4b against 4 bytes a
-     parameter.
+     parameter;
+ 23. the sharded training step and sharded replicas, processes sharing the
+     card over gloo (a correctness run, not a sharded speed): qwen3-4b at
+     full width and MESH_LAYERS layers, batch 8 x seq 512, f32, direct
+     MXINT QAT at mxint4, its masks differing between the row halves, the
+     single process's gradients and step, then make_sharded_train_step at
+     (1, 2) (tensor parallelism, differentiable collectives) and (2, 1)
+     (FSDP): loss and grad norm within MESH_TRAIN_TOL relative of the
+     single process's, every gathered gradient leaf within MESH_TRAIN_TOL
+     x its max|g|, each process's state bytes about half the whole, the
+     step's CUDA-event ms beside the single process's, B7 launches per
+     step equal to the single process's; mixtral-8x7b at 1 layer, batch 4,
+     at (2, 1) (the Switch balance loss summed over the shards) with the
+     same gates; then ReplicaSet(n_replicas=2, tp=2) in four processes
+     serving 8 greedy requests at mxint8: every process returns every
+     request, homes rid % 2, the set's stats summed, the streams equal to a
+     single-process ReplicaSet(2)'s up to near ties (as 22).
 ``--layers N`` serves qwen3-4b at N of its 36 layers in phases 8a-12 and
-in the modes that run them alone; the default is QWEN3_LAYERS (28), cut
-from 36 to give back phase 22's time.
+in the modes that run them alone; the default is QWEN3_LAYERS (20), cut
+from 36 to give back the time of phases 22 (28 layers) and 23 (20).
 The training phases (6, 16-21) and the llava and seamless prefills print
 ``launch/costmodel.py::roofline``'s bound for one H100 beside each
 measured time, at the depth, width, batch and sequence the phase runs.
@@ -451,10 +469,14 @@ PPL_ID_TOL = 1e-6      # PTQ at the anchor format vs the anchor route, rel.
 # one qwen3-4b-sized leaf (w_gate's (2560, 9728)).
 MESH_LAYERS, MESH_TP = 4, 2
 # qwen3-4b's depth on the serving path (format build, dense and paged
-# serving, speculation, preemption, SLO): cut from 36 to give back phase
-# 22's time within the script's limit (PERF.md §4).
-QWEN3_LAYERS = 28
+# serving, speculation, preemption, SLO): cut from 36 to give back the
+# time of phases 22 and 23 within the script's limit (PERF.md §4).
+QWEN3_LAYERS = 20
 MESH_GRAD = (2560, 9728)
+# The mesh-training phase (23): the sharded step's loss and grad norm
+# within this of one process's (relative), each gathered gradient leaf
+# within this times its max|g|.
+MESH_TRAIN_TOL = 1e-3
 _SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
 
@@ -5259,7 +5281,9 @@ def _anchor_digest(anchor):
     tot = 0
     for t in list(anchor.quantized.values()) + list(anchor.raw.values()):
         for x in ((t.codes, t.scale_exp) if hasattr(t, "codes") else (t,)):
-            tot += int(x.contiguous().view(torch.uint8).to(torch.int64).sum())
+            flat = x.contiguous().view(torch.uint8).reshape(-1)
+            for i in range(0, flat.numel(), 1 << 26):   # 0.5 GB of int64
+                tot += int(flat[i:i + (1 << 26)].sum(dtype=torch.int64))
     return tot
 
 
@@ -5739,6 +5763,428 @@ def phase_mesh(seed: int):
     return launches, shard_rec
 
 
+# ---- phase 23: the sharded training step and sharded replicas -------------
+# (config, layers, batch rows, layouts, whole step): qwen3-4b runs whole
+# steps (AdamW included); mixtral-8x7b's f32 state (20.5 GB whole) leaves
+# room on the one card for its forward and backward only.
+MESH_TRAIN = (("qwen3-4b", MESH_LAYERS, 8, ((1, 2), (2, 1)), True),
+              ("mixtral-8x7b", 1, 4, ((2, 1),), False))
+
+
+def _mesh_train_cfg(name: str, layers: int):
+    """``name`` at full width cut to ``layers`` layers, in f32: the gates
+    hold a sharded step to one process's at 1e-3, and bf16 rounds each
+    shard's partial products where the single process rounds their sum."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(name)
+    log(f"DEPTH CUT: {name} trains {layers} of {cfg.n_layers} layers "
+        "(widths unchanged), compute in f32")
+    return dataclasses.replace(cfg, n_layers=layers,
+                               compute_dtype=torch.float32)
+
+
+def _mesh_train_batch(cfg, batch: int, seed: int):
+    """A seeded batch on the card (the same in every process), seq
+    TRAIN_SEQ, its masks differing between the two row halves."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed + 23)
+    tok = torch.randint(0, cfg.vocab, (batch, TRAIN_SEQ + 1), generator=gen,
+                        device="cuda", dtype=torch.int64).to(torch.int32)
+    mask = torch.ones((batch, TRAIN_SEQ), device="cuda")
+    mask[:batch // 2, TRAIN_SEQ // 4:] = 0.0
+    return {"tokens": tok[:, :-1].contiguous(),
+            "labels": tok[:, 1:].contiguous(), "mask": mask}
+
+
+def _state_bytes(params, opt) -> int:
+    from repro_torch.core.tree import flatten_paths
+    return sum(t.numel() * t.element_size() for _, t in flatten_paths(
+        (params, opt["m"], opt["v"])))
+
+
+def _timed(fn):
+    """(fn(), its CUDA-event ms on this process's stream)."""
+    import torch
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _mesh_train_work(rank: int, seed: int):
+    """One process of phase 23's training part (two processes on cuda:0).
+    Both warm up together (a forward and backward of one short row), then
+    per config each computes, in turn, the single-process reference from
+    the seeded weights (a whole step, or with ``step`` false the forward
+    and backward), keeping on the host what the gate compares: the first
+    moment after the step from zero (0.1 x the clipped gradient), or the
+    gradients. Then each layout's sharded step runs in both: the whole
+    batch's loss and grad norm, this process's shard of each compared leaf
+    held against the same slice of its reference (max |sharded - single|
+    / max |single| over the whole leaf), the state bytes held, the
+    CUDA-event ms and the B7 launches of the step (or of the forward and
+    backward). No gradient is gathered: gloo's collectives are slow on
+    one card, and each process holds the reference itself."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.core.tree import flatten_paths
+    from repro_torch.kernels import fake_quant
+    from repro_torch.launch.mesh import Mesh, make_debug_mesh
+    from repro_torch.models.transformer import make_model
+    from repro_torch.optim.adamw import (AdamWConfig, global_norm,
+                                         init_opt_state)
+    from repro_torch.serve.packed_params import local_shard
+    from repro_torch.train.state import (TrainState, build_train_step,
+                                         make_sharded_train_step, with_specs)
+
+    opt = AdamWConfig(lr=TRAIN_LR)
+    one = Mesh(np.arange(1).reshape(1, 1), ("data", "model"))
+    t0 = time.perf_counter()
+
+    def lap(what):
+        log(f"mesh train rank {rank}: {what} at "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def reference(api, batch, whole_step):
+        """The single-process reference: (its record, {path: host
+        tensor} of the compared tree, {path: max |x|})."""
+        params = api.init_params(seed, device="cuda")
+        fake_quant.reset_launches()
+        if whole_step:
+            state = TrainState(params, init_opt_state(params, opt), 0)
+            (new, m), ms = _timed(lambda: build_train_step(api, opt)(
+                state, batch, 1))
+            rec = dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                       ms=ms, bytes=_state_bytes(state.params, state.opt))
+            tree = new.opt["m"]
+        else:
+            single, _ = make_sharded_train_step(api, one, opt, batch)
+            (loss, tree), ms = _timed(lambda: single.loss_and_grads(
+                params, batch, 1))
+            rec = dict(loss=float(loss), grad_norm=float(global_norm(tree)),
+                       ms=ms)
+        rec["fake_quant"] = fake_quant.launches["fake_quant"]
+        ref = {k: v.cpu() for k, v in flatten_paths(tree)}
+        scale = {k: float(v.abs().max()) for k, v in flatten_paths(tree)}
+        return rec, ref, scale
+
+    out = {}
+    for name, layers, rows, layouts, whole_step in MESH_TRAIN:
+        cfg = _mesh_train_cfg(name, layers)
+        api = make_model(cfg, qat=QATConfig(formats=TRAIN_FORMATS_MXINT))
+        batch = _mesh_train_batch(cfg, rows, seed)
+        if not out:         # both processes load their kernels together:
+            #                 a forward and backward of one short row (no
+            #                 optimizer state: both processes do it at once)
+            params = api.init_params(seed, device="cuda")
+            one_row = make_sharded_train_step(api, one, opt, batch)[0]
+            one_row.loss_and_grads(params, {k: v[:1, :64]
+                                            for k, v in batch.items()}, 1)
+            del params, one_row
+            torch.cuda.empty_cache()
+            lap("warm-up")
+        rec = {"layouts": {}}
+        for turn in range(2):       # one reference at a time on the card
+            if turn == rank:
+                rec["single"], ref, scale = reference(api, batch,
+                                                      whole_step)
+                torch.cuda.empty_cache()
+                lap(f"{name} single process")
+            dist.barrier()
+        for shape in layouts:
+            mesh = make_debug_mesh(*shape)
+            step, specs = make_sharded_train_step(api, mesh, opt, batch)
+            params = api.init_params(seed, device="cuda")
+            whole_bytes = 3 * sum(t.numel() * t.element_size()
+                                  for _, t in flatten_paths(params))
+            lp = local_shard(params, specs.params, mesh)
+            del params
+            torch.cuda.empty_cache()
+            lb = step.shard_batch(batch)
+            fake_quant.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            if whole_step:
+                local = TrainState(lp, init_opt_state(lp, opt), 0)
+                (new, m), ms = _timed(lambda: step(local, lb, 1))
+                loss, gnorm = m["loss"], m["grad_norm"]
+                held = _state_bytes(local.params, local.opt)
+                cmp = new.opt["m"]
+                del local, m, new
+            else:
+                (loss, cmp), ms = _timed(
+                    lambda: step.loss_and_grads(lp, lb, 1))
+                gnorm = step.global_norm(cmp)
+                held = 3 * sum(t.numel() * t.element_size()
+                               for _, t in flatten_paths(lp))
+            launched = fake_quant.launches["fake_quant"]
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            lap(f"{name} {shape} step")
+            worst, worst_leaf = 0.0, None
+            for k, leaf, spec in with_specs(cmp, specs.params):
+                want = local_shard(ref[k], spec, mesh).to(leaf.device)
+                err = float((leaf - want).abs().max()) / max(scale[k], 1e-30)
+                if err >= worst:
+                    worst, worst_leaf = err, k
+                del want
+            rec["layouts"][shape] = dict(
+                loss=float(loss), grad_norm=float(gnorm), ms=ms,
+                fake_quant=launched, worst=worst, worst_leaf=worst_leaf,
+                bytes=held, whole_bytes=whole_bytes, peak=peak)
+            del lp, lb, step, cmp
+            torch.cuda.empty_cache()
+            dist.barrier()
+            lap(f"{name} {shape} compared")
+        out[name] = rec
+        del batch, ref
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_train_rank(rank: int, port: int, seed: int, q) -> None:
+    """One process of phase 23's training part: cuda:0 in a gloo group of
+    two; puts its record (or the error) on ``q``."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        try:
+            q.put((rank, "ok", _mesh_train_work(rank, seed)))
+        finally:
+            dist.destroy_process_group()
+    except (Exception, SystemExit):
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def _replica_rank(rank: int, port: int, seed: int, q) -> None:
+    """One process of phase 23's ReplicaSet(2, tp=2): cuda:0 in a gloo
+    group of four, the anchor rebuilt from the seed, one greedy wave of
+    ``_requests`` at mxint8; puts its record on ``q``."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=4, rank=rank)
+        try:
+            from repro_torch.kernels import mx_matmul
+            from repro_torch.kernels import paged_attention as pa
+            from repro_torch.models.transformer import make_model
+            from repro_torch.serve.replicas import ReplicaSet
+            start = time.perf_counter()
+            cfg = qwen3_4b(MESH_LAYERS)
+            _reset_quant_launches()
+            anchor = build_anchor(cfg, seed, save=False)
+            rs = ReplicaSet(make_model(cfg), anchor, n_replicas=2, tp=2,
+                            batch_slots=SLOTS, max_len=MAX_LEN,
+                            device="cuda")
+            rs.engines[0].weights_for("mxint8")
+            digest = _anchor_digest(anchor)
+            torch.cuda.empty_cache()    # four processes share the card
+            reqs = _requests(cfg.vocab, seed)
+            mx_matmul.reset_launches()
+            pa.reset_launches()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = rs.generate(reqs, fmt_override="mxint8")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            log(f"replicas rank {rank}: anchor and engine built, then the "
+                f"wave in {wall:.1f} s, at {time.perf_counter() - start:.1f}"
+                " s")
+            launches = {**mx_matmul.launches, **pa.launches}
+            st = rs.stats()
+            q.put((rank, "ok", dict(
+                digest=digest, replica=rs.replica,
+                same=all(a is b for a, b in zip(got, reqs)),
+                rids=[r.rid for r in got],
+                streams=[r.out_tokens for r in got],
+                status=[r.status.value for r in got],
+                homes=[rs.home(r.rid) for r in got], wall=wall,
+                launches=launches, quant=_quant_launches(),
+                stats={k: st[k] for k in ("n_replicas", "tp", "tokens_out",
+                                          "ticks")})))
+        finally:
+            dist.destroy_process_group()
+    except (Exception, SystemExit):
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def _spawn(target, world: int, seed: int, what: str):
+    """Start ``world`` processes of ``target`` together and return their
+    records in rank order; fails if one fails."""
+    import multiprocessing as mp
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=target, args=(r, port, seed, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in procs:
+            rank, kind, val = q.get(timeout=600)
+            got[rank] = (kind, val)
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = [f"rank {r}: {v}" for r, (k, v) in got.items() if k != "ok"]
+    if errors:
+        fail(f"{what} processes failed:\n" + "\n".join(errors))
+    return [got[r][1] for r in range(world)]
+
+
+def phase_mesh_train(seed: int):
+    """Phase 23: the sharded training step (FSDP and tensor parallelism)
+    and a ReplicaSet of tp = 2 on the one card, processes over gloo.
+    Returns the launch counts of the main path: B7 of the sharded steps,
+    B1-B4 and B5 / B6 of the replicas' processes."""
+    import torch
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.replicas import ReplicaSet
+
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    gc.collect()            # what earlier phases' engines still hold
+    torch.cuda.empty_cache()
+    held, reserved = (f(0) / 1e9 for f in (torch.cuda.memory_allocated,
+                                            torch.cuda.memory_reserved))
+    log(f"mesh train: this process holds {held:.2f} GB ({reserved:.2f} GB "
+        "reserved) of the card the processes share")
+    ranks = _spawn(_mesh_train_rank, 2, seed, "mesh training")
+    tol = MESH_TRAIN_TOL
+    for name, layers, rows, layouts, whole_step in MESH_TRAIN:
+        single = ranks[0][name]["single"]
+        other = ranks[1][name]["single"]
+        if abs(other["loss"] - single["loss"]) > tol * abs(single["loss"]):
+            fail(f"mesh train {name}: the two processes' single-process "
+                 f"references differ ({single['loss']} / {other['loss']})")
+        what = "a whole step" if whole_step else "forward + backward"
+        cmp = "first moment after the step (0.1 x the clipped gradient)" \
+            if whole_step else "gradient"
+        log(f"mesh train {name} ({layers} layers, batch {rows} x seq "
+            f"{TRAIN_SEQ}, f32, direct MXINT QAT at mxint4): one process's "
+            f"loss {single['loss']:.6f}, grad norm {single['grad_norm']:.6f}, "
+            f"{what} {single['ms']:.1f} ms (CUDA events)"
+            + (f", state {single['bytes']} bytes" if whole_step else "")
+            + f"; B7 launches {single['fake_quant']} (process 1's "
+            f"reference: loss {other['loss']:.6f}, {other['ms']:.1f} ms)")
+        for shape in layouts:
+            recs = [r[name]["layouts"][shape] for r in ranks]
+            for r, rec in enumerate(recs):
+                add({"fake_quant": rec["fake_quant"]})
+                ratio = rec["bytes"] / rec["whole_bytes"]
+                log(f"mesh train {name} {shape} rank {r}: loss "
+                    f"{rec['loss']:.6f}, grad norm {rec['grad_norm']:.6f}; "
+                    f"{what} {rec['ms']:.1f} ms (CUDA events; two processes "
+                    "share the card over gloo: a correctness run, not a "
+                    f"sharded speed); state {rec['bytes']} of "
+                    f"{rec['whole_bytes']} bytes ({ratio:.4f}), peak "
+                    f"allocated {rec['peak']:.2f} GB; B7 launches "
+                    f"{rec['fake_quant']}")
+                for key in ("loss", "grad_norm"):
+                    if abs(rec[key] - single[key]) > tol * abs(single[key]):
+                        fail(f"mesh train {name} {shape} rank {r}: {key} "
+                             f"{rec[key]} vs one process's {single[key]}, "
+                             f"beyond {tol} relative")
+                if not 0.5 <= ratio < 0.52:
+                    fail(f"mesh train {name} {shape} rank {r}: state bytes "
+                         f"{ratio:.4f} of the whole, not about half")
+                if rec["fake_quant"] != single["fake_quant"]:
+                    fail(f"mesh train {name} {shape} rank {r}: B7 launches "
+                         f"{rec['fake_quant']}, one process "
+                         f"{single['fake_quant']}")
+            worst = max(recs, key=lambda r: r["worst"])
+            log(f"mesh train {name} {shape}: each process's shard of the "
+                f"{cmp}, worst leaf {worst['worst_leaf']} at "
+                f"{worst['worst']:.3g} x its max (gate {tol}); {what} "
+                f"{max(r['ms'] for r in recs):.1f} ms against one process's "
+                f"{single['ms']:.1f} ms")
+            if not worst["worst"] <= tol:
+                fail(f"mesh train {name} {shape}: {cmp} "
+                     f"{worst['worst_leaf']} differs by "
+                     f"{worst['worst']:.3g} of its max")
+    log(f"mesh train: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- ReplicaSet(2, tp=2): four processes against one process's set
+    cfg = qwen3_4b(MESH_LAYERS)
+    _reset_quant_launches()
+    anchor = build_anchor(cfg, seed, save=False)
+    digest = _anchor_digest(anchor)
+    lone = ReplicaSet(make_model(cfg), anchor, n_replicas=2,
+                      batch_slots=SLOTS, max_len=MAX_LEN, device="cuda",
+                      cuda_graphs=False)
+    want = [r.out_tokens for r in lone.generate(_requests(cfg.vocab, seed),
+                                                fmt_override="mxint8")]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reps = _spawn(_replica_rank, 4, seed, "ReplicaSet(2, tp=2)")
+    spawn_s = time.perf_counter() - t0
+    for r, rec in enumerate(reps):
+        add(rec["launches"])
+        add(rec["quant"])
+        if rec["digest"] != digest:
+            fail(f"replicas rank {r}: its anchor differs from the parent's")
+        if not rec["same"] or rec["rids"] != list(range(N_REQ)) or \
+                rec["homes"] != [i % 2 for i in range(N_REQ)] or \
+                rec["status"] != ["completed"] * N_REQ or \
+                rec["replica"] != r // 2:
+            fail(f"replicas rank {r}: rids {rec['rids']}, homes "
+                 f"{rec['homes']}, status {rec['status']}, replica "
+                 f"{rec['replica']}")
+        if rec["stats"] != {"n_replicas": 2, "tp": 2,
+                            "tokens_out": N_REQ * MAX_NEW,
+                            "ticks": rec["stats"]["ticks"]}:
+            fail(f"replicas rank {r}: stats {rec['stats']}")
+        if rec["streams"] != reps[0]["streams"]:
+            fail(f"replicas rank {r}: streams differ from rank 0's")
+    same, total, first = _agreement(reps[0]["streams"], want)
+    tokens = N_REQ * MAX_NEW
+    wall = max(rec["wall"] for rec in reps)
+    log(f"mesh phase ReplicaSet(n_replicas=2, tp=2), four processes on the "
+        f"card: {tokens} tokens in {wall:.3f} s = {tokens / wall:.1f} tok/s "
+        f"(eager ticks over gloo, the replicas at the same time; a "
+        f"correctness run); every process returned all {N_REQ} requests; "
+        f"greedy tokens equal to the single-process set's {same}/{total}, "
+        f"first differing position per stream {first}; homes rid % 2; "
+        f"ticks {reps[0]['stats']['ticks']}; the four processes took "
+        f"{spawn_s:.1f} s from spawn to their records")
+    _near_ties(lone.engines[0], "mxint8", cfg, seed, reps[0]["streams"], want,
+               first, "ReplicaSet tp 2 mxint8")
+    del lone, anchor
+    torch.cuda.empty_cache()
+    log(f"mesh train phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def phase_cli(src: str):
     """The serving CLI at full width as a user runs it, in a process of its
     own: ``python3 -m repro_torch.launch.serve --arch starcoder2-3b
@@ -5817,6 +6263,10 @@ def main() -> int:
                     help="card, build and the mesh phase (replicas, "
                          "tensor-parallel serving over gloo, gradient "
                          "compression) only; no result line")
+    ap.add_argument("--mesh-train-only", action="store_true",
+                    help="card, build and the mesh-training phase (the "
+                         "sharded train step at (1, 2) and (2, 1), "
+                         "ReplicaSet(2, tp=2)) only; no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="card, build and smollm-135m training runs A and B "
                          "only, for a same-call A/B of two trees; no result "
@@ -5878,6 +6328,11 @@ def main() -> int:
     if args.mesh_only:
         phase_mesh(args.seed)
         log(f"mesh only, {args.src}: {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.mesh_train_only:
+        phase_mesh_train(args.seed)
+        log(f"mesh training only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
         return 0
     if args.eval_only:
         phase_eval(args.seed)
@@ -6034,6 +6489,13 @@ def main() -> int:
         else:
             launches[k] = launches.get(k, 0) + v
     lap("phase_mesh")
+    # the sharded training step and sharded replicas
+    for k, v in phase_mesh_train(args.seed).items():
+        if k in quant_launches:
+            quant_launches[k] += v
+        else:
+            launches[k] = launches.get(k, 0) + v
+    lap("phase_mesh_train")
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))

@@ -11,10 +11,20 @@ contraction axis. ``spec_accept_counts`` is the speculative verify tick's
 acceptance rule.
 
 Tensor parallelism (``TensorParallel``, the counterpart of the reference's
-``tp_axis``): a serving forward over head- and ffn-sharded weights runs in
-every process of a ``torch.distributed`` group, and the reference's
-``psum`` / ``all_gather`` inside ``shard_map`` become ``dist.all_reduce`` /
-``dist.all_gather`` over that group.
+``tp_axis``): a forward over head- and ffn-sharded weights runs in every
+process of a ``torch.distributed`` group, and the reference's ``psum`` /
+``all_gather`` inside ``shard_map`` become ``dist.all_reduce`` /
+``dist.all_gather`` over that group. The collectives are differentiable,
+each with the backward that matches what its forward replicates (a value
+every process holds alike carries its whole gradient in every process): an
+all-reduce of partial sums has the identity backward, ``copy_in`` (a
+replicated value entering sharded work) the identity forward and an
+all-reduce backward, and the all-gather's backward takes this process's
+slice. ``torch.distributed.nn``'s collectives sum in their backward, which
+on a loss every process computes alike multiplies gradients by the group's
+size. ``DataParallel`` is the same group object for the batch axes of a
+sharded training step: the loss's masked sums and the MoE balance
+fractions are all-reduced over it.
 """
 from __future__ import annotations
 
@@ -127,6 +137,62 @@ class ModelConfig:
         return self.mamba_dt_rank or max(1, -(-self.d_model // 16))
 
 
+def _sum_f32(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every process's ``x`` over ``group``, in ``x``'s dtype:
+    the sum runs in f32 (for two shards an f32 sum of two bf16 values is
+    exact, so the rounding back is the one a bf16 add makes)."""
+    import torch.distributed as dist
+    buf = x.to(torch.float32).contiguous()
+    dist.all_reduce(buf, group=group)
+    return buf.to(x.dtype)
+
+
+class _AllReduce(torch.autograd.Function):
+    """Sum of partials forward; identity backward (the sum is replicated,
+    so each partial's gradient is the sum's)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward; all-reduce backward (each process's sharded work
+    gives a part of the replicated input's gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.group), None
+
+
+class _GatherLast(torch.autograd.Function):
+    """Concatenation of the shards along the last axis forward; this
+    process's slice of the gradient backward (no sum: the gathered value
+    is replicated)."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        import torch.distributed as dist
+        ctx.n, ctx.rank = x.shape[-1], rank
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.n
+        return g[..., lo:lo + ctx.n], None, None, None
+
+
 @dataclasses.dataclass
 class TensorParallel:
     """One process's place on the ``model`` axis of a mesh: its process
@@ -153,40 +219,55 @@ class TensorParallel:
         return y
 
     def all_reduce(self, y: torch.Tensor) -> torch.Tensor:
-        """The sum of every shard's ``y``, in ``y``'s dtype. The sum runs in
-        f32: for two shards an f32 sum of two bf16 values is exact, so the
-        rounding back is the one a bf16 add makes (the reference's bf16
-        ``psum``)."""
-        import torch.distributed as dist
-
-        def reduce(x):
-            buf = x.to(torch.float32).contiguous()
-            dist.all_reduce(buf, group=self.group)
-            return buf.to(x.dtype)
-
-        return self._run(reduce, y)
+        """The sum of every shard's ``y``, in ``y``'s dtype, summed in f32
+        (the reference's bf16 ``psum`` rounds the same way at two shards).
+        Identity backward."""
+        return self._run(lambda x: _AllReduce.apply(x, self.group), y)
 
     def all_gather_last(self, y: torch.Tensor) -> torch.Tensor:
         """Every shard's ``y`` concatenated along the last axis in rank
-        order (the reference's tiled ``all_gather``): no arithmetic."""
-        import torch.distributed as dist
+        order (the reference's tiled ``all_gather``): no arithmetic. Its
+        backward takes this shard's slice."""
+        return self._run(lambda x: _GatherLast.apply(
+            x, self.group, self.size, self.rank), y)
 
-        def gather(x):
-            parts = [torch.empty_like(x) for _ in range(self.size)]
-            dist.all_gather(parts, x.contiguous(), group=self.group)
-            return torch.cat(parts, dim=-1)
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (replicated over the group) as the input of sharded work:
+        the identity, whose backward sums the shards' gradients. A no-op
+        outside autograd."""
+        if not torch.is_grad_enabled():
+            return x
+        return _CopyIn.apply(x, self.group)
 
-        return self._run(gather, y)
+
+class DataParallel(TensorParallel):
+    """One process's place on the batch axes (``pod`` x ``data``) of a
+    sharded training step: the same collectives over the group of the
+    processes that hold other rows of the batch."""
 
 
 @dataclasses.dataclass
 class QuantCtx:
     """``qmm``: the serving matmul hook ``(x, packed_leaf, name) -> y``.
-    ``tp``: the tensor-parallel group a head- and ffn-sharded serving
-    forward runs over (None: one device, no collectives)."""
+    ``tp``: the tensor-parallel group a head- and ffn-sharded forward runs
+    over (None: one device, no collectives). ``dp``: the batch axes' group
+    of a sharded training step (None: the batch is whole here)."""
 
     qmm: Optional[Any] = None
     tp: Optional[TensorParallel] = None
+    dp: Optional[DataParallel] = None
+
+    def tp_in(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` entering column-parallel (or per-head) work: under tensor
+        parallelism its gradient is summed over the shards."""
+        return x if self.tp is None else self.tp.copy_in(x)
+
+    def dp_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the batch axes' processes of a per-shard mean of
+        equal-sized shards: the whole batch's mean."""
+        if self.dp is None:
+            return x
+        return self.dp.all_reduce(x) / self.dp.size
 
     def dense(self, x: torch.Tensor, w, name: str,
               b: Optional[torch.Tensor] = None, *,

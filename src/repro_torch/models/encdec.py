@@ -33,7 +33,7 @@ from repro_torch.core.qat import QATConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.common import ModelConfig, QuantCtx
+from repro_torch.models.common import DataParallel, ModelConfig, QuantCtx
 
 ATTN = ("wq", "wk", "wv", "wo")
 
@@ -56,6 +56,22 @@ def param_shapes(cfg: ModelConfig) -> Dict:
                              (("self", "cross", "ffn"),
                               ("self_attn", "cross_attn"))),
             "lm_head": ((d, cfg.vocab), 0.02)}
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes of every leaf, the reference's: both stacks' attention
+    and MLP leaves as the decoder-only stack's, stacked over layers."""
+    enc = {"mixer_norm": (None,), "attn": T.attn_axes(cfg),
+           "ffn_norm": (None,), "mlp": T.mlp_axes(cfg)}
+    dec = {"self_norm": (None,), "self_attn": T.attn_axes(cfg),
+           "cross_norm": (None,), "cross_attn": T.attn_axes(cfg),
+           "ffn_norm": (None,), "mlp": T.mlp_axes(cfg)}
+    return {"embed": ("vocab", "fsdp"),
+            "encoder": {"blocks": [T.stack_axes(enc)],
+                        "final_norm": (None,)},
+            "decoder": {"blocks": [T.stack_axes(dec)],
+                        "final_norm": (None,)},
+            "lm_head": ("fsdp", "vocab")}
 
 
 def projections(cfg: ModelConfig, stack: str) -> Dict:
@@ -171,11 +187,14 @@ def _embed(params, cfg: ModelConfig, tokens):
 
 def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                attn_impl: str = "gather",
-               qat: Optional[QATConfig] = None) -> T.ModelApi:
+               qat: Optional[QATConfig] = None,
+               dp: Optional[DataParallel] = None) -> T.ModelApi:
     """The family's ``ModelApi``: ``train_loss``, ``init_cache``,
     ``prefill``, ``prefill_slot``, ``serve_step``, ``with_serving`` /
     ``with_qmm``. Chunked prefill, the mixed tick and the verify are None,
-    as in the reference (the engine refuses the family, ROADMAP C.12)."""
+    as in the reference (the engine refuses the family, ROADMAP C.12).
+    ``dp``: ``train_loss`` over this process's rows of a batch sharded over
+    that group, returning the whole batch's loss."""
     if attn_impl != "gather":
         raise ValueError(f"attn_impl={attn_impl!r}: the encdec family "
                          "reads a dense cache only")
@@ -212,7 +231,8 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         mask = batch.get("mask")
         mask = torch.ones(labels.shape, device=x.device) if mask is None \
             else mask.to(device=x.device, dtype=torch.float32)
-        loss = T.chunked_ce_loss(hidden, params["lm_head"], labels, mask, cfg)
+        loss = T.chunked_ce_loss(hidden, params["lm_head"], labels, mask, cfg,
+                                 dp=dp)
         return loss, {"ce": loss}
 
     def init_cache(b, s_max, dtype=None, s_enc=None, *, device="cuda",
@@ -271,7 +291,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         return T._head_logits(ctx, params, cfg, hidden[:, -1]), cache
 
     def with_serving(qmm=None, attn_impl="gather"):
-        return make_model(cfg, qmm, attn_impl, qat)
+        return make_model(cfg, qmm, attn_impl, qat, dp)
 
     return T.ModelApi(
         cfg=cfg,
@@ -286,7 +306,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         prefill_chunk_slot=None,
         mixed_step=None,
         verify_step=None,
-        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat),
+        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat, dp),
         with_serving=with_serving,
         attn_impl=attn_impl,
         qat=qat,

@@ -275,14 +275,15 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     window = cfg.sliding_window
+    x = ctx.tp_in(x)
     q = ctx.dense(x, p["wq"], name + ".wq", p.get("bq")).reshape(b, s, h, hd)
     k = ctx.dense(x, p["wk"], name + ".wk", p.get("bk")).reshape(b, s, hkv,
                                                                  hd)
     v = ctx.dense(x, p["wv"], name + ".wv", p.get("bv")).reshape(b, s, hkv,
                                                                  hd)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    if cfg.qk_norm:     # replicated scales applied to this shard's heads
+        q = rms_norm(q, ctx.tp_in(p["q_norm"]), cfg.norm_eps)
+        k = rms_norm(k, ctx.tp_in(p["k_norm"]), cfg.norm_eps)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     mode = "kernel" if attn_impl == "paged_kernel" else "gather"
@@ -356,6 +357,7 @@ def mlp_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     tanh approximation, ``jax.nn.gelu``'s default: the exact erf form
     differs by ~1e-3. Biases, where the config has them, as in JAX: on the
     gelu MLP's up projection and on the down projection."""
+    x = ctx.tp_in(x)
     if cfg.act == "swiglu":
         gate = ctx.dense(x, p["w_gate"], name + ".w_gate")
         up = ctx.dense(x, p["w_up"], name + ".w_up")
@@ -420,8 +422,9 @@ def moe_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     out = out.index_put((rows.expand(b, e * cap), token_idx.reshape(b, -1)),
                         ye.reshape(b, e * cap, d), accumulate=True)
 
-    # Switch-style load-balance aux loss
-    frac_tokens = onehot.sum(2).mean(dim=(0, 1))                 # (E,)
-    frac_probs = probs.mean(dim=(0, 1))
+    # Switch-style load-balance aux loss: a product of batch means, so a
+    # sharded batch takes each mean over the whole batch first
+    frac_tokens = ctx.dp_mean(onehot.sum(2).mean(dim=(0, 1)))   # (E,)
+    frac_probs = ctx.dp_mean(probs.mean(dim=(0, 1)))
     aux = cfg.router_aux_coef * e * torch.sum(frac_tokens * frac_probs)
     return out.to(x.dtype), aux

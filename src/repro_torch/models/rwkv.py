@@ -59,6 +59,29 @@ def rwkv_param_shapes(cfg: ModelConfig, g: int) -> Dict:
     return {"rwkv": time, "cmix": channel}
 
 
+def rwkv_param_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes of the (unstacked) time-mix (``time``) and channel-mix
+    (``channel``) leaves, the reference's."""
+    mm = ("fsdp", "model")
+    return {
+        "time": {
+            "mix_r": (None,), "mix_k": (None,), "mix_v": (None,),
+            "mix_g": (None,), "mix_w": (None,),
+            "decay_base": ("model",),
+            "decay_w1": ("fsdp", None), "decay_w2": (None, "model"),
+            "bonus": ("heads", None),
+            "wr": mm, "wk": mm, "wv": mm, "wg": mm,
+            "wo": ("model", "fsdp"),
+            "ln_scale": (None,),
+        },
+        "channel": {
+            "mix_k": (None,), "mix_r": (None,),
+            "w_key": ("fsdp", "mlp"), "w_value": ("mlp", "fsdp"),
+            "w_recept": mm,
+        },
+    }
+
+
 def _token_shift(x, shift_state):
     """Previous-token features. x (B, S, d); shift_state (B, 1, d) or
     None for zeros."""

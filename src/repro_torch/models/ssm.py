@@ -49,6 +49,17 @@ def mamba_param_shapes(cfg: ModelConfig, g: int) -> Dict:
             "out_proj": ((g, di, d), 0.02 / cfg.n_layers ** 0.5)}
 
 
+def mamba_param_axes(cfg: ModelConfig) -> Dict:
+    """Logical axes of a Mamba block's (unstacked) leaves, the reference's:
+    the inner channels (d_inner) on ``model``, the projections' d_model
+    dims on ``fsdp``."""
+    return {"in_proj": ("fsdp", "model"), "conv_w": (None, "model"),
+            "conv_b": ("model",), "x_proj": ("model", None),
+            "dt_w": (None, "model"), "dt_bias": ("model",),
+            "A_log": ("model", None), "D": ("model",),
+            "out_proj": ("model", "fsdp")}
+
+
 def _causal_conv1d(x, w, b, conv_state):
     """Depthwise causal conv along S. x (B, S, di), w (K, di), b (di,);
     ``conv_state`` (B, K-1, di) the last K-1 inputs before x, or None for

@@ -52,8 +52,8 @@ from repro_torch.core.tree import unflatten_paths
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv, ssm
-from repro_torch.models.common import (ModelConfig, QuantCtx, TensorParallel,
-                                      is_paged_cache)
+from repro_torch.models.common import (DataParallel, ModelConfig, QuantCtx,
+                                      TensorParallel, is_paged_cache)
 from repro_torch.serve.packed_params import (densify_leaf, is_packed_leaf,
                                              layer_slice)
 
@@ -197,37 +197,77 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda",
                             (shape, init) in param_leaves(cfg, shapes)})
 
 
-def param_axes(cfg: ModelConfig) -> Dict:
-    """Logical axis names of every leaf of the parameter tree, the
-    reference's (``sharding/rules.py`` maps them onto a mesh): q / k / v /
-    gate / up column-parallel, wo / w_down row-parallel, the embedding and
-    the head vocab-sharded, norms replicated; block leaves get a leading
-    None for the stacked group axis. Attention and MLP layers (the dense
-    family) only: tensor-parallel serving shards nothing else."""
-    bad = {(mixer_kind(cfg, j), ffn_kind(cfg, j))
-           for j in range(cfg.scan_group)} - {("attn", "mlp")}
-    if bad:
-        raise ValueError(f"param_axes covers attention + MLP layers; "
-                         f"family {cfg.family!r} has {sorted(bad)}")
+def attn_axes(cfg: ModelConfig) -> Dict:
+    """An attention layer's (unstacked) logical axes: q / k / v
+    column-parallel, wo row-parallel, the biases with their heads, the q/k
+    norms replicated."""
     attn = {"wq": ("fsdp", "model"), "wk": ("fsdp", "model"),
             "wv": ("fsdp", "model"), "wo": ("model", "fsdp")}
     if cfg.qkv_bias:
         attn.update(bq=("model",), bk=("model",), bv=("model",))
     if cfg.qk_norm:
         attn.update(q_norm=(None,), k_norm=(None,))
-    mlp = {"w_up": ("fsdp", "mlp"), "w_down": ("mlp", "fsdp")}
+    return attn
+
+
+def mlp_axes(cfg: ModelConfig) -> Dict:
+    """An MLP layer's: gate / up column-parallel, down row-parallel."""
     if cfg.act == "swiglu":
-        mlp["w_gate"] = ("fsdp", "mlp")
+        mlp = {"w_gate": ("fsdp", "mlp"), "w_up": ("fsdp", "mlp"),
+               "w_down": ("mlp", "fsdp")}
+    else:
+        mlp = {"w_up": ("fsdp", "mlp"), "w_down": ("mlp", "fsdp")}
     if cfg.mlp_bias:
         mlp.update(b_up=("mlp",), b_down=(None,))
+    return mlp
 
-    def stacked(tree):
-        return {k: (None,) + v for k, v in tree.items()}
 
-    block = {"mixer_norm": (None, None), "ffn_norm": (None, None),
-             "attn": stacked(attn), "mlp": stacked(mlp)}
+def moe_axes(cfg: ModelConfig) -> Dict:
+    """A MoE layer's: the raw router over d_model, the experts over
+    ``experts`` (expert parallelism where the rules map it) and ``mlp``."""
+    return {"router": ("fsdp", None),
+            "experts": {"w_gate": ("experts", "fsdp", "mlp"),
+                        "w_up": ("experts", "fsdp", "mlp"),
+                        "w_down": ("experts", "mlp", "fsdp")}}
+
+
+def block_axes(cfg: ModelConfig, j: int) -> Dict:
+    """In-group layer ``j``'s (unstacked) logical axes, by mixer and
+    feed-forward kind, the reference's ``block_axes``."""
+    mk, fk = mixer_kind(cfg, j), ffn_kind(cfg, j)
+    p: Dict = {"mixer_norm": (None,), "ffn_norm": (None,)}
+    if mk == "attn":
+        p["attn"] = attn_axes(cfg)
+    elif mk == "mamba":
+        p["mamba"] = ssm.mamba_param_axes(cfg)
+    else:
+        p["rwkv"] = rwkv.rwkv_param_axes(cfg)["time"]
+    if fk == "moe":
+        p["moe"] = moe_axes(cfg)
+    elif fk == "mlp":
+        p["mlp"] = mlp_axes(cfg)
+    else:
+        p["cmix"] = rwkv.rwkv_param_axes(cfg)["channel"]
+    return p
+
+
+def stack_axes(tree):
+    """Every axes tuple of ``tree`` with a leading None: the stacked layer
+    (group) axis."""
+    if isinstance(tree, dict):
+        return {k: stack_axes(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
+def param_axes(cfg: ModelConfig) -> Dict:
+    """Logical axis names of every leaf of the parameter tree, the
+    reference's (``sharding/rules.py`` maps them onto a mesh), for every
+    mixer and feed-forward kind: the embedding and the head vocab-sharded,
+    norms replicated, block leaves with a leading None for the stacked
+    group axis."""
     axes = {"embed": ("vocab", "fsdp"),
-            "blocks": [dict(block) for _ in range(cfg.scan_group)],
+            "blocks": [stack_axes(block_axes(cfg, j))
+                       for j in range(cfg.scan_group)],
             "final_norm": (None,)}
     if not cfg.tie_embeddings:
         axes["lm_head"] = ("fsdp", "vocab")
@@ -521,22 +561,34 @@ def _lm_head_w(params, cfg: ModelConfig):
     return params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
 
 
-def chunked_ce_loss(hidden, head_w, labels, mask, cfg: ModelConfig):
+def chunked_ce_loss(hidden, head_w, labels, mask, cfg: ModelConfig,
+                    tp: Optional[TensorParallel] = None, dp=None):
     """Mean cross entropy over the masked positions, with the f32 logits
-    taken ``seq_chunk`` positions at a time (JAX's scan over chunks)."""
+    taken ``seq_chunk`` positions at a time (JAX's scan over chunks).
+    Under tensor parallelism a vocab-sharded head's logit slices are
+    gathered into the global vocab. With ``dp`` (the batch axes' group of a
+    sharded step) the masked sum and the count are summed over the batch's
+    shards first: one global masked mean, as on one device."""
     s = hidden.shape[1]
     c = min(cfg.seq_chunk, s)
     while s % c:
         c //= 2
+    gather = tp is not None and head_w.shape[-1] != cfg.vocab
+    if gather:
+        hidden = tp.copy_in(hidden)
     w = head_w.to(torch.float32)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(0, s, c):
         logits = torch.matmul(hidden[:, i:i + c].to(torch.float32), w)
+        if gather:
+            logits = tp.all_gather_last(logits)
         lse = torch.logsumexp(logits, dim=-1)
         tgt = torch.gather(logits, -1, labels[:, i:i + c, None].long())[..., 0]
         mk = mask[:, i:i + c]
         tot = tot + torch.sum((lse - tgt) * mk)
         cnt = cnt + torch.sum(mk)
+    if dp is not None:
+        tot, cnt = dp.all_reduce(tot), dp.all_reduce(cnt)
     return tot / torch.clamp(cnt, min=1.0)
 
 
@@ -582,13 +634,17 @@ class ModelApi:
 def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                attn_impl: str = "gather",
                qat: Optional[QATConfig] = None,
-               tp: Optional[TensorParallel] = None) -> ModelApi:
+               tp: Optional[TensorParallel] = None,
+               dp: Optional[DataParallel] = None) -> ModelApi:
     """The ModelApi of ``cfg``. ``tp`` (the reference's ``tp_axis``): the
-    serving entry points run on this process's shard of head- and
-    ffn-sharded weights (``cfg`` the local one: heads / tp, ``head_dim``
-    pinned, the global vocab) and all-reduce / all-gather over ``tp``'s
-    group: the row-parallel projections, the vocab-sharded embedding, the
-    head's logit slices. None is the single-device math."""
+    entry points run on this process's shard of head- and ffn-sharded
+    weights (``cfg`` the local one: heads / tp, ``head_dim`` pinned, the
+    global vocab) and all-reduce / all-gather over ``tp``'s group: the
+    row-parallel projections, the vocab-sharded embedding, the head's logit
+    slices; ``train_loss``'s gradients are the single device's, sharded.
+    ``dp``: ``train_loss`` runs on this process's rows of a batch sharded
+    over that group and returns the whole batch's loss (a sharded training
+    step, ``train/state.py``). None is the single-device math."""
     if attn_impl not in ("gather", "paged_kernel"):
         raise ValueError(f"unknown attn_impl {attn_impl!r}; one of "
                          "('gather', 'paged_kernel')")
@@ -607,18 +663,18 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         if qat is not None and qat.enabled:
             qparams = fake_quant_blocks(
                 qat, n_fmts if fmt_idx is None else int(fmt_idx), params, cfg)
-        x, extra = _embed_prefixed(params, cfg, batch)
+        x, extra = _embed_prefixed(params, cfg, batch, tp)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
-        hidden, aux = forward_hidden(QuantCtx(), qparams, cfg, x, positions,
-                                     None, None, prefill=True)
+        hidden, aux = forward_hidden(QuantCtx(tp=tp, dp=dp), qparams, cfg, x,
+                                     positions, None, None, prefill=True)
         hidden = hidden[:, extra:]
         labels = batch["labels"]
         mask = batch.get("mask")
         mask = torch.ones(labels.shape, device=x.device) if mask is None \
             else mask.to(torch.float32)
         loss = chunked_ce_loss(hidden, _lm_head_w(params, cfg), labels, mask,
-                               cfg)
+                               cfg, tp, dp)
         return loss + aux, {"ce": loss, "aux": aux}
 
     def init_cache(b, s_max, dtype=None, *, device="cuda",
@@ -808,7 +864,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         return logits.reshape(b, c, -1), cache
 
     def with_serving(qmm=None, attn_impl="gather"):
-        return make_model(cfg, qmm, attn_impl, qat, tp)
+        return make_model(cfg, qmm, attn_impl, qat, tp, dp)
 
     return ModelApi(
         cfg=cfg,
@@ -823,7 +879,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         mixed_step=mixed_step,
         verify_step=verify_step,
         # the derived api keeps this one's attn_impl: chaining composes
-        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat, tp),
+        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat, tp, dp),
         with_serving=with_serving,
         attn_impl=attn_impl,
         qat=qat,

@@ -41,10 +41,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(params, grads, state, cfg: AdamWConfig,
-                 lr_scale: float = 1.0):
-    """Returns (new_params, new_state, metrics)."""
+                 lr_scale: float = 1.0, gnorm: Optional[torch.Tensor] = None):
+    """Returns (new_params, new_state, metrics). ``gnorm``: the global
+    gradient norm when ``grads`` is one process's shard of the tree (a
+    sharded step computes it over every shard); None takes it from
+    ``grads``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = None
     if cfg.grad_clip is not None:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),

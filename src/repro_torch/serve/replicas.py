@@ -6,14 +6,20 @@ axis. Data parallelism is the other axis: independent engines, each serving
 a disjoint slice of the request stream. Requests partition by
 ``rid % n_replicas``: deterministic, stateless and stable across snapshot /
 resume. Each replica's wave is a plain single-engine wave, so its streams
-are the ones its requests get alone on one engine; replicas serve one after
-another, as the reference's do.
+are the ones its requests get alone on one engine.
 
 ``tp == 1`` builds every engine with ``mesh=None`` on the caller's device,
-as the reference does. A replica of ``tp > 1`` shards over processes (one
-per shard), so one process cannot hold the whole set: such a set is
-refused (ROADMAP A.9.3); run one ``ElasticEngine(mesh=...)`` per replica's
-process group instead. ``replica_meshes`` carves the grid all the same.
+as the reference does; its replicas serve one after another in this
+process. A replica of ``tp > 1`` shards over ``tp`` processes (one per
+shard, as ``ElasticEngine(mesh=...)``), so the set runs in
+``n_replicas * tp`` processes of an initialised default group, every one
+of them building the set: each makes every replica's process group (in the
+same order: ``new_group`` is collective) and holds its own replica's
+engine, on that replica's ``(1, tp)`` mesh. Each process serves its
+replica's partition, so the replicas serve at the same time; the finished
+requests are then exchanged, so that every process returns all of them,
+mutated in place, as the reference's ``generate`` does. ``stats`` sums
+over the replicas, a collective too.
 """
 from __future__ import annotations
 
@@ -59,18 +65,53 @@ class ReplicaSet:
             raise ValueError(
                 "pass tp= instead of mesh=; ReplicaSet builds one "
                 "(1, tp) mesh per replica")
-        if tp > 1:
-            replica_meshes(n_replicas, tp, devices)
-            raise NotImplementedError(
-                f"ReplicaSet(tp={tp}): each replica shards over tp "
-                "processes, so one process cannot build the set; run one "
-                "ElasticEngine(mesh=...) per replica's group (ROADMAP "
-                "A.9.3)")
         self.n_replicas = n_replicas
         self.tp = tp
-        self.engines: List[ElasticEngine] = [
-            ElasticEngine(api, anchor, **engine_kwargs)
-            for _ in range(n_replicas)]
+        self.replica: Optional[int] = None   # this process's (tp > 1)
+        if tp > 1:
+            self.replica, mesh = self._join(
+                replica_meshes(n_replicas, tp, devices))
+            self.engines: List[ElasticEngine] = [
+                ElasticEngine(api, anchor, mesh=mesh, **engine_kwargs)]
+        else:
+            self.engines = [ElasticEngine(api, anchor, **engine_kwargs)
+                            for _ in range(n_replicas)]
+
+    def _join(self, meshes: List[Mesh]):
+        """Make every replica's process group (every process, in order)
+        and return (this process's replica, its mesh with the group)."""
+        import torch.distributed as dist
+        need = self.n_replicas * self.tp
+        world = dist.get_world_size() if dist.is_available() \
+            and dist.is_initialized() else None
+        if world != need or sorted(int(r) for m in meshes
+                                   for r in m.devices.ravel()) \
+                != list(range(need)):
+            raise ValueError(
+                f"ReplicaSet(n_replicas={self.n_replicas}, tp={self.tp}) "
+                f"runs in {need} processes, one per shard, the ranks of an "
+                f"initialised default group of {need} (this one: "
+                f"{'none' if world is None else world})")
+        rank, mine = dist.get_rank(), None
+        for i, m in enumerate(meshes):
+            ranks = [int(r) for r in m.devices.ravel()]
+            group = dist.new_group(ranks)
+            if rank in ranks:
+                mine = i, Mesh(m.devices, m.axis_names, group=group,
+                               coords={"data": 0,
+                                       "model": ranks.index(rank)})
+        return mine
+
+    def _gather(self, obj) -> List:
+        """Every process's ``obj``, in rank order (a collective)."""
+        import torch.distributed as dist
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, obj)
+        return out
+
+    def _lead(self) -> bool:
+        """This process is its replica's first shard (tp > 1)."""
+        return self.engines[0].mesh.coord("model") == 0
 
     def home(self, rid: int) -> int:
         """The replica index serving request ``rid``."""
@@ -84,14 +125,37 @@ class ReplicaSet:
 
     def generate(self, requests: List[Request], **kw) -> List[Request]:
         """Serve ``requests`` across the replicas; returns them all (each
-        mutated in place by its home engine, in the original order)."""
-        for part, eng in zip(self.partition(requests), self.engines):
-            if part:
-                eng.generate(part, **kw)
+        mutated in place by its home engine, in the original order). With
+        ``tp > 1`` every process of the set calls it with the same
+        requests: it serves its replica's part, then takes the others'
+        finished requests from their replicas' first shards."""
+        if self.tp == 1:
+            for part, eng in zip(self.partition(requests), self.engines):
+                if part:
+                    eng.generate(part, **kw)
+            return requests
+        part = self.partition(requests)[self.replica]
+        if part:
+            self.engines[0].generate(part, **kw)
+        mine = [(i, vars(r)) for i, r in enumerate(requests)
+                if self.home(r.rid) == self.replica] if self._lead() else []
+        for done in self._gather(mine):
+            for i, fields in done:
+                if self.home(requests[i].rid) != self.replica:
+                    vars(requests[i]).update(fields)
         return requests
 
     def stats(self) -> Dict:
-        per = [e.stats() for e in self.engines]
+        """The set's counters: per replica, and ``tokens_out`` / ``ticks``
+        summed (with ``tp > 1``, a collective of every process)."""
+        if self.tp == 1:
+            per = [e.stats() for e in self.engines]
+        else:
+            lead = (self.replica, self.engines[0].stats()) \
+                if self._lead() else None
+            per = [st for _, st in sorted(
+                (x for x in self._gather(lead) if x is not None),
+                key=lambda x: x[0])]
         return {
             "n_replicas": self.n_replicas,
             "tp": self.tp,

@@ -29,8 +29,8 @@ from repro_torch.models.transformer import ModelApi
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 from repro_torch.runtime.fault import (PreemptionGuard, StragglerMonitor,
                                        Watchdog)
-from repro_torch.train.state import (TrainState, build_train_step,
-                                     state_arrays)
+from repro_torch.train.state import (ShardedTrainStep, TrainState,
+                                     build_train_step, state_arrays)
 
 
 @dataclasses.dataclass
@@ -67,12 +67,21 @@ def run_training(api: ModelApi, data: LMDataset, opt_cfg: AdamWConfig,
                  on_step: Optional[Callable] = None,
                  device="cuda") -> Dict:
     """Resume from the latest checkpoint in ``loop.ckpt_dir`` (written by
-    either package), or train from ``api.init_params(seed)``."""
+    either package), or train from ``api.init_params(seed)``.
+
+    ``step_fn`` may be a sharded step (``train/state.py::
+    make_sharded_train_step``), run in every process of its mesh: each
+    builds or restores the whole state and keeps its shard, steps on its
+    rows of each batch, and a checkpoint gathers the whole state, which the
+    process at the mesh's origin writes (the single device's format, so
+    either a mesh or one device resumes it). The result's ``state`` is then
+    this process's shard."""
     dev = resolve_device(device)
     n_formats = len(api.qat.formats) if api.qat else 0
     schedule = make_schedule(loop.schedule, n_formats, loop.total_steps)
     if step_fn is None:
         step_fn = build_train_step(api, opt_cfg)
+    sharded = isinstance(step_fn, ShardedTrainStep)
 
     start_step = 0
     if loop.ckpt_dir and ckpt_io.latest_step(loop.ckpt_dir) is not None:
@@ -84,16 +93,21 @@ def run_training(api: ModelApi, data: LMDataset, opt_cfg: AdamWConfig,
         state = TrainState(params=params,
                            opt=init_opt_state(params, opt_cfg), step=0)
         del params         # the state owns the tree; each step replaces it
+    if sharded:
+        state = step_fn.shard_state(state)
 
     monitor = StragglerMonitor()
     history: List[Dict] = []
     watchdog = Watchdog(loop.watchdog_timeout_s).start()
 
+    preempted = False
     with PreemptionGuard() as guard:
         for step in range(start_step, loop.total_steps):
             t0 = time.perf_counter()
             batch = {k: torch.from_numpy(v).to(dev)
                      for k, v in data.batch_at(step).items()}
+            if sharded:
+                batch = step_fn.shard_batch(batch)
             state, metrics = step_fn(state, batch, int(schedule[step]))
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
@@ -104,17 +118,24 @@ def run_training(api: ModelApi, data: LMDataset, opt_cfg: AdamWConfig,
             if on_step:
                 on_step(step, metrics)
 
+            # a signal may reach one process of a mesh: all stop together
+            preempted = step_fn.any(guard.preempted) if sharded \
+                else guard.preempted
             should_ckpt = loop.ckpt_dir and (
-                (step + 1) % loop.ckpt_every == 0 or guard.preempted
+                (step + 1) % loop.ckpt_every == 0 or preempted
                 or step + 1 == loop.total_steps)
             if should_ckpt:
-                ckpt_io.save(loop.ckpt_dir, step + 1, state_arrays(state),
-                             extra_meta={"schedule": loop.schedule},
-                             keep_n=loop.keep_n)
-            if guard.preempted:
+                whole = step_fn.gather_state(state) if sharded else state
+                if not sharded or step_fn.is_writer:
+                    ckpt_io.save(loop.ckpt_dir, step + 1,
+                                 state_arrays(whole),
+                                 extra_meta={"schedule": loop.schedule},
+                                 keep_n=loop.keep_n)
+                del whole
+            if preempted:
                 break
     watchdog.stop()
     return {"state": state, "history": history,
             "stragglers": monitor.events,
-            "preempted": guard.preempted,
+            "preempted": guard.preempted or preempted,
             "last_step": history[-1]["step"] + 1 if history else start_step}

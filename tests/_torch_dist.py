@@ -136,3 +136,138 @@ def tp_engine_worker(rank, arch, path, prompts, max_new, fmts, snap_dir):
     out["resumed"] = [r.out_tokens
                       for r in engine("dense").resume(snap_dir)]
     return out
+
+
+def _np_tree(tree):
+    """{keystr path: numpy} of a tensor tree."""
+    from repro_torch.core.tree import flatten_paths
+    return {k: v.detach().cpu().numpy() for k, v in flatten_paths(tree)}
+
+
+def sharded_step_worker(rank, arch, cases, flat, batches, fmt_idx, lr,
+                        anchor=None):
+    """The port's sharded train step of a reduced ``arch`` (MXINT formats,
+    ``anchor`` for anchored QAT) on meshes of this group, from the whole
+    numpy parameters ``flat`` and a zero AdamW state. Per case ``(shape,
+    microbatch)``: ``gather_state(shard_state(s)) == s`` bit for bit, the
+    state bytes this process holds and the whole state's, then one step per
+    batch of ``batches``: each step's loss and grad norm; at the first
+    batch the whole-batch ``train_loss`` terms (ce, aux) and the gathered
+    gradients (microbatch 1), and the gathered parameters and moments after
+    the first step."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.core.tree import flatten_paths
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.train.state import (TrainState, gather_tree,
+                                         make_sharded_train_step)
+    cfg = get_reduced(arch)
+    api = get_model(cfg, QATConfig(formats=TRAIN_FORMATS_MXINT,
+                                   anchor=anchor))
+    opt = AdamWConfig(lr=lr)
+    tbs = [{k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+           for b in batches]
+
+    def nbytes(s):
+        return sum(t.numel() * t.element_size() for _, t in flatten_paths(
+            (s.params, s.opt["m"], s.opt["v"])))
+
+    out = {}
+    for shape, microbatch in cases:
+        mesh = make_debug_mesh(*shape)
+        params = params_from_numpy(flat, cfg, device="cpu")
+        state = TrainState(params, init_opt_state(params, opt), 0)
+        step, specs = make_sharded_train_step(api, mesh, opt, tbs[0],
+                                              microbatch=microbatch)
+        local = step.shard_state(state)
+        back = step.gather_state(local)
+        same = (back.step, back.opt["step"]) == (
+            state.step, state.opt["step"]) and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                flatten_paths((state.params, state.opt["m"],
+                               state.opt["v"])),
+                flatten_paths((back.params, back.opt["m"],
+                               back.opt["v"]))))
+        rec = {"roundtrip": same, "bytes": (nbytes(local), nbytes(state)),
+               "losses": [], "grad_norms": []}
+        for i, tb in enumerate(tbs):
+            lb = step.shard_batch(tb)
+            if i == 0:
+                _, terms = step.loss(local.params, lb, fmt_idx)
+                rec["terms"] = {k: float(v) for k, v in terms.items()}
+                if microbatch == 1:
+                    _, g = step.loss_and_grads(local.params, lb, fmt_idx)
+                    rec["grads"] = _np_tree(gather_tree(g, specs.params,
+                                                        mesh))
+            local, m = step(local, lb, fmt_idx)
+            rec["losses"].append(float(m["loss"]))
+            rec["grad_norms"].append(float(m["grad_norm"]))
+            if i == 0:
+                whole = step.gather_state(local)
+                rec["params"] = _np_tree(whole.params)
+                rec["m"] = _np_tree(whole.opt["m"])
+                rec["step"] = (whole.step, whole.opt["step"])
+        out[shape, microbatch] = rec
+    return out
+
+
+def sharded_loop_worker(rank, arch, shape, ckpt_dir, steps, seq, batch, lr):
+    """``run_training`` with a sharded step on a ``shape`` mesh of this
+    group (sequential MXINT schedule over ``steps``), checkpointing into
+    ``ckpt_dir`` at the end: the per-step losses."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.data.pipeline import DataConfig, LMDataset
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import LoopConfig, run_training
+    from repro_torch.train.state import make_sharded_train_step
+    cfg = get_reduced(arch)
+    api = get_model(cfg, QATConfig(formats=TRAIN_FORMATS_MXINT))
+    data = LMDataset(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                global_batch=batch))
+    opt = AdamWConfig(lr=lr)
+    step, _ = make_sharded_train_step(api, make_debug_mesh(*shape), opt,
+                                      data.batch_at(0))
+    res = run_training(api, data, opt,
+                       LoopConfig(total_steps=steps, ckpt_dir=ckpt_dir,
+                                  ckpt_every=steps),
+                       step_fn=step, device="cpu")
+    return [h["loss"] for h in res["history"]]
+
+
+def replica_set_worker(rank, arch, path, prompts, max_new, fmt, n_replicas,
+                       tp):
+    """``ReplicaSet(n_replicas, tp=tp)`` over this group (every process
+    builds it and serves every request): the streams, statuses and homes
+    of the requests this process returns, and the set's ``stats``."""
+    from repro_torch.checkpoint.anchor_ckpt import load_anchor
+    from repro_torch.configs import get_reduced
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import Request
+    from repro_torch.serve.replicas import ReplicaSet
+
+    rs = ReplicaSet(make_model(get_reduced(arch)),
+                    load_anchor(path, device="cpu"), n_replicas=n_replicas,
+                    tp=tp, batch_slots=2, max_len=48, device="cpu")
+    reqs = [Request(i, p, max_new) for i, p in enumerate(prompts)]
+    got = rs.generate(reqs, fmt_override=fmt)
+    st = rs.stats()
+    return {"same_objects": all(a is b for a, b in zip(got, reqs)),
+            "rids": [r.rid for r in got],
+            "streams": [r.out_tokens for r in got],
+            "status": [r.status.value for r in got],
+            "homes": [rs.home(r.rid) for r in got],
+            "replica": rs.replica,
+            "stats": {k: st[k] for k in ("n_replicas", "tp", "tokens_out",
+                                         "ticks")},
+            "per_replica": [(s["tokens_out"], s["ticks"])
+                            for s in st["replicas"]]}

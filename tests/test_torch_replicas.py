@@ -7,6 +7,10 @@ streams are more than the last prompt token repeated); JAX's
 serve the same requests. Streams, each request's home replica, and the
 set's ``tokens_out`` and ``ticks`` must be equal, and each stream must be
 the one a lone engine gives; the refusals carry the reference's messages.
+``ReplicaSet(2, tp=2)`` runs in four gloo processes (``tests/
+_torch_dist.py``), each replica sharded over two of them: every process
+returns every request with JAX's ``tp = 1`` streams (JAX's ``tp > 1``
+needs four devices; the host has two) and the set's summed stats.
 """
 import jax
 import numpy as np
@@ -26,6 +30,7 @@ from repro_torch.models.transformer import make_model
 from repro_torch.serve.engine import ElasticEngine, Request
 from repro_torch.serve.replicas import ReplicaSet, replica_meshes
 from repro_torch.sharding.rules import mesh_sizes
+from _torch_dist import replica_set_worker, run_ranks
 
 SLOTS, MAX_LEN, MAX_NEW, N_REQ = 2, 48, 6, 5
 PROJ = ("'wq'", "'wk'", "'wv'", "'wo'", "'w_gate'", "'w_up'", "'w_down'")
@@ -110,9 +115,31 @@ def test_refusals_match_the_reference(served):
                                    **_kw()))
     _same_error(lambda: jreplica_meshes(2, 2),
                 lambda: replica_meshes(2, 2, devices=[0, 1]))
-    with pytest.raises(NotImplementedError, match="A.9.3"):
+    # a sharded replica runs one process per shard: four of them here,
+    # joined in a default group, which this process is not
+    with pytest.raises(ValueError, match="one per shard"):
         ReplicaSet(papi, panchor, n_replicas=2, tp=2, devices=[0, 1, 2, 3],
                    **_kw())
+
+
+def test_sharded_replicas_over_four_processes(served):
+    """``ReplicaSet(2, tp=2)``: each process holds one shard of one
+    replica, serves its replica's part at the same time as the other
+    replica, and returns every request, in order, mutated in place."""
+    _, _, _, path, prompts, want = served
+    ranks = run_ranks(replica_set_worker, 4, "smollm-135m", path, prompts,
+                      MAX_NEW, "mxint8", 2, 2)
+    for rank, got in enumerate(ranks):
+        assert got["replica"] == rank // 2
+        assert got["same_objects"] and got["rids"] == list(range(N_REQ))
+        assert dict(zip(got["rids"], got["streams"])) == want["streams"]
+        assert got["homes"] == want["homes"] == [0, 1, 0, 1, 0]
+        assert got["status"] == ["completed"] * N_REQ
+        assert got["stats"] == {"n_replicas": 2, "tp": 2,
+                                "tokens_out": want["tokens_out"],
+                                "ticks": want["ticks"]}
+        assert [t for t, _ in got["per_replica"]] == [3 * MAX_NEW,
+                                                      2 * MAX_NEW]
 
 
 def test_replica_meshes_are_disjoint():

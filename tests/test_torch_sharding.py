@@ -3,7 +3,8 @@ the JAX package's.
 
 ``spec_for_axes`` on the cases of ``tests/test_infra.py``'s
 ``test_spec_resolution_divisibility`` and on a grid of shapes, logical axes
-and mesh sizes; ``param_axes`` of every dense config; on a real (1, 2) JAX
+and mesh sizes; ``param_axes`` of every dense config (every family:
+``tests/test_torch_sharded_train.py``); on a real (1, 2) JAX
 mesh (the root conftest pins two host devices), ``packed_param_specs``
 against ``packed_param_shardings``, ``repack_splitn_for_tp`` bit for bit,
 each rank's ``local_shard`` against the addressable shard JAX places there,
@@ -139,8 +140,20 @@ def test_cache_axes_equal_jax(layout):
 
 
 def test_param_axes_refuse_a_non_dense_stack():
-    with pytest.raises(ValueError, match="attention \\+ MLP"):
-        param_axes(get_reduced("mixtral-8x7b"))
+    """``param_axes`` covers every family (the reference's ``block_axes``);
+    a non-dense stack is refused where a ``model`` axis above 1 would
+    shard it: the sharded training step names ROADMAP A.9.4 (the
+    tensor-parallel engine's guard: ``tests/test_torch_tp_engine.py``)."""
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.state import make_sharded_train_step
+    cfg = get_reduced("mixtral-8x7b")
+    assert param_axes(cfg)["blocks"][0]["moe"]["experts"]["w_up"] == (
+        None, "experts", "fsdp", "mlp")
+    with pytest.raises(ValueError, match="A.9.4"):
+        make_sharded_train_step(get_model(cfg), _mesh((1, 2), ("data",
+                                                              "model")),
+                                AdamWConfig(), {"tokens": (2, 8)})
 
 
 @pytest.fixture(scope="module")
