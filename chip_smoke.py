@@ -17,6 +17,7 @@ check them.
     python3 chip_smoke.py --eval-only
     python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --mesh-train-only
+    python3 chip_smoke.py --mesh-family-only
     python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
@@ -26,7 +27,8 @@ check them.
 17, ``--hybrid-only`` phases 1, 2 and 18, ``--rwkv-only`` phases 1, 2 and
 19, ``--encdec-only`` phases 1, 2 and 20, ``--eval-only`` phases 1, 2 and
 21, ``--mesh-only`` phases 1, 2 and 22, ``--mesh-train-only`` phases 1, 2
-and 23, ``--train-only`` phases 1 and 2
+and 23, ``--mesh-family-only`` phases 1, 2 and 24, ``--train-only``
+phases 1 and 2
 and then phase 6's smollm-135m runs A and B, each step split into its
 parts (with ``--src``, another tree's, for a same-call A/B of the training
 step), ``--serve-only`` phases 1 and 2 and then greedy
@@ -332,7 +334,20 @@ Phases (any failure exits non-zero before the result line):
      same gates; then ReplicaSet(n_replicas=2, tp=2) in four processes
      serving 8 greedy requests at mxint8: every process returns every
      request, homes rid % 2, the set's stats summed, the streams equal to a
-     single-process ReplicaSet(2)'s up to near ties (as 22).
+     single-process ReplicaSet(2)'s up to near ties (as 22);
+ 24. tensor-parallel training of every other family, two processes sharing
+     the card over gloo (a correctness run, not a sharded speed), each at
+     its published widths, f32, direct MXINT QAT at mxint4, batch 2 x seq
+     512 with the two rows' masks differing: mixtral-8x7b at 1 layer
+     (expert-parallel, 4 of 8 experts a process), jamba's published layer
+     2 (Mamba + MLP, d_inner 16384 split in two), rwkv6-7b at 1 layer (32
+     of 64 heads a process), llava at 1 layer behind its 2880-token image
+     prefix, seamless at 1 encoder + 1 decoder layer over 1,024 frames;
+     make_sharded_train_step at (1, 2) against one process's forward and
+     backward: loss and grad norm within MESH_TRAIN_TOL relative, every
+     gradient leaf within MESH_TRAIN_TOL x its max|g|, B7 launches equal;
+     each process's parameter bytes against the whole and the CUDA-event
+     ms beside one process's printed.
 ``--layers N`` serves qwen3-4b at N of its 36 layers in phases 8a-12 and
 in the modes that run them alone; the default is QWEN3_LAYERS (20), cut
 from 36 to give back the time of phases 22 (28 layers) and 23 (20).
@@ -5786,15 +5801,15 @@ def _mesh_train_cfg(name: str, layers: int):
                                compute_dtype=torch.float32)
 
 
-def _mesh_train_batch(cfg, batch: int, seed: int):
+def _mesh_train_batch(cfg, batch: int, seed: int, seq: int = TRAIN_SEQ):
     """A seeded batch on the card (the same in every process), seq
-    TRAIN_SEQ, its masks differing between the two row halves."""
+    ``seq``, its masks differing between the two row halves."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(seed + 23)
-    tok = torch.randint(0, cfg.vocab, (batch, TRAIN_SEQ + 1), generator=gen,
+    tok = torch.randint(0, cfg.vocab, (batch, seq + 1), generator=gen,
                         device="cuda", dtype=torch.int64).to(torch.int32)
-    mask = torch.ones((batch, TRAIN_SEQ), device="cuda")
-    mask[:batch // 2, TRAIN_SEQ // 4:] = 0.0
+    mask = torch.ones((batch, seq), device="cuda")
+    mask[:batch // 2, seq // 4:] = 0.0
     return {"tokens": tok[:, :-1].contiguous(),
             "labels": tok[:, 1:].contiguous(), "mask": mask}
 
@@ -6185,6 +6200,250 @@ def phase_mesh_train(seed: int):
     return launches
 
 
+# ---- phase 24: tensor-parallel training of the other families -----------
+# (config, cut of the published config): each at its published widths, one
+# layer (jamba: published layer 2, Mamba + MLP, phase 18's training cut;
+# seamless: one encoder and one decoder layer).
+MESH_FAMILY = (
+    ("mixtral-8x7b", dict(n_layers=1)),
+    ("jamba-1.5-large-398b", dict(n_layers=1, scan_group=1, attn_every=2,
+                                  attn_offset=1, moe_every=2, moe_offset=1)),
+    ("rwkv6-7b", dict(n_layers=1)),
+    ("llava-next-mistral-7b", dict(n_layers=1)),
+    ("seamless-m4t-large-v2", dict(n_layers=1, enc_layers=1)))
+MESH_FAMILY_ROWS, MESH_FAMILY_FRAMES = 2, 1024
+# llava's text behind its 2,880 image positions: 3,072 positions in all, a
+# multiple of its seq_chunk (1,024), so the flash backward runs 1,024-wide
+# chunks (2,880 + 512 = 3,392 would halve them to 64: 53 x 53 blocks)
+MESH_FAMILY_VLM_TEXT = 192
+
+
+def _mesh_family_cfg(name: str):
+    """``name`` cut as MESH_FAMILY says, in f32 (as phase 23's configs)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name), compute_dtype=torch.float32,
+                               **dict(MESH_FAMILY)[name])
+
+
+def _mesh_family_batch(cfg, seed: int):
+    """``_mesh_train_batch`` of MESH_FAMILY_ROWS rows, with the image
+    prefix (x 0.02, as the vlm phase's) ahead of MESH_FAMILY_VLM_TEXT
+    tokens, or the MESH_FAMILY_FRAMES frame embeddings the family reads."""
+    import torch
+    batch = _mesh_train_batch(cfg, MESH_FAMILY_ROWS, seed,
+                              MESH_FAMILY_VLM_TEXT if cfg.vision_tokens
+                              else TRAIN_SEQ)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 24)
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = torch.randn(
+            (MESH_FAMILY_ROWS, cfg.vision_tokens, cfg.d_model),
+            generator=gen, device="cuda") * 0.02
+    if cfg.family == "encdec":
+        batch["frame_embeds"] = torch.randn(
+            (MESH_FAMILY_ROWS, MESH_FAMILY_FRAMES, cfg.d_model),
+            generator=gen, device="cuda")
+    return batch
+
+
+def _mesh_family_work(rank: int, seed: int):
+    """One process of phase 24 (two processes on cuda:0). Both warm up
+    together (the reduced mixtral's step at (1, 2): B7 and the
+    collectives), then per family each computes, in turn, the
+    single-process forward and backward from the seeded weights and keeps
+    its own shard of the gradients on the card (no host copy); then
+    make_sharded_train_step at (1, 2) runs in both: the whole batch's loss
+    and grad norm, this process's shard of each gradient leaf held against
+    the same slice of its reference (max |sharded - single| / max |single|
+    over the whole leaf), the parameter bytes it holds against the whole
+    tree's, the CUDA-event ms and the B7 launches of the forward and
+    backward. No AdamW (phase 23 learned that the f32 states of two
+    processes do not fit with the references)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.core.tree import flatten_paths
+    from repro_torch.kernels import fake_quant
+    from repro_torch.launch.mesh import Mesh, make_debug_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim.adamw import AdamWConfig, global_norm
+    from repro_torch.serve.packed_params import local_shard
+    from repro_torch.train.state import make_sharded_train_step, with_specs
+
+    opt = AdamWConfig(lr=TRAIN_LR)
+    qat = QATConfig(formats=TRAIN_FORMATS_MXINT)
+    one = Mesh(np.arange(1).reshape(1, 1), ("data", "model"))
+    mesh = make_debug_mesh(1, 2)
+    t0 = time.perf_counter()
+
+    def lap(what):
+        log(f"mesh family rank {rank}: {what} at "
+            f"{time.perf_counter() - t0:.1f} s")
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for _, t in flatten_paths(tree))
+
+    small = get_model(get_reduced("mixtral-8x7b"), qat)
+    params = small.init_params(seed, device="cuda")
+    batch = _mesh_train_batch(small.cfg, 2, seed)
+    step, specs = make_sharded_train_step(small, mesh, opt, batch)
+    step.loss_and_grads(local_shard(params, specs.params, mesh),
+                        step.shard_batch(batch), 1)
+    del small, params, batch, step
+    lap("warm-up")
+    out = {}
+    for name, _ in MESH_FAMILY:
+        cfg = _mesh_family_cfg(name)
+        api = get_model(cfg, qat)
+        batch = _mesh_family_batch(cfg, seed)
+        step, specs = make_sharded_train_step(api, mesh, opt, batch)
+        rec = {}
+        for turn in range(2):       # one reference at a time on the card
+            if turn == rank:
+                params = api.init_params(seed, device="cuda")
+                single, _ = make_sharded_train_step(api, one, opt, batch)
+                fake_quant.reset_launches()
+                (loss, grads), ms = _timed(lambda: single.loss_and_grads(
+                    params, batch, 1))
+                rec["single"] = dict(loss=float(loss),
+                                     grad_norm=float(global_norm(grads)),
+                                     ms=ms, fake_quant=fake_quant.launches[
+                                         "fake_quant"])
+                scale = {k: float(v.abs().max())
+                         for k, v in flatten_paths(grads)}
+                ref = {k: local_shard(v, spec, mesh).clone()
+                       for k, v, spec in with_specs(grads, specs.params)}
+                del params, single, grads, loss
+                torch.cuda.empty_cache()
+                lap(f"{name} single process")
+            dist.barrier()
+        params = api.init_params(seed, device="cuda")
+        whole = nbytes(params)
+        lp = local_shard(params, specs.params, mesh)
+        del params
+        torch.cuda.empty_cache()
+        lb = step.shard_batch(batch)
+        fake_quant.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, grads), ms = _timed(lambda: step.loss_and_grads(lp, lb, 1))
+        gnorm = step.global_norm(grads)
+        launched = fake_quant.launches["fake_quant"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        worst, worst_leaf = 0.0, None
+        for k, leaf in flatten_paths(grads):
+            err = float((leaf - ref[k]).abs().max()) / max(scale[k], 1e-30)
+            if err >= worst:
+                worst, worst_leaf = err, k
+        rec["tp"] = dict(loss=float(loss), grad_norm=float(gnorm), ms=ms,
+                         fake_quant=launched, worst=worst,
+                         worst_leaf=worst_leaf, bytes=nbytes(lp),
+                         whole_bytes=whole, peak=peak,
+                         dims=str(step.tensor_parallel.dims))
+        out[name] = rec
+        del lp, lb, step, grads, loss, batch, ref
+        torch.cuda.empty_cache()
+        dist.barrier()
+        lap(f"{name} (1, 2) compared")
+    return out
+
+
+def _mesh_family_rank(rank: int, port: int, seed: int, q) -> None:
+    """One process of phase 24: cuda:0 in a gloo group of two; puts its
+    record (or the error) on ``q``."""
+    import traceback
+    try:
+        import torch
+        import torch.distributed as dist
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                world_size=2, rank=rank)
+        try:
+            q.put((rank, "ok", _mesh_family_work(rank, seed)))
+        finally:
+            dist.destroy_process_group()
+    except (Exception, SystemExit):
+        q.put((rank, "error", traceback.format_exc()))
+
+
+def phase_mesh_family(seed: int):
+    """Phase 24: tensor-parallel training of every family but the dense
+    one, at (1, 2), two processes on the one card over gloo (a correctness
+    run, not a sharded speed): forward and backward against one process's,
+    gated on the loss, every gradient leaf and the B7 launches. Returns
+    the B7 launches of the sharded runs."""
+    import torch
+    t_phase = time.perf_counter()
+    for name, cut in MESH_FAMILY:
+        prefix = _mesh_family_cfg(name).vision_tokens
+        seq = f"{prefix} + {MESH_FAMILY_VLM_TEXT}" if prefix \
+            else f"{TRAIN_SEQ}"
+        log(f"DEPTH CUT: {name} trains {cut['n_layers']} layer"
+            + (f" and {cut['enc_layers']} encoder layer"
+               if "enc_layers" in cut else "")
+            + f" at published widths, f32, batch {MESH_FAMILY_ROWS} x seq "
+            + seq + (", published layer 2 (Mamba + MLP)" if "jamba" in name
+                     else ""))
+    log("DEPTH CUT: jamba's expert layer (16 experts of 8192 x 24576) is "
+        "left out: its f32 weights and gradients do not fit twice on one "
+        "card beside the references, so mixtral-8x7b carries the "
+        "expert-parallel path on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = _spawn(_mesh_family_rank, 2, seed, "mesh family training")
+    tol = MESH_TRAIN_TOL
+    launches = 0
+    for name, _ in MESH_FAMILY:
+        single = ranks[0][name]["single"]
+        other = ranks[1][name]["single"]
+        if abs(other["loss"] - single["loss"]) > tol * abs(single["loss"]):
+            fail(f"mesh family {name}: the two processes' single-process "
+                 f"references differ ({single['loss']} / {other['loss']})")
+        log(f"mesh family {name} one process: loss {single['loss']:.6f}, "
+            f"grad norm {single['grad_norm']:.6f}, forward + backward "
+            f"{single['ms']:.1f} ms (CUDA events), B7 launches "
+            f"{single['fake_quant']} (process 1's reference: loss "
+            f"{other['loss']:.6f}, {other['ms']:.1f} ms)")
+        recs = [r[name]["tp"] for r in ranks]
+        for r, rec in enumerate(recs):
+            launches += rec["fake_quant"]
+            log(f"mesh family {name} (1, 2) rank {r} ({rec['dims']}): loss "
+                f"{rec['loss']:.6f}, grad norm {rec['grad_norm']:.6f}; "
+                f"forward + backward {rec['ms']:.1f} ms (CUDA events; two "
+                "processes share the card over gloo: a correctness run, "
+                f"not a sharded speed); parameters {rec['bytes']} of "
+                f"{rec['whole_bytes']} bytes "
+                f"({rec['bytes'] / rec['whole_bytes']:.4f}), peak allocated "
+                f"{rec['peak']:.2f} GB; B7 launches {rec['fake_quant']}")
+            for key in ("loss", "grad_norm"):
+                if abs(rec[key] - single[key]) > tol * abs(single[key]):
+                    fail(f"mesh family {name} rank {r}: {key} {rec[key]} "
+                         f"vs one process's {single[key]}, beyond {tol} "
+                         "relative")
+            if rec["fake_quant"] != single["fake_quant"]:
+                fail(f"mesh family {name} rank {r}: B7 launches "
+                     f"{rec['fake_quant']}, one process "
+                     f"{single['fake_quant']}")
+        worst = max(recs, key=lambda r: r["worst"])
+        log(f"mesh family {name} (1, 2): each process's shard of the "
+            f"gradient, worst leaf {worst['worst_leaf']} at "
+            f"{worst['worst']:.3g} x its max (gate {tol}); forward + "
+            f"backward {max(r['ms'] for r in recs):.1f} ms against one "
+            f"process's {single['ms']:.1f} ms; card " + _SMI[0])
+        if not worst["worst"] <= tol:
+            fail(f"mesh family {name}: gradient {worst['worst_leaf']} "
+                 f"differs by {worst['worst']:.3g} of its max")
+    log(f"mesh family phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"fake_quant": launches}
+
+
 def phase_cli(src: str):
     """The serving CLI at full width as a user runs it, in a process of its
     own: ``python3 -m repro_torch.launch.serve --arch starcoder2-3b
@@ -6267,6 +6526,9 @@ def main() -> int:
                     help="card, build and the mesh-training phase (the "
                          "sharded train step at (1, 2) and (2, 1), "
                          "ReplicaSet(2, tp=2)) only; no result line")
+    ap.add_argument("--mesh-family-only", action="store_true",
+                    help="card, build and tensor-parallel training of the "
+                         "other families at (1, 2) only; no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="card, build and smollm-135m training runs A and B "
                          "only, for a same-call A/B of two trees; no result "
@@ -6332,6 +6594,11 @@ def main() -> int:
     if args.mesh_train_only:
         phase_mesh_train(args.seed)
         log(f"mesh training only, {args.src}: "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.mesh_family_only:
+        phase_mesh_family(args.seed)
+        log(f"mesh family training only, {args.src}: "
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
     if args.eval_only:
@@ -6496,6 +6763,9 @@ def main() -> int:
         else:
             launches[k] = launches.get(k, 0) + v
     lap("phase_mesh_train")
+    # tensor-parallel training of the other families
+    add(phase_mesh_family(args.seed))
+    lap("phase_mesh_family")
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))

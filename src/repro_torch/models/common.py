@@ -11,10 +11,12 @@ contraction axis. ``spec_accept_counts`` is the speculative verify tick's
 acceptance rule.
 
 Tensor parallelism (``TensorParallel``, the counterpart of the reference's
-``tp_axis``): a forward over head- and ffn-sharded weights runs in every
-process of a ``torch.distributed`` group, and the reference's ``psum`` /
-``all_gather`` inside ``shard_map`` become ``dist.all_reduce`` /
-``dist.all_gather`` over that group. The collectives are differentiable,
+``tp_axis``; in training, of GSPMD's cut of each leaf): a forward over
+sharded weights runs in every process of a ``torch.distributed`` group,
+told what it holds by ``ShardDims`` (heads, kv heads, Mamba channels,
+RWKV heads, a MoE layer's experts or their d_ff), and the reference's
+``psum`` / ``all_gather`` inside ``shard_map`` become ``dist.all_reduce``
+/ ``dist.all_gather`` over that group. The collectives are differentiable,
 each with the backward that matches what its forward replicates (a value
 every process holds alike carries its whole gradient in every process): an
 all-reduce of partial sums has the identity backward, ``copy_in`` (a
@@ -176,34 +178,75 @@ class _CopyIn(torch.autograd.Function):
 
 class _GatherLast(torch.autograd.Function):
     """Concatenation of the shards along the last axis forward; this
-    process's slice of the gradient backward (no sum: the gathered value
-    is replicated)."""
+    process's slice of the gradient backward: with ``per_rank`` false no
+    sum (the gathered value is replicated), with it true the sum of every
+    process's gradient first (each process's own work reads the gathered
+    value, so each holds a part of its gradient: a reduce-scatter)."""
 
     @staticmethod
-    def forward(ctx, x, group, size, rank):
+    def forward(ctx, x, group, size, rank, per_rank):
         import torch.distributed as dist
-        ctx.n, ctx.rank = x.shape[-1], rank
+        ctx.n, ctx.rank, ctx.group, ctx.per_rank = (x.shape[-1], rank,
+                                                    group, per_rank)
         parts = [torch.empty_like(x) for _ in range(size)]
         dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim=-1)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.per_rank:
+            g = _sum_f32(g, ctx.group)
         lo = ctx.rank * ctx.n
-        return g[..., lo:lo + ctx.n], None, None, None
+        return g[..., lo:lo + ctx.n], None, None, None, None
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardDims:
+    """What one process of a tensor-parallel group holds of each dim the
+    forward cuts, read from the resolved spec of each leaf
+    (``models/__init__.py::shard_dims``), beside the global config that
+    routing, capacity and the losses read: its attention heads and the kv
+    heads they attend with, Mamba's ``d_inner`` channels, RWKV heads, and
+    of a MoE layer ``moe``, the logical axis that took ``model``:
+    ``"experts"`` (it holds experts ``[expert_offset, expert_offset +
+    experts)`` whole) or ``"mlp"`` (every expert on its slice of d_ff;
+    ``experts`` is all of them). ``kv_gather``: the axis outnumbers the kv
+    heads, so a process holds a part of one kv head's K / V columns; the
+    columns are gathered and its query heads attend with kv head
+    ``kv_offset``. The MLP needs no field: its product shapes follow the
+    leaves."""
+
+    n_heads: int
+    n_kv_heads: int
+    d_inner: int
+    rwkv_heads: int
+    experts: int
+    expert_offset: int = 0
+    moe: Optional[str] = None
+    kv_gather: bool = False
+    kv_offset: int = 0
+
+    @classmethod
+    def whole(cls, cfg: "ModelConfig") -> "ShardDims":
+        """The dims of one device: the config's own."""
+        return cls(cfg.n_heads, cfg.n_kv_heads, cfg.mamba_d_inner,
+                   cfg.d_model // cfg.rwkv_head_dim, cfg.moe_experts)
 
 
 @dataclasses.dataclass
 class TensorParallel:
     """One process's place on the ``model`` axis of a mesh: its process
-    ``group`` (the default group when None), its ``rank`` there and the
-    axis ``size``. ``timed``: synchronize the device around each collective
-    and add its host seconds to ``collective_s`` (off by default: the
-    synchronizes cost what they measure)."""
+    ``group`` (the default group when None), its ``rank`` there, the axis
+    ``size`` and ``dims``, what it holds of the dims the forward cuts
+    (``ShardDims``; a ``DataParallel`` has none). ``timed``: synchronize
+    the device around each collective and add its host seconds to
+    ``collective_s`` (off by default: the synchronizes cost what they
+    measure)."""
 
     group: Any
     rank: int
     size: int
+    dims: Optional[ShardDims] = None
     timed: bool = False
     collective_s: float = 0.0
 
@@ -224,12 +267,15 @@ class TensorParallel:
         Identity backward."""
         return self._run(lambda x: _AllReduce.apply(x, self.group), y)
 
-    def all_gather_last(self, y: torch.Tensor) -> torch.Tensor:
+    def all_gather_last(self, y: torch.Tensor,
+                        per_rank: bool = False) -> torch.Tensor:
         """Every shard's ``y`` concatenated along the last axis in rank
         order (the reference's tiled ``all_gather``): no arithmetic. Its
-        backward takes this shard's slice."""
+        backward takes this shard's slice; ``per_rank``: what reads the
+        gathered value is each process's own work (Mamba's ``[x | z]``
+        channels), so the backward sums the processes' gradients first."""
         return self._run(lambda x: _GatherLast.apply(
-            x, self.group, self.size, self.rank), y)
+            x, self.group, self.size, self.rank, per_rank), y)
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (replicated over the group) as the input of sharded work:
@@ -256,6 +302,16 @@ class QuantCtx:
     qmm: Optional[Any] = None
     tp: Optional[TensorParallel] = None
     dp: Optional[DataParallel] = None
+
+    def shard(self, cfg: ModelConfig) -> ShardDims:
+        """The dims this process runs: ``tp.dims`` under tensor
+        parallelism, the config's own otherwise."""
+        if self.tp is None:
+            return ShardDims.whole(cfg)
+        if self.tp.dims is None:
+            raise ValueError("a tensor-parallel forward needs the shard's "
+                             "dims (TensorParallel.dims, from shard_dims)")
+        return self.tp.dims
 
     def tp_in(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` entering column-parallel (or per-head) work: under tensor

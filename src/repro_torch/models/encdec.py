@@ -33,7 +33,8 @@ from repro_torch.core.qat import QATConfig
 from repro_torch.devices import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.common import DataParallel, ModelConfig, QuantCtx
+from repro_torch.models.common import (DataParallel, ModelConfig, QuantCtx,
+                                      TensorParallel)
 
 ATTN = ("wq", "wk", "wv", "wo")
 
@@ -119,16 +120,17 @@ def _cross_attention(ctx: QuantCtx, h, p, cfg: ModelConfig, ck, cv):
     """The decoder's queries (no RoPE) over the encoder K/V: one query a
     row at decode, a non-causal flash pass otherwise."""
     b, s, _ = h.shape
-    q = ctx.dense(h, p["wq"], "dec.cross.wq").reshape(b, s, cfg.n_heads,
-                                                      cfg.hd)
+    h_loc = ctx.shard(cfg).n_heads
+    q = ctx.dense(ctx.tp_in(h), p["wq"], "dec.cross.wq").reshape(
+        b, s, h_loc, cfg.hd)
     if s == 1:
         se = ck.shape[1]
         out = L.decode_attention(q, ck, cv, torch.full(
             (b,), se, dtype=torch.int32, device=h.device))
     else:
         out = L.flash_attention(q, ck, cv, causal=False, chunk=cfg.seq_chunk)
-    return ctx.dense(out.reshape(b, s, cfg.n_heads * cfg.hd), p["wo"],
-                     "dec.cross.wo")
+    return ctx.dense(out.reshape(b, s, h_loc * cfg.hd), p["wo"],
+                     "dec.cross.wo", tp_reduce=True)
 
 
 def _decode_stack(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
@@ -180,25 +182,30 @@ def _decode_stack(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
     return L.rms_norm(x, params["decoder"]["final_norm"], cfg.norm_eps)
 
 
-def _embed(params, cfg: ModelConfig, tokens):
-    tokens = tokens.to(params["embed"].device)
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+def _embed(params, cfg: ModelConfig, tokens, tp=None):
+    return T._embed(params, cfg, tokens.to(params["embed"].device), tp)
 
 
 def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                attn_impl: str = "gather",
                qat: Optional[QATConfig] = None,
+               tp: Optional[TensorParallel] = None,
                dp: Optional[DataParallel] = None) -> T.ModelApi:
     """The family's ``ModelApi``: ``train_loss``, ``init_cache``,
     ``prefill``, ``prefill_slot``, ``serve_step``, ``with_serving`` /
     ``with_qmm``. Chunked prefill, the mixed tick and the verify are None,
     as in the reference (the engine refuses the family, ROADMAP C.12).
-    ``dp``: ``train_loss`` over this process's rows of a batch sharded over
-    that group, returning the whole batch's loss."""
+    ``tp``: the entry points run on this process's shard, as
+    ``transformer.make_model``'s do: both stacks' attention (the encoder's
+    non-causal, the decoder's self and cross attention) on its heads, both
+    MLPs on its slice of d_ff, the vocab-sharded embedding and head; the
+    cross K/V read the replicated encoder output. ``dp``: ``train_loss``
+    over this process's rows of a batch sharded over that group, returning
+    the whole batch's loss."""
     if attn_impl != "gather":
         raise ValueError(f"attn_impl={attn_impl!r}: the encdec family "
                          "reads a dense cache only")
-    ctx = QuantCtx(qmm=qmm)
+    ctx = QuantCtx(qmm=qmm, tp=tp)
     n_fmts = len(qat.formats) if qat else 0
 
     def fake_quant(params, fmt_idx):
@@ -220,9 +227,9 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         if qat is not None and qat.enabled:
             qparams = fake_quant(params,
                                  n_fmts if fmt_idx is None else int(fmt_idx))
-        plain = QuantCtx()
+        plain = QuantCtx(tp=tp)
         memory = _encode(plain, qparams, cfg, batch["frame_embeds"])
-        x = _embed(params, cfg, batch["tokens"])
+        x = _embed(params, cfg, batch["tokens"], tp)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         hidden = _decode_stack(plain, qparams, cfg, x, positions,
@@ -232,7 +239,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         mask = torch.ones(labels.shape, device=x.device) if mask is None \
             else mask.to(device=x.device, dtype=torch.float32)
         loss = T.chunked_ce_loss(hidden, params["lm_head"], labels, mask, cfg,
-                                 dp=dp)
+                                 tp, dp)
         return loss, {"ce": loss}
 
     def init_cache(b, s_max, dtype=None, s_enc=None, *, device="cuda",
@@ -249,7 +256,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         dev = resolve_device(device)
         dtype = dtype or cfg.compute_dtype
         s_enc = s_enc or max(1, s_max // max(cfg.audio_downsample, 1))
-        kvh = (cfg.n_kv_heads, cfg.hd)
+        kvh = (ctx.shard(cfg).n_kv_heads, cfg.hd)
 
         def zeros(s):
             return torch.zeros((cfg.n_layers, b, s) + kvh, dtype=dtype,
@@ -264,7 +271,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         decoder filling the cache, return last-position logits, the cache
         and the lengths."""
         memory = _encode(ctx, params, cfg, batch["frame_embeds"])
-        x = _embed(params, cfg, batch["tokens"])
+        x = _embed(params, cfg, batch["tokens"], tp)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         hidden = _decode_stack(ctx, params, cfg, x, positions, memory=memory,
@@ -285,13 +292,13 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
     @torch.no_grad()
     def serve_step(params, batch, cache, cache_len):
         """One decode step: batch["tokens"] (B, 1) against the cache."""
-        x = _embed(params, cfg, batch["tokens"])
+        x = _embed(params, cfg, batch["tokens"], tp)
         hidden = _decode_stack(ctx, params, cfg, x, cache_len[:, None],
                                cache=cache, cache_len=cache_len)
         return T._head_logits(ctx, params, cfg, hidden[:, -1]), cache
 
     def with_serving(qmm=None, attn_impl="gather"):
-        return make_model(cfg, qmm, attn_impl, qat, dp)
+        return make_model(cfg, qmm, attn_impl, qat, tp, dp)
 
     return T.ModelApi(
         cfg=cfg,
@@ -306,7 +313,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         prefill_chunk_slot=None,
         mixed_step=None,
         verify_step=None,
-        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat, dp),
+        with_qmm=lambda q: make_model(cfg, q, attn_impl, qat, tp, dp),
         with_serving=with_serving,
         attn_impl=attn_impl,
         qat=qat,

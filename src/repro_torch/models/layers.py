@@ -242,6 +242,19 @@ def paged_gather(pool: torch.Tensor, block_table: torch.Tensor
 # =============================================================================
 # Attention block
 # =============================================================================
+def kv_heads(ctx: QuantCtx, cfg: ModelConfig, t: torch.Tensor
+             ) -> torch.Tensor:
+    """A K or V projection (B, S, columns) as (B, S, Hkv, D) of the kv
+    heads this process attends with: under ``ShardDims.kv_gather`` its
+    part of the columns is gathered (the backward sums every process's
+    gradient: each reads its own kv head) and kv head ``kv_offset`` kept."""
+    sd = ctx.shard(cfg)
+    if sd.kv_gather:
+        lo = sd.kv_offset * cfg.hd
+        t = ctx.tp.all_gather_last(t, per_rank=True)[..., lo:lo + cfg.hd]
+    return t.reshape(t.shape[0], t.shape[1], sd.n_kv_heads, cfg.hd)
+
+
 def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
                     positions: torch.Tensor, name: str, kv_cache=None,
                     cache_len=None, block_table=None,
@@ -273,14 +286,13 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     ``block_table`` selects the paged layout: ``kv_cache`` then holds one
     layer's pools (P, ps, Hkv, D)."""
     b, s, _ = x.shape
-    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    sd = ctx.shard(cfg)
+    h, hd = sd.n_heads, cfg.hd
     window = cfg.sliding_window
     x = ctx.tp_in(x)
     q = ctx.dense(x, p["wq"], name + ".wq", p.get("bq")).reshape(b, s, h, hd)
-    k = ctx.dense(x, p["wk"], name + ".wk", p.get("bk")).reshape(b, s, hkv,
-                                                                 hd)
-    v = ctx.dense(x, p["wv"], name + ".wv", p.get("bv")).reshape(b, s, hkv,
-                                                                 hd)
+    k = kv_heads(ctx, cfg, ctx.dense(x, p["wk"], name + ".wk", p.get("bk")))
+    v = kv_heads(ctx, cfg, ctx.dense(x, p["wv"], name + ".wv", p.get("bv")))
     if cfg.qk_norm:     # replicated scales applied to this shard's heads
         q = rms_norm(q, ctx.tp_in(p["q_norm"]), cfg.norm_eps)
         k = rms_norm(k, ctx.tp_in(p["k_norm"]), cfg.norm_eps)
@@ -343,12 +355,12 @@ def attention_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
 def cross_kv_from_memory(ctx: QuantCtx, memory: torch.Tensor, p,
                          cfg: ModelConfig, name: str):
     """The encoder-side K/V (B, Se, Hkv, D) of a decoder layer's cross
-    attention, from the encoder output ``memory`` (B, Se, d); no RoPE."""
-    b, se, _ = memory.shape
-    k = ctx.dense(memory, p["wk"], name + ".wk")
-    v = ctx.dense(memory, p["wv"], name + ".wv")
-    return (k.reshape(b, se, cfg.n_kv_heads, cfg.hd),
-            v.reshape(b, se, cfg.n_kv_heads, cfg.hd))
+    attention, from the encoder output ``memory`` (B, Se, d); no RoPE.
+    Under tensor parallelism the replicated ``memory`` enters this shard's
+    kv heads."""
+    memory = ctx.tp_in(memory)
+    return (kv_heads(ctx, cfg, ctx.dense(memory, p["wk"], name + ".wk")),
+            kv_heads(ctx, cfg, ctx.dense(memory, p["wv"], name + ".wv")))
 
 
 def mlp_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
@@ -388,9 +400,20 @@ def moe_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     so a packed leaf reaches the dequant-GEMM dispatch with the row's
     gathered tokens (the JAX package densifies the vmapped experts
     instead; ROADMAP C.8). ``cap`` is a host int from the static S: nothing
-    here reads the device. Returns (out, aux)."""
+    here reads the device. Returns (out, aux).
+
+    Under tensor parallelism (``ctx.shard(cfg).moe``) every process routes
+    every token with the replicated router over the global E, so capacity,
+    the one-hot routing and the Switch loss are the single device's;
+    expert-parallel, it runs only its own experts, FFN-parallel every
+    expert on its slice of d_ff (``w_down`` row-parallel), and the partial
+    outputs are all-reduced once. The tokens and the gates enter the
+    per-process work through ``copy_in`` (the whole gate tensor, then this
+    process's experts), so the router's and the input's gradients are
+    whole on every process."""
     b, s, d = x.shape
     e, k = cfg.moe_experts, cfg.moe_topk
+    sd = ctx.shard(cfg)
 
     logits = ctx.dense(x, p["router"], name + ".router").to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                        # (B, S, E)
@@ -403,11 +426,15 @@ def moe_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     prio = expert_gate.transpose(1, 2)                           # (B, E, S)
     top_gate, token_idx = _topk_stable(prio, cap)                # (B, E, C)
 
+    lo, el = sd.expert_offset, sd.experts
+    top_gate = ctx.tp_in(top_gate)[:, lo:lo + el]
+    token_idx = token_idx[:, lo:lo + el]
     rows = torch.arange(b, device=x.device)[:, None]
-    xe = x[rows, token_idx.reshape(b, e * cap)].reshape(b, e, cap, d)
+    xe = ctx.tp_in(x)[rows, token_idx.reshape(b, el * cap)].reshape(
+        b, el, cap, d)
     experts = p["experts"]
     ye = []
-    for i in range(e):
+    for i in range(el):
         xi = xe[:, i]                                            # (B, C, d)
         gate = ctx.dense(xi, layer_slice(experts["w_gate"], i),
                          name + ".expert.w_gate")
@@ -419,8 +446,10 @@ def moe_block(ctx: QuantCtx, x: torch.Tensor, p, cfg: ModelConfig,
     ye = torch.stack(ye, 1)                                      # (B, E, C, d)
     ye = ye * top_gate[..., None].to(ye.dtype)
     out = torch.zeros((b, s, d), dtype=ye.dtype, device=x.device)
-    out = out.index_put((rows.expand(b, e * cap), token_idx.reshape(b, -1)),
-                        ye.reshape(b, e * cap, d), accumulate=True)
+    out = out.index_put((rows.expand(b, el * cap), token_idx.reshape(b, -1)),
+                        ye.reshape(b, el * cap, d), accumulate=True)
+    if ctx.tp is not None:
+        out = ctx.tp.all_reduce(out)
 
     # Switch-style load-balance aux loss: a product of batch means, so a
     # sharded batch takes each mean over the whole batch first

@@ -173,25 +173,33 @@ def rwkv_time_mix(ctx: QuantCtx, x, p, cfg: ModelConfig, name: str,
                   state: Optional[Tuple] = None):
     """x (B, S, d) -> (out, (shift (B, 1, d), wkv (B, H, hd, hd) f32)).
     ``state`` = (shift, wkv) carries a decode's state; None starts from
-    zeros (prefill, training)."""
+    zeros (prefill, training).
+
+    Under tensor parallelism this process runs its heads
+    (``ctx.shard(cfg).rwkv_heads``): ``wr`` / ``wk`` / ``wv`` / ``wg``
+    column-parallel, the WKV state, ``bonus``, ``decay_base``,
+    ``decay_w2``'s columns and the group norm per local head or channel,
+    ``wo`` row-parallel. The lerped inputs, the decay LoRA's replicated
+    hidden and the whole ``ln_scale`` enter the per-head work through
+    ``copy_in``."""
     b, s, d = x.shape
     hd = cfg.rwkv_head_dim
-    h = d // hd
+    h = ctx.shard(cfg).rwkv_heads
     shift0, wkv0 = state if state is not None else (None, None)
     xx = _token_shift(x, shift0)
 
     def mixed(m):
         return x + (xx - x) * at_use(p[m], x.dtype)
 
-    r = ctx.dense(mixed("mix_r"), p["wr"], name + ".wr")
-    k = ctx.dense(mixed("mix_k"), p["wk"], name + ".wk")
-    v = ctx.dense(mixed("mix_v"), p["wv"], name + ".wv")
-    g = F.silu(ctx.dense(mixed("mix_g"), p["wg"], name + ".wg"))
+    r = ctx.dense(ctx.tp_in(mixed("mix_r")), p["wr"], name + ".wr")
+    k = ctx.dense(ctx.tp_in(mixed("mix_k")), p["wk"], name + ".wk")
+    v = ctx.dense(ctx.tp_in(mixed("mix_v")), p["wv"], name + ".wv")
+    g = F.silu(ctx.dense(ctx.tp_in(mixed("mix_g")), p["wg"], name + ".wg"))
 
     # the data-dependent decay: d_t = base + lora(x_w), in f32
     f32 = torch.float32
     xw = mixed("mix_w").to(f32)
-    dlo = torch.tanh(xw @ at_use(p["decay_w1"], f32)) \
+    dlo = ctx.tp_in(torch.tanh(xw @ at_use(p["decay_w1"], f32))) \
         @ at_use(p["decay_w2"], f32)
     decay = torch.exp(-torch.exp(at_use(p["decay_base"], f32) + dlo))
 
@@ -200,24 +208,32 @@ def rwkv_time_mix(ctx: QuantCtx, x, p, cfg: ModelConfig, name: str,
 
     y, wkv = _wkv_chunked(heads(r), heads(k), heads(v), heads(decay),
                           at_use(p["bonus"], f32), wkv0)
-    y = _group_norm_heads(y, at_use(p["ln_scale"], f32), cfg.norm_eps)
+    scale = ctx.tp_in(at_use(p["ln_scale"], f32))
+    if ctx.tp is not None:
+        scale = scale[ctx.tp.rank * h * hd:(ctx.tp.rank + 1) * h * hd]
+    y = _group_norm_heads(y, scale, cfg.norm_eps)
     y = y.to(x.dtype) * g
-    out = ctx.dense(y, p["wo"], name + ".wo")
+    out = ctx.dense(y, p["wo"], name + ".wo", tp_reduce=True)
     return out, (x[:, -1:], wkv)
 
 
 def rwkv_channel_mix(ctx: QuantCtx, x, p, cfg: ModelConfig, name: str,
                      state=None):
     """x (B, S, d) -> (out, shift (B, 1, d)); ``state`` the carried shift
-    or None for zeros."""
+    or None for zeros. Under tensor parallelism ``w_key`` is
+    column-parallel and ``w_value`` row-parallel (d_ff on ``model``), and
+    ``w_recept`` column-parallel over d: its slice of the receptance is
+    all-gathered before the product with the replicated value."""
     xx = _token_shift(x, state)
 
     def mixed(m):
-        return x + (xx - x) * at_use(p[m], x.dtype)
+        return ctx.tp_in(x + (xx - x) * at_use(p[m], x.dtype))
 
     kx = ctx.dense(mixed("mix_k"), p["w_key"], name + ".w_key")
     kx = torch.square(F.relu(kx))
-    vx = ctx.dense(kx, p["w_value"], name + ".w_value")
+    vx = ctx.dense(kx, p["w_value"], name + ".w_value", tp_reduce=True)
     rx = torch.sigmoid(ctx.dense(mixed("mix_r"), p["w_recept"],
                                  name + ".w_recept"))
+    if ctx.tp is not None:
+        rx = ctx.tp.all_gather_last(rx)
     return rx * vx, x[:, -1:]

@@ -131,18 +131,35 @@ def mamba_block(ctx: QuantCtx, x, p, cfg: ModelConfig, name: str,
                 state: Optional[Tuple] = None):
     """x (B, S, d) -> (out, (h (B, di, N) f32, conv (B, K-1, di))).
     ``state`` = (h, conv) carries a decode's recurrent state; None starts
-    from zeros (prefill, training)."""
+    from zeros (prefill, training).
+
+    Under tensor parallelism this process runs its slice of the d_inner
+    channels (``ctx.shard(cfg).d_inner``): ``in_proj``'s spec cuts its
+    fused ``[x | z]`` columns contiguously, so the shards' outputs are
+    gathered (a backward that sums, then cuts) and this process takes its
+    channels of both halves; the conv, Δ, A, D and the scan are per
+    channel; ``x_proj`` and ``out_proj`` are row-parallel, and the
+    all-reduced (Δ_lo, B, C) enter the per-channel work through
+    ``copy_in``."""
     h0, conv0 = state if state is not None else (None, None)
     dtr, n = cfg.dt_rank, cfg.mamba_d_state
 
-    xz = ctx.dense(x, p["in_proj"], name + ".in_proj")
-    xi, z = torch.chunk(xz, 2, dim=-1)
+    xz = ctx.dense(ctx.tp_in(x), p["in_proj"], name + ".in_proj")
+    if ctx.tp is None:
+        xi, z = torch.chunk(xz, 2, dim=-1)
+    else:
+        xz = ctx.tp.all_gather_last(xz, per_rank=True)
+        dl = ctx.shard(cfg).d_inner
+        lo = ctx.tp.rank * dl
+        xi = xz[..., lo:lo + dl]
+        z = xz[..., cfg.mamba_d_inner + lo:cfg.mamba_d_inner + lo + dl]
     xi, conv_state = _causal_conv1d(xi, at_use(p["conv_w"], xi.dtype),
                                     at_use(p["conv_b"], torch.float32),
                                     conv0)
     xi = F.silu(xi)
 
-    bcd = ctx.dense(xi, p["x_proj"], name + ".x_proj").to(torch.float32)
+    bcd = ctx.tp_in(ctx.dense(xi, p["x_proj"], name + ".x_proj",
+                              tp_reduce=True)).to(torch.float32)
     dt_lo, b_in, c_in = torch.split(bcd, [dtr, n, n], dim=-1)
     dt = F.softplus(dt_lo @ at_use(p["dt_w"], torch.float32)
                     + at_use(p["dt_bias"], torch.float32))
@@ -151,5 +168,5 @@ def mamba_block(ctx: QuantCtx, x, p, cfg: ModelConfig, name: str,
     y, h = selective_scan(dt, p["A_log"], b_in, c_in, xf, h0)
     y = y + at_use(p["D"], torch.float32) * xf
     y = y.to(x.dtype) * F.silu(z)
-    out = ctx.dense(y, p["out_proj"], name + ".out_proj")
+    out = ctx.dense(y, p["out_proj"], name + ".out_proj", tp_reduce=True)
     return out, (h, conv_state)

@@ -637,11 +637,12 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
                tp: Optional[TensorParallel] = None,
                dp: Optional[DataParallel] = None) -> ModelApi:
     """The ModelApi of ``cfg``. ``tp`` (the reference's ``tp_axis``): the
-    entry points run on this process's shard of head- and ffn-sharded
-    weights (``cfg`` the local one: heads / tp, ``head_dim`` pinned, the
-    global vocab) and all-reduce / all-gather over ``tp``'s group: the
-    row-parallel projections, the vocab-sharded embedding, the head's logit
-    slices; ``train_loss``'s gradients are the single device's, sharded.
+    entry points run on this process's shard of the weights, as
+    ``tp.dims`` describes it (``models/__init__.py::shard_dims``; ``cfg``
+    stays the global config) and all-reduce / all-gather over ``tp``'s
+    group: the row-parallel projections, the MoE layer's partial outputs,
+    the vocab-sharded embedding, the head's logit slices;
+    ``train_loss``'s gradients are the single device's, sharded.
     ``dp``: ``train_loss`` runs on this process's rows of a batch sharded
     over that group and returns the whole batch's loss (a sharded training
     step, ``train/state.py``). None is the single-device math."""
@@ -694,6 +695,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         dtype = dtype or cfg.compute_dtype
         s_max = s_max + cfg.vision_tokens
         g = cfg.n_groups
+        sd = ctx.shard(cfg)
 
         def zeros(shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=dev)
@@ -702,16 +704,17 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
             blocks = []
             for j in range(cfg.scan_group):
                 if mixer_kind(cfg, j) == "attn":
-                    shape = (g, b, s_max, cfg.n_kv_heads, cfg.hd)
+                    shape = (g, b, s_max, sd.n_kv_heads, cfg.hd)
                     blocks.append({"k": zeros(shape), "v": zeros(shape)})
                 elif mixer_kind(cfg, j) == "rwkv":
                     d, hd = cfg.d_model, cfg.rwkv_head_dim
                     blocks.append({
                         "shift_t": zeros((g, b, 1, d)),
-                        "wkv": zeros((g, b, d // hd, hd, hd), torch.float32),
+                        "wkv": zeros((g, b, sd.rwkv_heads, hd, hd),
+                                     torch.float32),
                         "shift_c": zeros((g, b, 1, d))})
                 else:
-                    di = cfg.mamba_d_inner
+                    di = sd.d_inner
                     blocks.append({
                         "h": zeros((g, b, di, cfg.mamba_d_state),
                                    torch.float32),
@@ -730,7 +733,7 @@ def make_model(cfg: ModelConfig, qmm: Optional[Callable] = None,
         pages_per_slot = -(-s_max // page_size)
         if num_pages is None:
             num_pages = b * pages_per_slot + 1
-        shape = (cfg.n_groups, num_pages, page_size, cfg.n_kv_heads, cfg.hd)
+        shape = (cfg.n_groups, num_pages, page_size, sd.n_kv_heads, cfg.hd)
         return {"blocks": [
             {"k_pages": torch.zeros(shape, dtype=dtype, device=dev),
              "v_pages": torch.zeros(shape, dtype=dtype, device=dev)}

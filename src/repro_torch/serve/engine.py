@@ -130,11 +130,12 @@ Tensor parallelism (``mesh=``, a ``launch/mesh.py::Mesh`` with a
 ``model`` axis): one logical engine whose weights and KV pools are sharded
 over the mesh's ``model`` axis, one process per shard. Every process of the
 axis's group builds the engine with the same arguments and calls
-``generate`` with the same requests; the step functions come from the local
-config (heads / tp, ``head_dim`` pinned, the global vocab) and all-reduce
-the row-parallel projections and the vocab-sharded embedding and gather the
-head's logit slices (``models/common.py::TensorParallel``), so every process
-holds the same logits and runs the same host bookkeeping. Each format's
+``generate`` with the same requests; the step functions run this
+process's shard (``models/__init__.py::shard_dims`` of the parameters'
+resolved specs: its heads and kv heads, beside the global config) and
+all-reduce the row-parallel projections and the vocab-sharded embedding
+and gather the head's logit slices (``models/common.py::TensorParallel``),
+so every process holds the same logits and runs the same host bookkeeping. Each format's
 packed tree is built whole, its column-sharded split-N leaves repacked per
 shard, and cut to the local shard; the KV pools and the dense cache hold
 the local kv heads, and the block table and the host state stay
@@ -168,6 +169,7 @@ from repro_torch.devices import resolve_device
 from repro_torch.kernels import mx_matmul, paged_attention
 from repro_torch.kernels.dispatch import make_qmm
 from repro_torch.kernels.paged_attention import pages_read, pages_read_mq
+from repro_torch.models import shard_dims
 from repro_torch.models.common import TensorParallel, spec_accept_counts
 from repro_torch.models.transformer import ModelApi, make_model, param_axes
 from repro_torch.runtime.fault import FaultInjector, InjectedFault
@@ -184,6 +186,7 @@ from repro_torch.serve.sampling import (fold_in, prng_key, sample_batch,
 from repro_torch.serve.slo import SLOClass, tier_rank
 from repro_torch.serve.tick_graph import TickGraphs
 from repro_torch.sharding.rules import mesh_sizes, param_specs
+from repro_torch.train.state import state_shardings
 
 DENSE_BF16 = "bf16"   # pseudo-format: dense anchor-precision weights
 
@@ -476,18 +479,17 @@ class ElasticEngine:
 
         # The serving entry points with both knobs baked in: the packed
         # contract's GEMM hook, and the paged read path. On a mesh they
-        # come from the local model: heads / tp (head_dim pinned: the
-        # derived one would follow d_model), the global vocab, and the
+        # run this process's shard, as the parameters' resolved specs
+        # describe it (shard_dims: its heads and kv heads), with the
         # collectives over the model axis' group.
         self.tensor_parallel: Optional[TensorParallel] = None
         self._src_api = api
         if self._tp > 1:
+            rank = mesh.coord("model")
             self.tensor_parallel = TensorParallel(
-                mesh.group, mesh.coord("model"), self._tp)
-            local_cfg = dataclasses.replace(
-                cfg, n_heads=cfg.n_heads // self._tp,
-                n_kv_heads=cfg.n_kv_heads // self._tp, head_dim=cfg.hd)
-            self._src_api = make_model(local_cfg, qat=api.qat,
+                mesh.group, rank, self._tp, dims=shard_dims(
+                    cfg, state_shardings(api, mesh)[0], rank, self._tp))
+            self._src_api = make_model(cfg, qat=api.qat,
                                        tp=self.tensor_parallel)
         self._packed_api = self._src_api.with_serving(
             make_qmm(mode="kernel" if self.fused else "densify"), attn_impl)

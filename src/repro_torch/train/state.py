@@ -23,9 +23,12 @@ those shardings. What GSPMD derives, the step does explicitly:
   replicate gets the sum whole. The loss is the whole batch's: the
   cross entropy's masked sum and count, and the MoE balance fractions, are
   summed over the batch's shards inside the model (``DataParallel``);
-- the ``model`` axis: the dense family's tensor-parallel forward
-  (``make_model(cfg_local, tp=...)``), whose collectives carry the
-  gradients (``models/common.py``);
+- the ``model`` axis: every family's tensor-parallel forward
+  (``get_model(cfg, tp=...)``), told what this process holds by the
+  resolved spec tree (``models/__init__.py::shard_dims``: heads, kv
+  heads, Mamba's d_inner, RWKV heads, and of each MoE layer whether the
+  rules gave ``model`` to its experts or to its d_ff), whose collectives
+  carry the gradients (``models/common.py``);
 - the global gradient norm AdamW clips by: each leaf's squares counted
   once, by the process at coordinate 0 of every axis that replicates it,
   then summed over the mesh.
@@ -46,10 +49,10 @@ from repro_torch.core.tree import flatten_paths, tree_map, unflatten_paths
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models import get_model
 from repro_torch.models import param_axes as model_param_axes
-from repro_torch.models import param_shapes
+from repro_torch.models import param_shapes, shard_dims
 from repro_torch.models.common import DataParallel, TensorParallel
-from repro_torch.models.transformer import (ModelApi, ffn_kind, make_model,
-                                            mixer_kind, param_leaves)
+from repro_torch.models.transformer import (ModelApi, ffn_kind, mixer_kind,
+                                            param_leaves)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.serve.packed_params import local_shard
 from repro_torch.sharding.rules import param_specs, spec_for_axes
@@ -212,26 +215,43 @@ def gather_state(local: TrainState, specs: TrainState,
 
 
 def _check_model_axis(api: ModelApi, tp: int) -> None:
-    """A ``model`` axis above 1 trains the dense family only, with the
-    dims it cuts divisible (and, under MF-QAT, row-parallel shards of
-    whole MX blocks, so each shard's fake-quant is its slice of the
-    whole weight's)."""
+    """A ``model`` axis above 1 cuts, in every family, the dims its
+    tensor-parallel forward splits: each must divide by ``tp`` (the rules
+    would otherwise leave its leaves whole; the kv heads may instead
+    divide ``tp``), and under MF-QAT each row-parallel shard must be whole
+    MX blocks, so that its fake-quant is its slice of the whole weight's.
+    Refused loudly, naming the dims."""
     cfg = api.cfg
-    kinds = {(mixer_kind(cfg, j), ffn_kind(cfg, j))
-             for j in range(cfg.scan_group)}
-    if cfg.family != "dense" or cfg.vision_tokens > 0 \
-            or kinds != {("attn", "mlp")}:
-        raise ValueError(
-            f"tensor-parallel training (a 'model' mesh axis of {tp}) covers "
-            f"the dense family; family {cfg.family!r} waits for ROADMAP "
-            "A.9.4 (a 'model' axis of 1, FSDP alone, trains every family)")
-    bad = {k: v for k, v in {"n_heads": cfg.n_heads,
-                             "n_kv_heads": cfg.n_kv_heads,
-                             "d_ff": cfg.d_ff}.items() if v % tp}
+    kinds = {("attn", "mlp")} if cfg.family == "encdec" else \
+        {(mixer_kind(cfg, j), ffn_kind(cfg, j))
+         for j in range(cfg.scan_group)}
+    mixers, ffns = {m for m, _ in kinds}, {f for _, f in kinds}
+    heads, rows = {}, {}         # dim: size (split by tp / by bs * tp)
+    kv_ok = True
+    if "attn" in mixers:
+        heads["n_heads"] = cfg.n_heads
+        rows["n_heads*head_dim"] = cfg.n_heads * cfg.hd
+        # kv heads split, or (an axis that outnumbers them) each process
+        # gathers its query heads' kv head: ShardDims.kv_gather
+        kv_ok = cfg.n_kv_heads % tp == 0 or (
+            tp % cfg.n_kv_heads == 0 and cfg.n_kv_heads * cfg.hd % tp == 0)
+    if "mamba" in mixers:
+        rows["d_inner"] = cfg.mamba_d_inner
+    if "rwkv" in mixers:
+        heads["rwkv heads"] = cfg.d_model // cfg.rwkv_head_dim
+        rows["d_model"] = cfg.d_model
+    if ffns & {"mlp", "cmix"}:
+        rows["d_ff"] = cfg.d_ff
     bs = api.qat.block_size if api.qat is not None and api.qat.enabled \
         else 1
-    bad.update({k: v for k, v in {"n_heads*head_dim": cfg.n_heads * cfg.hd,
-                                  "d_ff": cfg.d_ff}.items() if v % (bs * tp)})
+    bad = {k: v for k, v in heads.items() if v % tp}
+    if not kv_ok:
+        bad["n_kv_heads"] = cfg.n_kv_heads
+    bad.update({k: v for k, v in rows.items() if v % (bs * tp)})
+    if "moe" in ffns and cfg.moe_experts % tp and cfg.d_ff % (bs * tp):
+        # the rules give ``model`` to the experts where it divides them,
+        # else to each expert's d_ff (w_down then row-parallel)
+        bad.update({"moe_experts": cfg.moe_experts, "expert d_ff": cfg.d_ff})
     if bad:
         raise ValueError(f"mesh 'model' axis size {tp} cannot shard this "
                          f"config: {bad} not divisible (block_size={bs})")
@@ -256,14 +276,13 @@ class ShardedTrainStep:
         self.batch_specs = batch_shardings(batch_shapes, mesh)
         self._data_specs = tree_map(lambda _, s: _data_spec(s),
                                     abstract_params(api), p_spec)
-        self._tp = None
-        self._cfg = api.cfg
+        # this process's place on the model axis and what it holds there
+        self.tensor_parallel: Optional[TensorParallel] = None
         if tp > 1:
-            self._tp = TensorParallel(mesh.group_of(("model",)),
-                                      mesh.coord("model"), tp)
-            self._cfg = dataclasses.replace(
-                api.cfg, n_heads=api.cfg.n_heads // tp,
-                n_kv_heads=api.cfg.n_kv_heads // tp, head_dim=api.cfg.hd)
+            rank = mesh.coord("model")
+            self.tensor_parallel = TensorParallel(
+                mesh.group_of(("model",)), rank, tp,
+                dims=shard_dims(api.cfg, p_spec, rank, tp))
         self._apis: Dict[Tuple[str, ...], ModelApi] = {}
 
     # ---- state and batch placement ------------------------------------
@@ -303,19 +322,16 @@ class ShardedTrainStep:
         return axes.pop()
 
     def _api(self, batch_axes: Tuple[str, ...]) -> ModelApi:
-        """The model that runs this process's shard: the local config and
-        the ``model`` axis' collectives, the batch axes' group."""
+        """The model that runs this process's shard: the ``model`` axis'
+        collectives and shard dims, the batch axes' group."""
         if batch_axes not in self._apis:
             n = self.mesh.size(batch_axes)
             dp = DataParallel(self.mesh.group_of(batch_axes),
                               self.mesh.index(batch_axes), n) \
                 if n > 1 else None
-            if self._tp is not None:
-                api = make_model(self._cfg, qat=self.api.qat, tp=self._tp,
-                                 dp=dp)
-            else:
-                api = get_model(self._cfg, qat=self.api.qat, dp=dp)
-            self._apis[batch_axes] = api
+            self._apis[batch_axes] = get_model(
+                self.api.cfg, qat=self.api.qat, dp=dp,
+                tp=self.tensor_parallel)
         return self._apis[batch_axes]
 
     def _grads_of(self, api: ModelApi, params, batch, fmt_idx):
@@ -426,8 +442,8 @@ def make_sharded_train_step(api: ModelApi, mesh: Mesh, opt_cfg: AdamWConfig,
     """(step, state spec tree): the train step of this process of ``mesh``
     (``ShardedTrainStep``), computing what ``build_train_step`` computes on
     the whole state and batch, and the ``TrainState`` of specs its state
-    is sharded by. The ``model`` axis above 1 trains the dense family only
-    (ROADMAP A.9.4)."""
+    is sharded by, for every family on any mesh whose ``model`` axis
+    divides the dims its forward cuts (``_check_model_axis``)."""
     step = ShardedTrainStep(api, mesh, opt_cfg, batch_shapes, lr_schedule,
                             microbatch)
     return step, step.specs

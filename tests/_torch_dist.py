@@ -2,7 +2,8 @@
 
 ``run_ranks(fn, world, *args)`` spawns ``world`` processes, joins them into
 one ``torch.distributed`` gloo group over ``tcp://127.0.0.1``, runs
-``fn(rank, *args)`` in each and returns their results in rank order. It
+``fn(rank, *args)`` in each and returns their results in rank order
+(``start_ranks`` returns at once, with a function that waits for them). It
 skips the calling test when gloo cannot start here. ``fn`` must be a
 module-level function of a module that the spawned children can import
 without JAX (this one, or ``repro_torch``).
@@ -40,7 +41,9 @@ def _child(rank, world, port, fn, args, q):
         dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, *args, timeout: float = 240.0):
+def start_ranks(fn, world: int, *args, timeout: float = 240.0):
+    """``run_ranks`` started: the processes run while the caller works on;
+    the returned function waits for them and gives their results."""
     import multiprocessing as mp
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
@@ -49,22 +52,29 @@ def run_ranks(fn, world: int, *args, timeout: float = 240.0):
              for r in range(world)]
     for p in procs:
         p.start()
-    out = {}
-    try:
-        for _ in procs:
-            rank, kind, val = q.get(timeout=timeout)
-            out[rank] = (kind, val)
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-    if any(k == "nogloo" for k, _ in out.values()):
-        pytest.skip(f"gloo cannot start here: {out}")
-    errors = [v for k, v in out.values() if k == "error"]
-    if errors:
-        raise AssertionError("a rank failed:\n" + "\n".join(errors))
-    return [out[r][1] for r in range(world)]
+
+    def wait():
+        out = {}
+        try:
+            for _ in procs:
+                rank, kind, val = q.get(timeout=timeout)
+                out[rank] = (kind, val)
+        finally:
+            for p in procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+        if any(k == "nogloo" for k, _ in out.values()):
+            pytest.skip(f"gloo cannot start here: {out}")
+        errors = [v for k, v in out.values() if k == "error"]
+        if errors:
+            raise AssertionError("a rank failed:\n" + "\n".join(errors))
+        return [out[r][1] for r in range(world)]
+    return wait
+
+
+def run_ranks(fn, world: int, *args, timeout: float = 240.0):
+    return start_ranks(fn, world, *args, timeout=timeout)()
 
 
 # ---- rank functions (no JAX: the children import only this module) -------
@@ -145,16 +155,21 @@ def _np_tree(tree):
 
 
 def sharded_step_worker(rank, arch, cases, flat, batches, fmt_idx, lr,
-                        anchor=None):
-    """The port's sharded train step of a reduced ``arch`` (MXINT formats,
-    ``anchor`` for anchored QAT) on meshes of this group, from the whole
-    numpy parameters ``flat`` and a zero AdamW state. Per case ``(shape,
-    microbatch)``: ``gather_state(shard_state(s)) == s`` bit for bit, the
-    state bytes this process holds and the whole state's, then one step per
-    batch of ``batches``: each step's loss and grad norm; at the first
-    batch the whole-batch ``train_loss`` terms (ce, aux) and the gathered
-    gradients (microbatch 1), and the gathered parameters and moments after
-    the first step."""
+                        anchor=None, over=None, formats=None):
+    """The port's sharded train step of a reduced ``arch`` (``over``: its
+    fields replaced; ``formats``, MXINT's by default, ``anchor`` for
+    anchored QAT) on meshes
+    of this group, from the whole numpy parameters ``flat`` and a zero
+    AdamW state. Per case ``(shape, microbatch)``: ``gather_state(
+    shard_state(s)) == s`` bit for bit, the state bytes this process holds
+    and the whole state's, then one step per batch of ``batches``: each
+    step's loss and grad norm; at the first batch the whole-batch
+    ``train_loss`` terms (ce, aux) and the gathered gradients (microbatch
+    1), and the gathered parameters and moments after the first step, and
+    on a ``model`` axis above 1 this process's leaves of the state that the
+    axis replicates (``replicated``), as they are after that step."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch.configs import get_reduced
@@ -166,9 +181,9 @@ def sharded_step_worker(rank, arch, cases, flat, batches, fmt_idx, lr,
     from repro_torch.models import get_model
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.train.state import (TrainState, gather_tree,
-                                         make_sharded_train_step)
-    cfg = get_reduced(arch)
-    api = get_model(cfg, QATConfig(formats=TRAIN_FORMATS_MXINT,
+                                         make_sharded_train_step, with_specs)
+    cfg = dataclasses.replace(get_reduced(arch), **(over or {}))
+    api = get_model(cfg, QATConfig(formats=formats or TRAIN_FORMATS_MXINT,
                                    anchor=anchor))
     opt = AdamWConfig(lr=lr)
     tbs = [{k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
@@ -213,8 +228,23 @@ def sharded_step_worker(rank, arch, cases, flat, batches, fmt_idx, lr,
                 rec["params"] = _np_tree(whole.params)
                 rec["m"] = _np_tree(whole.opt["m"])
                 rec["step"] = (whole.step, whole.opt["step"])
+                if mesh.size(("model",)) > 1:
+                    rec["replicated"] = {
+                        f"{part}{k}": t.detach().numpy().copy()
+                        for part, tree in (("params", local.params),
+                                           ("m", local.opt["m"]),
+                                           ("v", local.opt["v"]))
+                        for k, t, spec in with_specs(tree, specs.params)
+                        if not any(e == "model" or isinstance(e, tuple)
+                                   and "model" in e for e in spec)}
         out[shape, microbatch] = rec
     return out
+
+
+def sharded_jobs_worker(rank, jobs):
+    """``sharded_step_worker`` of each job (its arguments after the rank)
+    in turn: one spawn for several configs."""
+    return [sharded_step_worker(rank, *job) for job in jobs]
 
 
 def sharded_loop_worker(rank, arch, shape, ckpt_dir, steps, seq, batch, lr):

@@ -30,10 +30,13 @@ JAX's sharded step to it as well.
 - Reduced mixtral-8x7b at (2, 1) with the same batch: the Switch balance
   loss is a product of batch means, so it is compared term by term.
 - ``gather_state(shard_state(s)) == s`` bit for bit, each process holding
-  about half the state; a non-dense family at ``model`` = 2 refused,
-  naming ROADMAP A.9.4; two processes write a checkpoint through
-  ``run_training`` and one process resumes it.
+  about half the state; every config's step built at ``model`` = 2 (the
+  numbers of the other families' tensor-parallel steps:
+  ``tests/test_torch_tp_train_*.py``); two processes write a checkpoint
+  through ``run_training`` and one process resumes it.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -46,6 +49,7 @@ from repro.core.qat import QATConfig as JQAT
 from repro.launch.mesh import make_debug_mesh as jmesh
 from repro.models import get_model as jget_model
 from repro.optim.adamw import AdamWConfig as JAdamW
+from repro.optim.adamw import adamw_update as jadamw_update
 from repro.optim.adamw import init_opt_state as jinit_opt
 from repro.sharding.rules import spec_for_axes as jspec
 from repro.train.state import TrainState as JTrainState
@@ -69,6 +73,7 @@ from _torch_dist import run_ranks, sharded_loop_worker, sharded_step_worker
 DENSE, MOE = "qwen3-4b", "mixtral-8x7b"
 LAYOUTS = ((1, 2), (2, 1))
 B, S, LR, FMT_IDX = 4, 64, 1e-3, 1
+FRAMES = 32            # the encoder-decoder's frame embeddings a row
 POD = ((2, 2, 2), ("pod", "data", "model"))
 
 
@@ -157,28 +162,41 @@ def test_batch_shardings_equal_jax(rows):
                             shapes.items()}, _desc(*POD)) == pod
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b",
-                                  "rwkv6-7b", "llava-next-mistral-7b",
-                                  "seamless-m4t-large-v2"])
+@pytest.mark.parametrize("arch", sorted(list_archs()))
 def test_model_axis_refuses_a_non_dense_family(arch):
-    api = get_model(get_reduced(arch))
-    with pytest.raises(ValueError, match="A.9.4"):
-        make_sharded_train_step(api, _desc((1, 2)), AdamWConfig(),
-                                {"tokens": (B, S)})
-    # FSDP alone builds the step for every family
-    step, specs = make_sharded_train_step(api, _desc((2, 1)), AdamWConfig(),
-                                          {"tokens": (B, S)})
-    assert specs.opt["m"] is specs.params
+    """No family is refused any more: every config's step builds at (1, 2)
+    (tensor parallelism; seen from process 0, the group a stand-in: no
+    collective runs), its spec tree equal to the ``.spec`` of JAX's
+    ``state_shardings`` on the (1, 2) host mesh, and at (2, 1) (FSDP;
+    its spec tree: ``test_state_shardings_equal_jax``)."""
+    api, built = get_model(get_reduced(arch)), {}
+    for shape in ((1, 2), (2, 1)):
+        mesh = Mesh(np.arange(2).reshape(shape), ("data", "model"),
+                    group="model axis", coords={"data": 0, "model": 0})
+        step, built[shape] = make_sharded_train_step(
+            api, mesh, AdamWConfig(), {"tokens": (B, S)})
+        assert built[shape].opt["m"] is built[shape].params
+        assert (step.tensor_parallel is None) == (shape == (2, 1))
+    jp, _ = jstate_shardings(jget_model(jreduced(arch)), jmesh(1, 2))
+    assert dict(_port_flat(built[1, 2].params)) == _jspecs(jp)
 
 
 # ---- the numbers against JAX ------------------------------------------------
-def _batches(vocab):
+def _batches(cfg):
+    """Two batches of ``cfg`` (a JAX config): tokens, labels, masks, and
+    the vision prefix or the frame embeddings the family reads."""
     rng = np.random.default_rng(11)
 
     def one(mask):
-        t = rng.integers(0, vocab, (B, S)).astype(np.int32)
-        return {"tokens": t, "labels": np.roll(t, -1, axis=1),
-                "mask": mask}
+        t = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        out = {"tokens": t, "labels": np.roll(t, -1, axis=1), "mask": mask}
+        if cfg.vision_tokens:
+            out["vision_embeds"] = rng.standard_normal(
+                (B, cfg.vision_tokens, cfg.d_model)).astype(np.float32)
+        if cfg.family == "encdec":
+            out["frame_embeds"] = rng.standard_normal(
+                (B, FRAMES, cfg.d_model)).astype(np.float32)
+        return out
 
     differ = np.ones((B, S), np.float32)
     differ[:B // 2, S // 4:] = 0.0     # the first row shard mostly masked
@@ -186,11 +204,14 @@ def _batches(vocab):
     return [one(differ), one(np.ones((B, S), np.float32))]
 
 
-def _jax_case(arch, microbatch2):
+def _jax_case(arch, microbatch2, over=None):
     """The JAX api, its initial params, the batches and the results of one
     jitted function: value_and_grad of train_loss and the single-device
-    step (microbatch 1, and 2 when asked) from a state, per batch."""
-    japi = jget_model(jreduced(arch), JQAT(formats=TRAIN_FORMATS_MXINT))
+    step (microbatch 1, and 2 when asked) from a state, per batch.
+    ``over``: fields of the reduced config replaced (``dataclasses.
+    replace``)."""
+    cfg = dataclasses.replace(jreduced(arch), **(over or {}))
+    japi = jget_model(cfg, JQAT(formats=TRAIN_FORMATS_MXINT))
     params = jax.jit(japi.init_params)(jax.random.PRNGKey(0))
     opt = JAdamW(lr=LR)
     steps = [jbuild(japi, opt)] + ([jbuild(japi, opt, microbatch=2)]
@@ -204,7 +225,7 @@ def _jax_case(arch, microbatch2):
         return loss, terms, grads, [s(state, batch, idx) for s in steps]
 
     state = JTrainState(params, jinit_opt(params, opt), jnp.int32(0))
-    batches = _batches(japi.cfg.vocab)
+    batches = _batches(japi.cfg)
     jb = [jax.tree_util.tree_map(jnp.asarray, b) for b in batches]
     idx = jnp.int32(FMT_IDX)
     loss, terms, grads, outs = fn(state, jb[0], idx)
@@ -221,6 +242,54 @@ def _jax_case(arch, microbatch2):
     want["loss"] = float(loss)
     want["grads"] = _flat(grads)
     return japi, params, batches, want
+
+
+def _jax_setup(arch, over=None, formats=TRAIN_FORMATS_MXINT):
+    """The JAX api of the reduced ``arch`` (``over``: fields replaced;
+    MF-QAT over ``formats``), its initial params and the batches. The
+    params are made strongly typed (a constant init is weakly typed), so
+    the state after a step has the same types and a second call reuses
+    the compile."""
+    cfg = dataclasses.replace(jreduced(arch), **(over or {}))
+    japi = jget_model(cfg, JQAT(formats=formats))
+    params = jax.tree_util.tree_map(
+        lambda x: jnp.asarray(np.asarray(x)),
+        jax.jit(japi.init_params)(jax.random.PRNGKey(0)))
+    return japi, params, _batches(japi.cfg)
+
+
+def _jax_oracle(japi, params, batches, fmt_idx=FMT_IDX):
+    """``_jax_case``'s results at microbatch 1 from one jitted function
+    per config: ``build_train_step``'s own body (``value_and_grad`` of
+    ``train_loss``, then ``adamw_update``) returning the gradients and the
+    loss terms beside the new state, so XLA compiles one forward and
+    backward (a jit of ``value_and_grad`` beside ``build_train_step``
+    compiles two, in twice the time or more)."""
+    opt = JAdamW(lr=LR)
+
+    @jax.jit
+    def fn(state, batch, idx):
+        (loss, terms), grads = jax.value_and_grad(
+            lambda p: japi.train_loss(p, batch, idx), has_aux=True)(
+            state.params)
+        new_p, new_opt, om = jadamw_update(state.params, grads, state.opt,
+                                           opt, 1.0)
+        return (loss, terms, grads, JTrainState(new_p, new_opt,
+                                                state.step + 1),
+                {"loss": loss, **om})
+
+    state = JTrainState(params, jinit_opt(params, opt), jnp.int32(0))
+    jb = [jax.tree_util.tree_map(jnp.asarray, b) for b in batches]
+    idx = jnp.int32(fmt_idx)
+    loss, terms, grads, st1, m1 = fn(state, jb[0], idx)
+    second = fn(st1, jb[1], idx)[4]
+    return {"loss": float(loss), "grads": _flat(grads),
+            "terms": {k: float(v) for k, v in terms.items()},
+            1: {"loss": float(m1["loss"]),
+                "grad_norm": float(m1["grad_norm"]),
+                "params": _flat(st1.params), "m": _flat(st1.opt["m"]),
+                "second": (float(second["loss"]),
+                           float(second["grad_norm"]))}}
 
 
 @pytest.fixture(scope="module")

@@ -141,19 +141,21 @@ def test_cache_axes_equal_jax(layout):
 
 def test_param_axes_refuse_a_non_dense_stack():
     """``param_axes`` covers every family (the reference's ``block_axes``);
-    a non-dense stack is refused where a ``model`` axis above 1 would
-    shard it: the sharded training step names ROADMAP A.9.4 (the
-    tensor-parallel engine's guard: ``tests/test_torch_tp_engine.py``)."""
+    the sharded training step shards every family over ``model`` and
+    refuses, naming the dim, an axis that does not divide a dim its
+    forward cuts: reduced rwkv6-7b's 4 heads at ``model`` = 3 (the
+    tensor-parallel engine's guard, dense text only:
+    ``tests/test_torch_tp_engine.py``)."""
     from repro_torch.models import get_model
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.state import make_sharded_train_step
     cfg = get_reduced("mixtral-8x7b")
     assert param_axes(cfg)["blocks"][0]["moe"]["experts"]["w_up"] == (
         None, "experts", "fsdp", "mlp")
-    with pytest.raises(ValueError, match="A.9.4"):
-        make_sharded_train_step(get_model(cfg), _mesh((1, 2), ("data",
-                                                              "model")),
-                                AdamWConfig(), {"tokens": (2, 8)})
+    with pytest.raises(ValueError, match="'rwkv heads': 4"):
+        make_sharded_train_step(get_model(get_reduced("rwkv6-7b")),
+                                _mesh((1, 3), ("data", "model")),
+                                AdamWConfig(), {"tokens": (3, 8)})
 
 
 @pytest.fixture(scope="module")
