@@ -18,6 +18,7 @@ check them.
     python3 chip_smoke.py --mesh-only
     python3 chip_smoke.py --mesh-train-only
     python3 chip_smoke.py --mesh-family-only
+    python3 chip_smoke.py --dryrun-only
     python3 chip_smoke.py --train-only [--src DIR]
 
 ``--kernels-only`` runs phases 1-3b and stops, ``--quant-only`` phases 1,
@@ -27,7 +28,8 @@ check them.
 17, ``--hybrid-only`` phases 1, 2 and 18, ``--rwkv-only`` phases 1, 2 and
 19, ``--encdec-only`` phases 1, 2 and 20, ``--eval-only`` phases 1, 2 and
 21, ``--mesh-only`` phases 1, 2 and 22, ``--mesh-train-only`` phases 1, 2
-and 23, ``--mesh-family-only`` phases 1, 2 and 24, ``--train-only``
+and 23, ``--mesh-family-only`` phases 1, 2 and 24, ``--dryrun-only``
+phases 1, 2 and 25, ``--train-only``
 phases 1 and 2
 and then phase 6's smollm-135m runs A and B, each step split into its
 parts (with ``--src``, another tree's, for a same-call A/B of the training
@@ -347,10 +349,25 @@ Phases (any failure exits non-zero before the result line):
      backward: loss and grad norm within MESH_TRAIN_TOL relative, every
      gradient leaf within MESH_TRAIN_TOL x its max|g|, B7 launches equal;
      each process's parameter bytes against the whole and the CUDA-event
-     ms beside one process's printed.
+     ms beside one process's printed;
+ 25. the dry run (``launch/dryrun.py``) against the card: qwen3-4b at
+     full width and MESH_LAYERS layers, f32, batch 8 x seq 512, one whole
+     1 x 1 train step on real zeros on the card (after a warm-up step),
+     its FLOPs (FlopCounterMode) and B7 launches equal to the trace's on
+     fake ``cuda`` tensors and on ``meta`` ones, exactly, and the
+     argument + temp bytes of each within DRYRUN_MEM_TOL of the card's
+     peak allocation over the step; a w4 decode step (qwen3-4b at
+     MESH_LAYERS layers, 4 rows at 1,024 positions: B6 anchor, B5 split-N
+     build, B2 in the step) real against both traces: every kernel's
+     launches equal; then one production cell, qwen3-4b train_4k on the
+     16 x 16 mesh over a fake world of 256 ranks, traced on this host
+     (``meta``) and its record printed; the default process group as it
+     was before the phase.
 ``--layers N`` serves qwen3-4b at N of its 36 layers in phases 8a-12 and
-in the modes that run them alone; the default is QWEN3_LAYERS (20), cut
-from 36 to give back the time of phases 22 (28 layers) and 23 (20).
+in the modes that run them alone; the default is QWEN3_LAYERS (12), cut
+from 36 to give back the time of phases 22 (28 layers), 23 (20) and 25
+(12: the whole script took 923.6 s at 20 on one host, 1,193.2 s on
+another).
 The training phases (6, 16-21) and the llava and seamless prefills print
 ``launch/costmodel.py::roofline``'s bound for one H100 beside each
 measured time, at the depth, width, batch and sequence the phase runs.
@@ -485,13 +502,20 @@ PPL_ID_TOL = 1e-6      # PTQ at the anchor format vs the anchor route, rel.
 MESH_LAYERS, MESH_TP = 4, 2
 # qwen3-4b's depth on the serving path (format build, dense and paged
 # serving, speculation, preemption, SLO): cut from 36 to give back the
-# time of phases 22 and 23 within the script's limit (PERF.md §4).
-QWEN3_LAYERS = 20
+# time of phases 22, 23 and 25 within the script's limit (PERF.md §4).
+QWEN3_LAYERS = 12
 MESH_GRAD = (2560, 9728)
 # The mesh-training phase (23): the sharded step's loss and grad norm
 # within this of one process's (relative), each gathered gradient leaf
 # within this times its max|g|.
 MESH_TRAIN_TOL = 1e-3
+# The dry-run phase (25): a trace's argument + temp bytes within this of
+# the card's peak allocation over the real step (relative): the caching
+# allocator rounds every block up to 512 bytes, and a kernel's internal
+# workspace is invisible to the trace. The w4 decode step's cache holds
+# DRYRUN_DECODE positions behind 4 rows.
+DRYRUN_MEM_TOL = 0.03
+DRYRUN_DECODE = 1024
 _SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
 
@@ -6444,6 +6468,133 @@ def phase_mesh_family(seed: int):
     return {"fake_quant": launches}
 
 
+def phase_dryrun(seed: int) -> None:
+    """Phase 25: the dry run held against the card. A 1 x 1 qwen3-4b train
+    step on real zeros (``trace_cell(fake=False)``: the same counters) and
+    the trace of the same step on fake ``cuda`` tensors and on ``meta``
+    ones: FLOPs and B7 launches equal, argument + temp bytes within
+    DRYRUN_MEM_TOL of the card's peak; a w4 decode step the same way, every
+    kernel's launches equal; then one production cell on a fake world of
+    256 ranks, its record printed. Nothing here counts toward the kernels'
+    record: the real steps are comparisons, the traces launch nothing."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    t_phase = time.perf_counter()
+    was = dist.is_available() and dist.is_initialized()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = make_debug_mesh(1, 1)
+    cfg = _mesh_train_cfg("qwen3-4b", MESH_LAYERS)
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+
+    def real_step(cell_cfg, cell_shape, variant="baseline"):
+        """The real cell on the card: (record, peak bytes over it above
+        what was allocated before)."""
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rec = dryrun.trace_cell(cell_cfg, cell_shape, mesh, variant,
+                                device="cuda", fake=False)
+        torch.cuda.synchronize()
+        return rec, torch.cuda.max_memory_allocated() - before
+
+    t0 = time.perf_counter()
+    real_step(cfg, shape)                     # warm-up: kernels, cuBLAS
+    warm_s = time.perf_counter() - t0
+    real, peak = real_step(cfg, shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    traces = {where: dryrun.trace_cell(cfg, shape, mesh, device=where)
+              for where in ("cuda", "meta")}
+    if not traces["cuda"]["trace_device"].startswith("cuda"):
+        fail(f"dry run: the cuda trace ran on "
+             f"{traces['cuda']['trace_device']}, not on fake cuda tensors")
+    log(f"dry run: qwen3-4b ({MESH_LAYERS} layers, f32) 1 x 1 train step "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} on the card (warm-up {warm_s:.1f} s): "
+        f"FLOPs {real['flops_counted']:.6g}, launches {real['launches']}, "
+        f"argument {real['memory']['argument_size_in_bytes']} + temp "
+        f"{real['memory']['temp_size_in_bytes']} bytes tracked, the card's "
+        f"peak allocation over it {peak} bytes; card " + _SMI[0])
+    for where, rec in [("real", real)] + list(traces.items()):
+        mem = rec["memory"]
+        held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        gap = (held - peak) / peak
+        log(f"dry run {where}: FLOPs {rec['flops_counted']:.6g} counted + "
+            f"{rec['flops'] - rec['flops_counted']:.6g} in kernels, bytes "
+            f"{rec['bytes_accessed']:.6g}, memory {mem}, argument + temp "
+            f"{held} against the peak {peak} ({100 * gap:+.3f} %), B7 "
+            f"launches {rec['launches'].get('fake_quant', 0)}, trace "
+            f"{rec['compile_s']:.2f} s")
+        if abs(gap) > DRYRUN_MEM_TOL:
+            fail(f"dry run {where}: argument + temp {held} bytes, the "
+                 f"card's peak {peak}: beyond {DRYRUN_MEM_TOL} relative")
+        if rec["flops_counted"] != real["flops_counted"] or \
+                rec["launches"] != real["launches"]:
+            fail(f"dry run {where}: FLOPs {rec['flops_counted']} / "
+                 f"launches {rec['launches']}, the real step's "
+                 f"{real['flops_counted']} / {real['launches']}")
+        log(f"dry run {where}: tracked memory "
+            + ("equal to" if mem == real["memory"] else "differs from")
+            + " the real step's")
+    if real["launches"].get("fake_quant", 0) != _n_proj_leaves(cfg):
+        fail(f"dry run: the real step launched B7 "
+             f"{real['launches'].get('fake_quant', 0)} times, want "
+             f"{_n_proj_leaves(cfg)}")
+
+    # ---- a w4 decode step: the tree's build (B6, B5) and B2 in the step
+    scfg = qwen3_4b(MESH_LAYERS)
+    dshape = ShapeSpec("decode", DRYRUN_DECODE, SLOTS, "decode")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dreal, dpeak = real_step(scfg, dshape, "w4")
+    for where in ("cuda", "meta"):
+        rec = dryrun.trace_cell(scfg, dshape, mesh, "w4", device=where)
+        log(f"dry run w4 decode {where}: setup launches "
+            f"{rec['setup_launches']}, step launches {rec['launches']} "
+            f"(real: {dreal['setup_launches']}, {dreal['launches']}); "
+            f"FLOPs {rec['flops']:.6g} ({rec['flops_counted']:.6g} "
+            f"counted; real {dreal['flops_counted']:.6g}); argument + temp "
+            f"{rec['memory']['argument_size_in_bytes'] + rec['memory']['temp_size_in_bytes']}"
+            f" against the card's peak {dpeak} over the real cell (its "
+            "tree build included)")
+        if rec["launches"] != dreal["launches"] or \
+                rec["setup_launches"] != dreal["setup_launches"]:
+            fail(f"dry run w4 decode {where}: launches "
+                 f"{rec['setup_launches']} / {rec['launches']}, the real "
+                 f"cell's {dreal['setup_launches']} / {dreal['launches']}")
+    if set(dreal["launches"]) != {"mx_matmul_int4"} or \
+            set(dreal["setup_launches"]) != {"mx_quantize", "ss_convert"}:
+        fail(f"dry run w4 decode: launches {dreal['setup_launches']} / "
+             f"{dreal['launches']}, want B6 + B5 then B2")
+    del dreal
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- one production cell, traced on this host
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell("qwen3-4b", "train_4k", False, device="meta")
+    cell_s = time.perf_counter() - t0
+    log("dry run production cell: " + json.dumps(rec))
+    mem = rec.get("memory", {})
+    log(f"dry run production cell qwen3-4b train_4k 16x16: {rec['status']}"
+        f" in {cell_s:.1f} s; per rank argument "
+        f"{mem.get('argument_size_in_bytes', 0) / 2**30:.2f} GiB + temp "
+        f"{mem.get('temp_size_in_bytes', 0) / 2**30:.2f} GiB")
+    if rec["status"] != "ok" or rec["n_devices"] != 256 or \
+            rec["launches"] != {"fake_quant": _n_proj_leaves(cfg)}:
+        fail(f"dry run production cell: {rec.get('status')}, launches "
+             f"{rec.get('launches')}")
+    now = dist.is_available() and dist.is_initialized()
+    if now != was:
+        fail(f"dry run: the default process group was {was} before the "
+             f"phase and is {now} after it")
+    log(f"dry run phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_cli(src: str):
     """The serving CLI at full width as a user runs it, in a process of its
     own: ``python3 -m repro_torch.launch.serve --arch starcoder2-3b
@@ -6529,6 +6680,10 @@ def main() -> int:
     ap.add_argument("--mesh-family-only", action="store_true",
                     help="card, build and tensor-parallel training of the "
                          "other families at (1, 2) only; no result line")
+    ap.add_argument("--dryrun-only", action="store_true",
+                    help="card, build and the dry-run phase (traces held "
+                         "against real steps on the card, one production "
+                         "cell) only; no result line")
     ap.add_argument("--train-only", action="store_true",
                     help="card, build and smollm-135m training runs A and B "
                          "only, for a same-call A/B of two trees; no result "
@@ -6600,6 +6755,10 @@ def main() -> int:
         phase_mesh_family(args.seed)
         log(f"mesh family training only, {args.src}: "
             f"{time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.dryrun_only:
+        phase_dryrun(args.seed)
+        log(f"dry run only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
     if args.eval_only:
         phase_eval(args.seed)
@@ -6766,6 +6925,10 @@ def main() -> int:
     # tensor-parallel training of the other families
     add(phase_mesh_family(args.seed))
     lap("phase_mesh_family")
+    # the dry run held against the card (its real steps compare, and
+    # count toward no kernel's launches)
+    phase_dryrun(args.seed)
+    lap("phase_dryrun")
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)
     root = os.path.dirname(os.path.abspath(__file__))

@@ -6,12 +6,25 @@ the same two functions per element (``pow2i``, ``decode_fp``); these are
 what the kernels' plain versions in ``ref.py`` use. ``MxFmt`` is the format
 struct the quantize, fake-quant and Slice-and-Scale kernels take by value
 (``csrc/mx_numerics.cuh``).
+
+Shape-only launches (the dry run, ``launch/dryrun.py``): a tensor that holds
+no data — a ``FakeTensor``, or one on the ``meta`` device — takes each
+wrapper's card branch (``on_card``), and the launch function, finding it
+``shape_only``, builds nothing and calls no C function: it leaves the
+outputs its caller allocated as they are, counts the launch in the same
+counters a real launch bumps, and hands ``record_shape_only`` the kernel's
+name, its operations and the bytes it would read and write, computed from
+the operand shapes. A real CUDA tensor never reaches that branch, and a
+real CPU tensor still takes the plain version.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from typing import Dict, Iterator, List
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core.formats import MXFormat
 
@@ -31,6 +44,52 @@ def mx_fmt(fmt: MXFormat) -> MxFmt:
     return MxFmt(int(fp), fmt.bits, fmt.ebits, fmt.mbits,
                  fmt.fp_bias if fp else 0, fmt.emin if fp else 0, fmt.emax,
                  0 if fp else fmt.int_maxq, fmt.fp_max if fp else 0.0)
+
+
+def shape_only(t: torch.Tensor) -> bool:
+    """True for a tensor that holds no data: a ``FakeTensor`` or a tensor
+    on the ``meta`` device."""
+    return isinstance(t, FakeTensor) or t.is_meta
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """A wrapper's card branch: a CUDA tensor, or a ``meta`` one, which
+    stands for a card's tensor in a trace (its launch is shape-only)."""
+    return t.is_cuda or t.is_meta
+
+
+_RECORDERS: List[List[Dict]] = []
+
+
+@contextlib.contextmanager
+def shape_only_launches() -> Iterator[List[Dict]]:
+    """The shape-only launches made inside the block, in order: {"name",
+    "flops", "bytes_read", "bytes_written"} each."""
+    out: List[Dict] = []
+    _RECORDERS.append(out)
+    try:
+        yield out
+    finally:
+        _RECORDERS.remove(out)
+
+
+def record_shape_only(name: str, flops: float, bytes_read: int,
+                      bytes_written: int) -> None:
+    """One shape-only launch of kernel ``name``, for every open
+    ``shape_only_launches`` block."""
+    rec = {"name": name, "flops": float(flops),
+           "bytes_read": int(bytes_read), "bytes_written": int(bytes_written)}
+    for out in _RECORDERS:
+        out.append(dict(rec))
+
+
+# The f32 operations B6 and B7 do per element, as the bound of PERF.md's
+# kernel table reckons them (a few dozen; B5 does none: a table lookup).
+QUANT_OPS_PER_ELEMENT = 32
+
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

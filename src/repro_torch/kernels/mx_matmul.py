@@ -12,7 +12,10 @@ weight-sized: the kernel reads the leaf's own buffers, masks ragged M/N
 edges itself and reads ``x`` as bf16 or f32 (other dtypes are converted to
 an activation-sized f32 copy). On a CUDA tensor a wrapper launches its
 kernel or raises; on a CPU tensor it computes the plain version from
-``kernels/ref.py``. ``launches`` counts kernel launches and nothing else.
+``kernels/ref.py``. ``launches`` counts kernel launches and nothing else; a
+tensor that holds no data takes the card branch and launches shape-only
+(``kernels/common.py``: 2·M·K·N operations, x, codes and scales read, y
+written).
 
 Two kernel bodies, chosen by M alone: up to ``DECODE_MAX_M`` rows (the
 decode batch) the decode body streams the weight split over K across a
@@ -33,6 +36,8 @@ import torch
 from repro_torch.core.formats import MXFormat
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref
+from repro_torch.kernels.common import (nbytes, on_card, record_shape_only,
+                                        shape_only)
 
 SOURCE = _build.CSRC / "mx_matmul.cu"
 
@@ -180,7 +185,7 @@ def _check(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     if k % fmt.block_size:
         raise ValueError(f"K={k} is not a multiple of block size "
                          f"{fmt.block_size}")
-    if x.is_cuda and fmt.block_size % 8:
+    if on_card(x) and fmt.block_size % 8:
         raise ValueError(f"the kernels walk K-blocks 8 rows at a time; block "
                          f"size {fmt.block_size} is not a multiple of 8")
     if tuple(scales.shape) != (n, k // fmt.block_size) \
@@ -193,7 +198,8 @@ def _check(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     devs = {x.device, codes.device, scales.device}
     if len(devs) != 1:
         raise ValueError(f"operands on different devices: {devs}")
-    if x.is_cuda and not (codes.is_contiguous() and scales.is_contiguous()):
+    if on_card(x) and not (codes.is_contiguous()
+                           and scales.is_contiguous()):
         raise ValueError("codes and scales must be contiguous")
 
 
@@ -217,7 +223,18 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
             body: Optional[str]) -> Tuple[int, torch.Tensor]:
     """Launch B1 (mode 0 int, 1 fp) or B2 (mode 2) on the card: the decode
     body up to DECODE_MAX_M rows, the tiled body above (``body`` forces
-    one, to measure where they cross); returns (CUDA error code, y)."""
+    one, to measure where they cross); returns (CUDA error code, y). On
+    a tensor that holds no data, a shape-only launch (error code 0)."""
+    if shape_only(x):
+        xk = x if x.dtype in (torch.bfloat16, torch.float32) \
+            else x.to(torch.float32)
+        y = torch.empty((x.shape[0], n), dtype=torch.float32,
+                        device=x.device)
+        record_shape_only(
+            "mx_matmul_int4" if mode == 2 else "mx_matmul",
+            2 * x.shape[0] * x.shape[1] * n,
+            nbytes(xk) + nbytes(codes) + nbytes(scales), nbytes(y))
+        return 0, y
     lib = build()
     xk, bf16, y, stream = _launch_args(x, n)
     m, k = xk.shape
@@ -254,7 +271,7 @@ def mx_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     ``body`` ("decode" / "tiled") overrides the choice by M on the card."""
     k, n = codes.shape
     _check(x, codes, scales, k, n, fmt, n)
-    if not x.is_cuda:
+    if not on_card(x):
         return ref.ref_mx_matmul(x, codes, scales, fmt)
     rc, y = _launch(x, codes, scales, n, int(fmt.kind == "fp"), fmt, body)
     _raise_on(rc, "mx_matmul")
@@ -274,7 +291,7 @@ def mx_matmul_int4(x: torch.Tensor, packed: torch.Tensor,
     k, half = packed.shape
     n = 2 * half
     _check(x, packed, scales, k, n, fmt, half)
-    if not x.is_cuda:
+    if not on_card(x):
         return ref.ref_mx_matmul_int4(x, packed, scales, fmt)
     rc, y = _launch(x, packed, scales, n, 2, fmt, body)
     _raise_on(rc, "mx_matmul_int4")

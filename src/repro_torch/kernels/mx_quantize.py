@@ -6,7 +6,8 @@ takes a contiguous f32/bf16 tensor viewed as (outer, K, inner), blocks of
 the input's shape and scales (outer, inner, K/bs). The public wrapper —
 any shape and block axis, the plain version on the CPU — is
 ``kernels/ops.py::mx_quantize``. ``launches`` counts kernel launches and
-nothing else.
+nothing else; a tensor that holds no data launches shape-only
+(``kernels/common.py``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,9 @@ import torch
 
 from repro_torch.core.formats import MXFormat
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.common import MxFmt, mx_fmt, raise_on, stream_of
+from repro_torch.kernels.common import (QUANT_OPS_PER_ELEMENT, MxFmt, mx_fmt,
+                                        nbytes, raise_on, record_shape_only,
+                                        shape_only, stream_of)
 
 SOURCE = _build.CSRC / "mx_quantize.cu"
 
@@ -45,6 +48,11 @@ def build() -> ctypes.CDLL:
 
 def launch(v: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
            fmt: MXFormat, outer: int, k: int, inner: int) -> None:
+    if shape_only(v):
+        record_shape_only("mx_quantize", QUANT_OPS_PER_ELEMENT * v.numel(),
+                          nbytes(v), nbytes(codes) + nbytes(scales))
+        launches["mx_quantize"] += 1
+        return
     lib = build()
     with torch.cuda.device(v.device):
         rc = lib.mx_quantize_launch(

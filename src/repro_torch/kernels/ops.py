@@ -3,8 +3,10 @@ behind the API of ``repro/kernels/ops.py``: any leading dims, any block axis.
 
 On a CUDA tensor each wrapper checks what its kernel takes (contiguous f32
 or bf16 values and a block size of 8, 16, 32 or 64; int8 / uint8 codes),
-allocates the outputs and launches the kernel, or raises. On a CPU tensor it
-computes the plain version: ``core/mx.py::quantize``,
+allocates the outputs and launches the kernel, or raises (a tensor that
+holds no data, fake or ``meta``, takes the same branch and launches
+shape-only: ``kernels/common.py``). On a CPU tensor it computes the plain
+version: ``core/mx.py::quantize``,
 ``core/mx.py::quantize_dequantize``,
 ``core/slice_scale.py::slice_and_scale`` (then ``pack_int4_splitn`` for the
 fused split-N mode). The quantizing kernels read the
@@ -26,6 +28,7 @@ from repro_torch.core.slice_scale import slice_and_scale
 from repro_torch.kernels import fake_quant as _fq
 from repro_torch.kernels import mx_quantize as _mq
 from repro_torch.kernels import ss_convert as _ss
+from repro_torch.kernels.common import on_card
 
 KERNEL_BLOCK_SIZES = (8, 16, 32, 64)
 VALUE_DTYPES = (torch.float32, torch.bfloat16)
@@ -53,7 +56,7 @@ def _view3(v: torch.Tensor, fmt: MXFormat, axis: int, name: str
 def mx_quantize(v: torch.Tensor, fmt: MXFormat, axis: int = -1) -> MXTensor:
     """B6: MX quantization -> MXTensor (the API of ``core.mx.quantize``)."""
     axis = axis % v.ndim
-    if not v.is_cuda:
+    if not on_card(v):
         return quantize(v, fmt, axis=axis)
     outer, k, inner = _view3(v, fmt, axis, "mx_quantize")
     codes = torch.empty(v.shape, device=v.device, dtype=torch.int8
@@ -73,7 +76,7 @@ def fake_quant(v: torch.Tensor, fmt: MXFormat, axis: int = -1, *,
     ``v.dtype``)."""
     axis = axis % v.ndim
     out_dtype = out_dtype or v.dtype
-    if not v.is_cuda:
+    if not on_card(v):
         return fake_quant_plain(v, fmt, axis, out_dtype=out_dtype, ste=ste)
     outer, k, inner = _view3(v, fmt, axis, "fake_quant")
     if out_dtype not in VALUE_DTYPES:
@@ -118,7 +121,7 @@ def _check_ss(t: MXTensor, low: MXFormat, name: str) -> None:
 def ss_convert(t: MXTensor, low: MXFormat) -> MXTensor:
     """B5: Slice-and-Scale on packed codes and scales (the API of
     ``core.slice_scale.slice_and_scale``; identity if the formats match)."""
-    if not t.codes.is_cuda or _same_format(t, low):
+    if not on_card(t.codes) or _same_format(t, low):
         return slice_and_scale(t, low)
     _check_ss(t, low, "ss_convert")
     codes = torch.empty_like(t.codes, dtype=torch.int8
@@ -143,7 +146,7 @@ def ss_convert_int4_splitn(t: MXTensor, low: MXFormat
     if not splitn_ok(t.codes.shape, t.block_axis):
         raise ValueError(f"codes {tuple(t.codes.shape)} blocked along axis "
                          f"{t.block_axis} do not take the split-N layout")
-    if not t.codes.is_cuda or _same_format(t, low):
+    if not on_card(t.codes) or _same_format(t, low):
         s = slice_and_scale(t, low)
         return pack_int4_splitn(s.codes).contiguous(), s.scale_exp
     _check_ss(t, low, "ss_convert_int4_splitn")

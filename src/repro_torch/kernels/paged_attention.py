@@ -9,7 +9,9 @@ where they lie — a layer's pool is the view ``pool[g]`` of the stacked
 block table (B, max_pages) int32 and the per-row lengths, and return f32.
 On a CUDA tensor a wrapper launches its kernel (one launch per call) or
 raises; on a CPU tensor it computes the plain version from
-``kernels/ref.py``. ``launches`` counts kernel launches and nothing else.
+``kernels/ref.py``. ``launches`` counts kernel launches and nothing else; a
+tensor that holds no data takes the card branch and launches shape-only
+(``kernels/common.py``), counting the most the block table can map.
 
 The kernel splits each (slot, kv head, q block)'s page walk across blocks
 and merges the splits' partial softmaxes in the same launch.
@@ -40,6 +42,8 @@ import torch
 
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref
+from repro_torch.kernels.common import (nbytes, on_card, record_shape_only,
+                                        shape_only)
 
 SOURCE = _build.CSRC / "paged_attention.cu"
 MODES = ("kernel", "gather")
@@ -332,7 +336,7 @@ def _check(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
     devs = {t.device for t in tensors}
     if len(devs) != 1:
         raise ValueError(f"operands on different devices: {devs}")
-    if not q.is_cuda:
+    if not on_card(q):
         return
     if q.dtype not in (torch.bfloat16, torch.float32) or \
             k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
@@ -368,6 +372,17 @@ def _launch(name: str, q: torch.Tensor, c: int, k_pages: torch.Tensor,
     out = torch.empty(out_shape, dtype=torch.float32, device=q.device)
     if b == 0:
         return out
+    if shape_only(q):
+        # the data decide how much of the walk is live: count the most the
+        # block table can map (every row, every page)
+        positions = b * mp * ps
+        kv = 2 * positions * hkv * d * k_pages.element_size()
+        record_shape_only(name, 4 * c * h * d * positions,
+                          nbytes(q) + nbytes(block_table) + nbytes(lens)
+                          + (0 if q_len is None else nbytes(q_len)) + kv,
+                          nbytes(out))
+        launches[name] += 1
+        return out
     lib = build()
     acc, ml, tickets = launch_buffers(plan, q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -396,7 +411,7 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if q.ndim != 3:
         raise ValueError(f"q must be (B, H, D), got {tuple(q.shape)}")
     _check(q, k_pages, v_pages, block_table, (cache_len,))
-    if not q.is_cuda:
+    if not on_card(q):
         return ref.ref_paged_attention(q, k_pages, v_pages, block_table,
                                        cache_len, window)
     return _launch("paged_attention", q, 1, k_pages, v_pages, block_table,
@@ -414,7 +429,7 @@ def paged_attention_mq(q: torch.Tensor, k_pages: torch.Tensor,
     if q.ndim != 4:
         raise ValueError(f"q must be (B, C, H, D), got {tuple(q.shape)}")
     _check(q, k_pages, v_pages, block_table, (q_offset, q_len))
-    if not q.is_cuda:
+    if not on_card(q):
         return ref.ref_paged_attention_mq(q, k_pages, v_pages, block_table,
                                           q_offset, q_len, window)
     return _launch("paged_attention_mq", q, q.shape[1], k_pages, v_pages,

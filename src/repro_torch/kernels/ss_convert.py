@@ -7,7 +7,9 @@ caller allocated: codes of the same size, or, with ``half`` > 0, split-N
 nibble bytes — rows of ``2 * half`` codes written as rows of ``half`` bytes
 (a 4-bit MXINT target). The public wrappers — the plain versions on the CPU
 — are ``kernels/ops.py::ss_convert`` and ``ss_convert_int4_splitn``.
-``launches`` counts kernel launches (either mode) and nothing else.
+``launches`` counts kernel launches (either mode) and nothing else; a tensor
+that holds no data launches shape-only (``kernels/common.py``: no
+operations, a code is a table lookup).
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import torch
 
 from repro_torch.core.formats import MXFormat, delta_e
 from repro_torch.kernels import build as _build
-from repro_torch.kernels.common import MxFmt, mx_fmt, raise_on, stream_of
+from repro_torch.kernels.common import (MxFmt, mx_fmt, nbytes, raise_on,
+                                        record_shape_only, shape_only,
+                                        stream_of)
 
 SOURCE = _build.CSRC / "ss_convert.cu"
 
@@ -47,6 +51,11 @@ def build() -> ctypes.CDLL:
 def launch(codes: torch.Tensor, scales: torch.Tensor,
            out_codes: torch.Tensor, out_scales: torch.Tensor,
            high: MXFormat, low: MXFormat, half: int = 0) -> None:
+    if shape_only(codes):
+        record_shape_only("ss_convert", 0, nbytes(codes) + nbytes(scales),
+                          nbytes(out_codes) + nbytes(out_scales))
+        launches["ss_convert"] += 1
+        return
     lib = build()
     with torch.cuda.device(codes.device):
         rc = lib.ss_convert_launch(

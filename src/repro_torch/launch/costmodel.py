@@ -25,8 +25,9 @@ Conventions, as the reference's: FLOPs count multiply + add as 2; a
 training step is ``TRAIN_MM_FACTOR`` (8: forward, backward at twice the
 forward, and remat's second forward) over 2 times one forward's flops;
 flash attention costs the full S x S_kv rectangle (the banded sliding
-window S x min(S, W + chunk)). The dry-run tooling is not ported
-(ROADMAP A.10.2).
+window S x min(S, W + chunk)). The dry run's records
+(``launch/dryrun.py``) are put beside these terms by
+``tools/dryrun_table.py``.
 """
 from __future__ import annotations
 

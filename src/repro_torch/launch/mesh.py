@@ -15,7 +15,9 @@ what one process needs to take part: its coordinates on the grid and the
 process group of each set of axes it collects over (``group_of``: the
 ``model`` axis for tensor parallelism, ``pod`` x ``data`` for the batch and
 the ZeRO-sharded parameters of a training step). ``make_production_mesh``
-waits for the dry-run tooling (ROADMAP A.10.2), its only caller.
+is the reference's two production grids, (16, 16) and (2, 16, 16), over an
+initialised default group of 256 or 512 processes: the dry run
+(``launch/dryrun.py``) builds it over a fake world of that size.
 """
 from __future__ import annotations
 
@@ -146,6 +148,21 @@ def make_mesh(shape: Sequence[int], axis_names: Sequence[str]) -> Mesh:
     groups = _axis_groups(devices, axis_names, rank) if world > 1 else {}
     return Mesh(devices, axis_names, group=groups.get(("model",)),
                 coords=coords, groups=groups)
+
+
+# The reference's production grids: one pod of 16 x 16 chips, and two.
+PRODUCTION_MESHES = {False: ((16, 16), ("data", "model")),
+                     True: ((2, 16, 16), ("pod", "data", "model"))}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The (16, 16) ``("data", "model")`` mesh, or with ``multi_pod`` the
+    (2, 16, 16) ``("pod", "data", "model")`` one, over the initialised
+    default group (``make_mesh``: every rank calls it). Without a default
+    group of that size it raises, as the reference does on too few
+    devices."""
+    shape, names = PRODUCTION_MESHES[multi_pod]
+    return make_mesh(shape, names)
 
 
 def make_debug_mesh(n_data: int = 1, n_model: int = 1) -> Mesh:

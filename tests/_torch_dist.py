@@ -301,3 +301,21 @@ def replica_set_worker(rank, arch, path, prompts, max_new, fmt, n_replicas,
                                          "ticks")},
             "per_replica": [(s["tokens_out"], s["ticks"])
                             for s in st["replicas"]]}
+
+
+def dryrun_cells_worker(rank, cells):
+    """The dry run's record (``launch/dryrun.py::trace_cell``) of each
+    ``(arch, kind, seq, batch)`` on real CPU tensors (zeros) on the (1, 2)
+    mesh of this group: its collectives in order, FLOPs and memory."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.dryrun import trace_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    mesh = make_debug_mesh(1, 2)
+    out = []
+    for arch, kind, seq, batch in cells:
+        rec = trace_cell(get_reduced(arch), ShapeSpec(kind, seq, batch, kind),
+                         mesh, device="cpu", fake=False)
+        out.append({k: rec[k] for k in ("collective_records", "flops",
+                                        "memory")})
+    return out
