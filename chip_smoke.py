@@ -354,20 +354,19 @@ Phases (any failure exits non-zero before the result line):
      full width and MESH_LAYERS layers, f32, batch 8 x seq 512, one whole
      1 x 1 train step on real zeros on the card (after a warm-up step),
      its FLOPs (FlopCounterMode) and B7 launches equal to the trace's on
-     fake ``cuda`` tensors and on ``meta`` ones, exactly, and the
-     argument + temp bytes of each within DRYRUN_MEM_TOL of the card's
-     peak allocation over the step; a w4 decode step (qwen3-4b at
-     MESH_LAYERS layers, 4 rows at 1,024 positions: B6 anchor, B5 split-N
-     build, B2 in the step) real against both traces: every kernel's
-     launches equal; then one production cell, qwen3-4b train_4k on the
-     16 x 16 mesh over a fake world of 256 ranks, traced on this host
-     (``meta``) and its record printed; the default process group as it
-     was before the phase.
+     fake ``cuda`` tensors, exactly, and the argument + temp bytes of both
+     within DRYRUN_MEM_TOL of the card's peak allocation over the step; a
+     w4 decode step (qwen3-4b at MESH_LAYERS layers, 4 rows at 1,024
+     positions: B6 anchor, B5 split-N build, B2 in the step; after a
+     warm-up cell) the same way, every kernel's launches equal, the
+     card's peak taken over the step alone; meanwhile one production
+     cell, qwen3-4b train_4k on the 16 x 16 mesh over a fake world of 256
+     ranks, traced on this host by ``python -m repro_torch.launch.dryrun``
+     in a process of its own (``meta`` tensors) and its record printed;
+     the default process group as it was before the phase.
 ``--layers N`` serves qwen3-4b at N of its 36 layers in phases 8a-12 and
-in the modes that run them alone; the default is QWEN3_LAYERS (12), cut
-from 36 to give back the time of phases 22 (28 layers), 23 (20) and 25
-(12: the whole script took 923.6 s at 20 on one host, 1,193.2 s on
-another).
+in the modes that run them alone; the default is QWEN3_LAYERS (20), cut
+from 36 to give back the time of phases 22 (28 layers) and 23 (20).
 The training phases (6, 16-21) and the llava and seamless prefills print
 ``launch/costmodel.py::roofline``'s bound for one H100 beside each
 measured time, at the depth, width, batch and sequence the phase runs.
@@ -377,11 +376,13 @@ The last two lines of standard output are the kernels' JSON record and
 from __future__ import annotations
 
 import argparse
+import atexit
 import bisect
 import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -502,8 +503,8 @@ PPL_ID_TOL = 1e-6      # PTQ at the anchor format vs the anchor route, rel.
 MESH_LAYERS, MESH_TP = 4, 2
 # qwen3-4b's depth on the serving path (format build, dense and paged
 # serving, speculation, preemption, SLO): cut from 36 to give back the
-# time of phases 22, 23 and 25 within the script's limit (PERF.md §4).
-QWEN3_LAYERS = 12
+# time of phases 22 and 23 within the script's limit (PERF.md §4).
+QWEN3_LAYERS = 20
 MESH_GRAD = (2560, 9728)
 # The mesh-training phase (23): the sharded step's loss and grad norm
 # within this of one process's (relative), each gathered gradient leaf
@@ -511,10 +512,10 @@ MESH_GRAD = (2560, 9728)
 MESH_TRAIN_TOL = 1e-3
 # The dry-run phase (25): a trace's argument + temp bytes within this of
 # the card's peak allocation over the real step (relative): the caching
-# allocator rounds every block up to 512 bytes, and a kernel's internal
-# workspace is invisible to the trace. The w4 decode step's cache holds
-# DRYRUN_DECODE positions behind 4 rows.
-DRYRUN_MEM_TOL = 0.03
+# allocator rounds every block up to 512 bytes (the train step's gap was
+# -0.012 %). The w4 decode step's cache holds DRYRUN_DECODE positions
+# behind 4 rows.
+DRYRUN_MEM_TOL = 0.005
 DRYRUN_DECODE = 1024
 _SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
@@ -6468,19 +6469,19 @@ def phase_mesh_family(seed: int):
     return {"fake_quant": launches}
 
 
-def phase_dryrun(seed: int) -> None:
+def phase_dryrun(seed: int, src: str) -> None:
     """Phase 25: the dry run held against the card. A 1 x 1 qwen3-4b train
-    step on real zeros (``trace_cell(fake=False)``: the same counters) and
-    the trace of the same step on fake ``cuda`` tensors and on ``meta``
-    ones: FLOPs and B7 launches equal, argument + temp bytes within
-    DRYRUN_MEM_TOL of the card's peak; a w4 decode step the same way, every
-    kernel's launches equal; then one production cell on a fake world of
-    256 ranks, its record printed. Nothing here counts toward the kernels'
-    record: the real steps are comparisons, the traces launch nothing."""
+    step on real zeros (``trace_cell(fake=False)``: the same counters)
+    against the trace of the same step on fake ``cuda`` tensors: FLOPs and
+    B7 launches equal, argument + temp bytes within DRYRUN_MEM_TOL of the
+    card's peak over the step; a w4 decode step the same way, every
+    kernel's launches equal. Then the record of one production cell on a
+    fake world of 256 ranks, which the dry run's CLI traced on this host
+    beside the card's phases (``start_dryrun_cell``; the whole run starts
+    it before phase 21). Nothing here counts toward the kernels' record:
+    the real steps are comparisons, the traces launch nothing."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs.shapes import ShapeSpec
-    from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_debug_mesh
 
     t_phase = time.perf_counter()
@@ -6489,110 +6490,167 @@ def phase_dryrun(seed: int) -> None:
     torch.cuda.empty_cache()
     mesh = make_debug_mesh(1, 1)
     cfg = _mesh_train_cfg("qwen3-4b", MESH_LAYERS)
-    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    start_dryrun_cell(src)        # a no-op where the whole run started it
+    _dryrun_card_steps(cfg, mesh)
+    t0 = time.perf_counter()
+    cell = _DRYRUN_CELL
+    try:
+        rc = cell["proc"].wait(timeout=600)
+        path = os.path.join(cell["out_dir"],
+                            "qwen3-4b__train_4k__16x16__baseline.json")
+        if rc != 0 or not os.path.exists(path):
+            with open(os.path.join(cell["out_dir"], "log")) as f:
+                fail(f"dry run CLI ({' '.join(cell['cmd'][1:])}) exited "
+                     f"{rc}: {f.read()[-2000:]}")
+        with open(path) as f:
+            rec = json.load(f)
+    finally:
+        _stop_dryrun_cell()
+    now = dist.is_available() and dist.is_initialized()
+    if now != was:
+        fail(f"dry run: the default process group was {was} before the "
+             f"phase and is {now} after it")
+    log("dry run production cell: " + json.dumps(rec))
+    mem = rec.get("memory", {})
+    log(f"dry run production cell qwen3-4b train_4k 16x16: {rec['status']}"
+        f", traced in {rec.get('compile_s', 0):.1f} s beside the card's "
+        f"phases, {time.perf_counter() - t0:.1f} s waited for; per rank "
+        f"argument {mem.get('argument_size_in_bytes', 0) / 2**30:.2f} GiB "
+        f"+ temp {mem.get('temp_size_in_bytes', 0) / 2**30:.2f} GiB")
+    if rec["status"] != "ok" or rec["n_devices"] != 256 or \
+            rec["launches"] != {"fake_quant": _n_proj_leaves(cfg)}:
+        fail(f"dry run production cell: {rec.get('status')}, launches "
+             f"{rec.get('launches')}")
+    log(f"dry run phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+_DRYRUN_CELL: dict = {}     # phase 25's production-cell trace, running
+
+
+def start_dryrun_cell(src: str) -> None:
+    """Start phase 25's production cell: ``python -m
+    repro_torch.launch.dryrun`` traces qwen3-4b train_4k on the 16 x 16 mesh
+    over a fake world of 256 ranks on ``meta`` tensors, in a process of
+    its own that sees no card. It is host work only, so it runs beside the
+    card's phases; it is stopped at exit, whatever happens."""
+    if _DRYRUN_CELL:
+        return
+    out_dir = tempfile.mkdtemp(prefix="dryrun_cell_")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+           "qwen3-4b", "--shape", "train_4k", "--mesh", "single", "--out",
+           out_dir]
+    with open(os.path.join(out_dir, "log"), "w") as out:
+        proc = subprocess.Popen(
+            cmd, env=dict(os.environ, PYTHONPATH=os.path.abspath(src),
+                          CUDA_VISIBLE_DEVICES=""),
+            stdout=out, stderr=subprocess.STDOUT)
+    _DRYRUN_CELL.update(proc=proc, out_dir=out_dir, cmd=cmd)
+    atexit.register(_stop_dryrun_cell)
+
+
+def _stop_dryrun_cell() -> None:
+    proc = _DRYRUN_CELL.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if "out_dir" in _DRYRUN_CELL:
+        shutil.rmtree(_DRYRUN_CELL["out_dir"], ignore_errors=True)
+    _DRYRUN_CELL.clear()
+
+
+def _dryrun_card_steps(cfg, mesh) -> None:
+    """Phase 25's steps on the card: the 1 x 1 train step of ``cfg`` and
+    a w4 decode step, each real against its fake ``cuda`` trace."""
+    import torch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    def at_step():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
 
     def real_step(cell_cfg, cell_shape, variant="baseline"):
-        """The real cell on the card: (record, peak bytes over it above
-        what was allocated before)."""
+        """The real cell on the card: (record, the card's peak allocation
+        over its step alone, above what was allocated before the cell)."""
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         rec = dryrun.trace_cell(cell_cfg, cell_shape, mesh, variant,
-                                device="cuda", fake=False)
+                                device="cuda", fake=False,
+                                before_step=at_step)
         torch.cuda.synchronize()
         return rec, torch.cuda.max_memory_allocated() - before
 
-    t0 = time.perf_counter()
-    real_step(cfg, shape)                     # warm-up: kernels, cuBLAS
-    warm_s = time.perf_counter() - t0
-    real, peak = real_step(cfg, shape)
-    gc.collect()
-    torch.cuda.empty_cache()
-    traces = {where: dryrun.trace_cell(cfg, shape, mesh, device=where)
-              for where in ("cuda", "meta")}
-    if not traces["cuda"]["trace_device"].startswith("cuda"):
-        fail(f"dry run: the cuda trace ran on "
-             f"{traces['cuda']['trace_device']}, not on fake cuda tensors")
-    log(f"dry run: qwen3-4b ({MESH_LAYERS} layers, f32) 1 x 1 train step "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ} on the card (warm-up {warm_s:.1f} s): "
-        f"FLOPs {real['flops_counted']:.6g}, launches {real['launches']}, "
-        f"argument {real['memory']['argument_size_in_bytes']} + temp "
-        f"{real['memory']['temp_size_in_bytes']} bytes tracked, the card's "
-        f"peak allocation over it {peak} bytes; card " + _SMI[0])
-    for where, rec in [("real", real)] + list(traces.items()):
+    def held_to_peak(tag, rec, peak):
         mem = rec["memory"]
         held = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
         gap = (held - peak) / peak
-        log(f"dry run {where}: FLOPs {rec['flops_counted']:.6g} counted + "
+        log(f"dry run {tag}: FLOPs {rec['flops_counted']:.6g} counted + "
             f"{rec['flops'] - rec['flops_counted']:.6g} in kernels, bytes "
             f"{rec['bytes_accessed']:.6g}, memory {mem}, argument + temp "
-            f"{held} against the peak {peak} ({100 * gap:+.3f} %), B7 "
-            f"launches {rec['launches'].get('fake_quant', 0)}, trace "
-            f"{rec['compile_s']:.2f} s")
+            f"{held} against the card's peak over the step {peak} "
+            f"({100 * gap:+.4f} %), setup launches {rec['setup_launches']}"
+            f", step launches {rec['launches']}, trace "
+            f"{rec['compile_s']:.2f} s; card " + _SMI[0])
         if abs(gap) > DRYRUN_MEM_TOL:
-            fail(f"dry run {where}: argument + temp {held} bytes, the "
-                 f"card's peak {peak}: beyond {DRYRUN_MEM_TOL} relative")
+            fail(f"dry run {tag}: argument + temp {held} bytes, the card's "
+                 f"peak {peak}: beyond {DRYRUN_MEM_TOL} relative")
+
+    def held_to_real(tag, rec, real):
         if rec["flops_counted"] != real["flops_counted"] or \
-                rec["launches"] != real["launches"]:
-            fail(f"dry run {where}: FLOPs {rec['flops_counted']} / "
-                 f"launches {rec['launches']}, the real step's "
-                 f"{real['flops_counted']} / {real['launches']}")
-        log(f"dry run {where}: tracked memory "
-            + ("equal to" if mem == real["memory"] else "differs from")
-            + " the real step's")
-    if real["launches"].get("fake_quant", 0) != _n_proj_leaves(cfg):
-        fail(f"dry run: the real step launched B7 "
-             f"{real['launches'].get('fake_quant', 0)} times, want "
-             f"{_n_proj_leaves(cfg)}")
+                rec["launches"] != real["launches"] or \
+                rec["setup_launches"] != real["setup_launches"]:
+            fail(f"dry run {tag}: FLOPs {rec['flops_counted']} / launches "
+                 f"{rec['setup_launches']}, {rec['launches']}; the real "
+                 f"step's {real['flops_counted']} / "
+                 f"{real['setup_launches']}, {real['launches']}")
+        if rec["trace_device"] is None or \
+                not rec["trace_device"].startswith("cuda"):
+            fail(f"dry run {tag}: traced on {rec['trace_device']}, not on "
+                 "fake cuda tensors")
+        log(f"dry run {tag}: FLOPs and launches equal to the real step's, "
+            "tracked memory " + ("equal to" if rec["memory"] == real["memory"]
+                                 else "differs from") + " the real step's")
+
+    # ---- a 1 x 1 train step: B7 in the forward
+    shape = ShapeSpec("train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    real_step(cfg, shape)                     # warm-up: kernels, cuBLAS
+    log(f"dry run: qwen3-4b ({MESH_LAYERS} layers, f32) 1 x 1 train step "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} (warm-up "
+        f"{time.perf_counter() - t0:.1f} s)")
+    real, peak = real_step(cfg, shape)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = dryrun.trace_cell(cfg, shape, mesh, device="cuda")
+    held_to_peak("train real", real, peak)
+    held_to_peak("train fake cuda", trace, peak)
+    held_to_real("train fake cuda", trace, real)
+    if real["launches"] != {"fake_quant": _n_proj_leaves(cfg)}:
+        fail(f"dry run: the real step launched {real['launches']}, want "
+             f"B7 {_n_proj_leaves(cfg)} times")
+    del real, trace
 
     # ---- a w4 decode step: the tree's build (B6, B5) and B2 in the step
     scfg = qwen3_4b(MESH_LAYERS)
     dshape = ShapeSpec("decode", DRYRUN_DECODE, SLOTS, "decode")
     gc.collect()
     torch.cuda.empty_cache()
+    real_step(scfg, dshape, "w4")             # warm-up
     dreal, dpeak = real_step(scfg, dshape, "w4")
-    for where in ("cuda", "meta"):
-        rec = dryrun.trace_cell(scfg, dshape, mesh, "w4", device=where)
-        log(f"dry run w4 decode {where}: setup launches "
-            f"{rec['setup_launches']}, step launches {rec['launches']} "
-            f"(real: {dreal['setup_launches']}, {dreal['launches']}); "
-            f"FLOPs {rec['flops']:.6g} ({rec['flops_counted']:.6g} "
-            f"counted; real {dreal['flops_counted']:.6g}); argument + temp "
-            f"{rec['memory']['argument_size_in_bytes'] + rec['memory']['temp_size_in_bytes']}"
-            f" against the card's peak {dpeak} over the real cell (its "
-            "tree build included)")
-        if rec["launches"] != dreal["launches"] or \
-                rec["setup_launches"] != dreal["setup_launches"]:
-            fail(f"dry run w4 decode {where}: launches "
-                 f"{rec['setup_launches']} / {rec['launches']}, the real "
-                 f"cell's {dreal['setup_launches']} / {dreal['launches']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    trace = dryrun.trace_cell(scfg, dshape, mesh, "w4", device="cuda")
+    held_to_peak("w4 decode real", dreal, dpeak)
+    held_to_peak("w4 decode fake cuda", trace, dpeak)
+    held_to_real("w4 decode fake cuda", trace, dreal)
     if set(dreal["launches"]) != {"mx_matmul_int4"} or \
             set(dreal["setup_launches"]) != {"mx_quantize", "ss_convert"}:
         fail(f"dry run w4 decode: launches {dreal['setup_launches']} / "
              f"{dreal['launches']}, want B6 + B5 then B2")
-    del dreal
+    del dreal, trace
     gc.collect()
     torch.cuda.empty_cache()
-
-    # ---- one production cell, traced on this host
-    t0 = time.perf_counter()
-    rec = dryrun.lower_cell("qwen3-4b", "train_4k", False, device="meta")
-    cell_s = time.perf_counter() - t0
-    log("dry run production cell: " + json.dumps(rec))
-    mem = rec.get("memory", {})
-    log(f"dry run production cell qwen3-4b train_4k 16x16: {rec['status']}"
-        f" in {cell_s:.1f} s; per rank argument "
-        f"{mem.get('argument_size_in_bytes', 0) / 2**30:.2f} GiB + temp "
-        f"{mem.get('temp_size_in_bytes', 0) / 2**30:.2f} GiB")
-    if rec["status"] != "ok" or rec["n_devices"] != 256 or \
-            rec["launches"] != {"fake_quant": _n_proj_leaves(cfg)}:
-        fail(f"dry run production cell: {rec.get('status')}, launches "
-             f"{rec.get('launches')}")
-    now = dist.is_available() and dist.is_initialized()
-    if now != was:
-        fail(f"dry run: the default process group was {was} before the "
-             f"phase and is {now} after it")
-    log(f"dry run phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_cli(src: str):
@@ -6757,7 +6815,7 @@ def main() -> int:
             f"{time.perf_counter() - t_all:.1f} s")
         return 0
     if args.dryrun_only:
-        phase_dryrun(args.seed)
+        phase_dryrun(args.seed, args.src)
         log(f"dry run only, {args.src}: {time.perf_counter() - t_all:.1f} s")
         return 0
     if args.eval_only:
@@ -6899,6 +6957,8 @@ def main() -> int:
             else:
                 launches[k] = launches.get(k, 0) + v
         lap(phase.__name__)
+    # phase 25's production cell, traced on the host from here on
+    start_dryrun_cell(args.src)
     # the evaluation path: Fig. 4's protocol and the MXFP rungs served
     counts, eval_rows = phase_eval(args.seed)
     for k, v in counts.items():
@@ -6927,7 +6987,7 @@ def main() -> int:
     lap("phase_mesh_family")
     # the dry run held against the card (its real steps compare, and
     # count toward no kernel's launches)
-    phase_dryrun(args.seed)
+    phase_dryrun(args.seed, args.src)
     lap("phase_dryrun")
     from repro_torch.kernels import (fake_quant, mx_matmul, mx_quantize,
                                      paged_attention, ss_convert)

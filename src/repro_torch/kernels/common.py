@@ -11,11 +11,11 @@ Shape-only launches (the dry run, ``launch/dryrun.py``): a tensor that holds
 no data — a ``FakeTensor``, or one on the ``meta`` device — takes each
 wrapper's card branch (``on_card``), and the launch function, finding it
 ``shape_only``, builds nothing and calls no C function: it leaves the
-outputs its caller allocated as they are, counts the launch in the same
-counters a real launch bumps, and hands ``record_shape_only`` the kernel's
-name, its operations and the bytes it would read and write, computed from
-the operand shapes. A real CUDA tensor never reaches that branch, and a
-real CPU tensor still takes the plain version.
+outputs its caller allocated as they are and hands ``record_shape_only``
+the kernel's name, its operations and the bytes it would read and write,
+computed from the operand shapes. It bumps no launch counter: those count
+kernels that ran. A real CUDA tensor never reaches that branch, and a real
+CPU tensor still takes the plain version.
 """
 from __future__ import annotations
 

@@ -36,8 +36,9 @@ import torch
 from repro_torch.core.formats import MXFormat
 from repro_torch.kernels import build as _build
 from repro_torch.kernels import ref
-from repro_torch.kernels.common import (nbytes, on_card, record_shape_only,
-                                        shape_only)
+from repro_torch.kernels.common import (nbytes, on_card, raise_on,
+                                        record_shape_only, shape_only,
+                                        stream_of)
 
 SOURCE = _build.CSRC / "mx_matmul.cu"
 
@@ -204,40 +205,29 @@ def _check(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
 
 
 def _launch_args(x: torch.Tensor, n: int):
-    """(x as the kernel reads it, its bf16 flag, output, stream)."""
+    """(x as the kernel reads it, its bf16 flag, output)."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         x = x.to(torch.float32)
     x = x.contiguous()
     y = torch.empty((x.shape[0], n), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    return x, int(x.dtype == torch.bfloat16), y, ctypes.c_void_p(stream)
+    return x, int(x.dtype == torch.bfloat16), y
 
 
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
-
-
-def _launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
-            n: int, mode: int, fmt: MXFormat,
-            body: Optional[str]) -> Tuple[int, torch.Tensor]:
+def _launch(name: str, x: torch.Tensor, codes: torch.Tensor,
+            scales: torch.Tensor, n: int, mode: int, fmt: MXFormat,
+            body: Optional[str]) -> torch.Tensor:
     """Launch B1 (mode 0 int, 1 fp) or B2 (mode 2) on the card: the decode
     body up to DECODE_MAX_M rows, the tiled body above (``body`` forces
-    one, to measure where they cross); returns (CUDA error code, y). On
-    a tensor that holds no data, a shape-only launch (error code 0)."""
-    if shape_only(x):
-        xk = x if x.dtype in (torch.bfloat16, torch.float32) \
-            else x.to(torch.float32)
-        y = torch.empty((x.shape[0], n), dtype=torch.float32,
-                        device=x.device)
-        record_shape_only(
-            "mx_matmul_int4" if mode == 2 else "mx_matmul",
-            2 * x.shape[0] * x.shape[1] * n,
-            nbytes(xk) + nbytes(codes) + nbytes(scales), nbytes(y))
-        return 0, y
-    lib = build()
-    xk, bf16, y, stream = _launch_args(x, n)
+    one, to measure where they cross); returns y. On a tensor that holds
+    no data, a shape-only launch."""
+    xk, bf16, y = _launch_args(x, n)
     m, k = xk.shape
+    if shape_only(x):
+        record_shape_only(name, 2 * m * k * n,
+                          nbytes(xk) + nbytes(codes) + nbytes(scales),
+                          nbytes(y))
+        return y
+    lib = build()
     int4 = mode == 2
     fp = mode == 1
     width = n // 2 if int4 else n
@@ -253,16 +243,18 @@ def _launch(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
             rc = lib.mx_matmul_decode_launch(
                 xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
                 y.data_ptr(), m, k, n, *fmt_args, plan.strip, plan.cluster,
-                vec, stream)
+                vec, stream_of(x))
         elif body == "tiled":
             plan = tiled_plan(m, k, n, fmt.block_size, int4)
             rc = lib.mx_matmul_tiled_launch(
                 xk.data_ptr(), bf16, codes.data_ptr(), scales.data_ptr(),
                 y.data_ptr(), m, k, n, *fmt_args, plan.bm, plan.cluster, vec,
-                stream)
+                stream_of(x))
         else:
             raise ValueError(f"unknown body {body!r}")
-    return rc, y
+    raise_on(rc, name)
+    launches[name] += 1
+    return y
 
 
 def mx_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
@@ -273,10 +265,8 @@ def mx_matmul(x: torch.Tensor, codes: torch.Tensor, scales: torch.Tensor,
     _check(x, codes, scales, k, n, fmt, n)
     if not on_card(x):
         return ref.ref_mx_matmul(x, codes, scales, fmt)
-    rc, y = _launch(x, codes, scales, n, int(fmt.kind == "fp"), fmt, body)
-    _raise_on(rc, "mx_matmul")
-    launches["mx_matmul"] += 1
-    return y
+    return _launch("mx_matmul", x, codes, scales, n,
+                   int(fmt.kind == "fp"), fmt, body)
 
 
 def mx_matmul_int4(x: torch.Tensor, packed: torch.Tensor,
@@ -293,7 +283,4 @@ def mx_matmul_int4(x: torch.Tensor, packed: torch.Tensor,
     _check(x, packed, scales, k, n, fmt, half)
     if not on_card(x):
         return ref.ref_mx_matmul_int4(x, packed, scales, fmt)
-    rc, y = _launch(x, packed, scales, n, 2, fmt, body)
-    _raise_on(rc, "mx_matmul_int4")
-    launches["mx_matmul_int4"] += 1
-    return y
+    return _launch("mx_matmul_int4", x, packed, scales, n, 2, fmt, body)

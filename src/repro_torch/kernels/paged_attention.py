@@ -381,7 +381,6 @@ def _launch(name: str, q: torch.Tensor, c: int, k_pages: torch.Tensor,
                           nbytes(q) + nbytes(block_table) + nbytes(lens)
                           + (0 if q_len is None else nbytes(q_len)) + kv,
                           nbytes(out))
-        launches[name] += 1
         return out
     lib = build()
     acc, ml, tickets = launch_buffers(plan, q.device)

@@ -18,8 +18,10 @@ build of torch has no CUDA device guard or stream, so autograd cannot run
 over fake ``cuda`` tensors there; meta ones also trace 3x faster, their
 kernels running in C++ rather than through a Python mode). Either way
 every kernel wrapper takes its card branch and launches shape-only
-(``kernels/common.py``): no kernel is built or called, the launch
-counters count, and the launch is recorded with its operations and bytes.
+(``kernels/common.py``): no kernel is built or called and no launch
+counter counts; the launch is recorded with its operations and bytes.
+A record's ``launches`` adds those records to what the counters counted,
+so a trace and a real step on the card give comparable counts.
 ``device="cpu"`` traces the plain versions on fake CPU tensors, as a CPU
 step runs them; ``fake=False`` runs the same cell on real tensors (zeros)
 under the same counters, which is how the tests and ``chip_smoke.py``
@@ -389,9 +391,15 @@ def _launch_counts() -> Dict[str, int]:
     return out
 
 
-def _delta(before: Dict[str, int]) -> Dict[str, int]:
+def _launches(before: Dict[str, int], records) -> Dict[str, int]:
+    """Launches per kernel since ``before``: the kernels that ran (the
+    counters) and the shape-only ones (``records``), which count nowhere
+    else."""
     now = _launch_counts()
-    return {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    out = {k: now[k] - before[k] for k in now if now[k] != before[k]}
+    for r in records:
+        out[r["name"]] = out.get(r["name"], 0) + 1
+    return out
 
 
 def _kernel_summary(records) -> Dict[str, Dict[str, float]]:
@@ -440,7 +448,7 @@ def measure(fn: Callable, args: Tuple) -> Dict[str, Any]:
         "peak_by_op": dict(sorted(mem.peak_by_op.items(),
                                   key=lambda kv: -kv[1])[:6]),
         "kernels": kernel,
-        "launches": _delta(before),
+        "launches": _launches(before, kernels),
         "collective_records": colls,
     }
 
@@ -585,13 +593,17 @@ def _rules(rules_override: Optional[dict]) -> LogicalRules:
 def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                variant: str = "baseline",
                rules_override: Optional[dict] = None, device="cuda",
-               fake: bool = True) -> Dict[str, Any]:
+               fake: bool = True,
+               before_step: Optional[Callable[[], None]] = None
+               ) -> Dict[str, Any]:
     """The cost record of this process's step of one cell on ``mesh`` (an
     initialised group of the mesh's size; ``make_mesh``): ``{"status":
     "ok", ...}`` with ``measure``'s fields, or ``{"status": "refused",
     "reason"}`` when the ``model`` axis cannot cut the config. ``fake``:
     on fake tensors on ``trace_device(device)``; else on real zeros on
-    ``device``. ``variant`` as the module docstring maps it."""
+    ``device``. ``variant`` as the module docstring maps it.
+    ``before_step`` is called once the cell is built, just before its step
+    (``chip_smoke.py`` resets the card's peak statistics there)."""
     cfg, microbatch, bits, rules_override, note = variant_setup(
         cfg, variant, rules_override)
     qat = QATConfig(formats=TRAIN_FORMATS_MXINT, block_size=32)
@@ -615,7 +627,9 @@ def trace_cell(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
             else:
                 fn, args = _serve_cell(api, cfg, qat, shape, mesh, bits,
                                        dev, fake)
-        setup_launches = _delta(setup_before)
+        setup_launches = _launches(setup_before, setup_records)
+        if before_step is not None:
+            before_step()
         rec = measure(fn, args)
     rec["compile_s"] = time.perf_counter() - t0
     rec["setup_kernels"] = _kernel_summary(setup_records)

@@ -19,8 +19,9 @@ reference's (``repro/launch/dryrun.py``) and against real steps.
   leaves ``torch.distributed`` as it found it; the dense configs whose
   dims 16 does not cut are refused by name; ``sp`` raises;
 - each kernel's shape-only branch on fake ``cuda`` and ``meta`` tensors:
-  the plain version's shapes and dtypes, one launch counted and recorded;
-  a CPU tensor still takes the plain version.
+  the plain version's shapes and dtypes, one launch recorded and no
+  launch counter bumped; a CPU tensor still takes the plain version; a
+  ``meta`` trace's launches are its records'.
 """
 import json
 import math
@@ -341,6 +342,21 @@ _MODULE = {"mx_matmul": mx_matmul, "mx_matmul_int4": mx_matmul,
            "fake_quant": fake_quant}
 
 
+@pytest.mark.parametrize("kind,variant,setup,step", [
+    ("train", "baseline", set(), {"fake_quant"}),
+    ("decode", "w4", {"mx_quantize", "ss_convert"}, {"mx_matmul_int4"})])
+def test_meta_trace_launches_are_its_records(kind, variant, setup, step):
+    before = dryrun._launch_counts()
+    rec = dryrun.trace_cell(get_reduced("qwen3-4b"), _shape(kind),
+                            make_debug_mesh(1, 1), variant, device="meta")
+    assert dryrun._launch_counts() == before
+    assert rec["launches"] == {k: v["launches"]
+                               for k, v in rec["kernels"].items()}
+    assert rec["setup_launches"] == {k: v["launches"]
+                                     for k, v in rec["setup_kernels"].items()}
+    assert (set(rec["setup_launches"]), set(rec["launches"])) == (setup, step)
+
+
 def _outputs(out):
     if isinstance(out, MXTensor):
         return [out.codes, out.scale_exp]
@@ -366,9 +382,7 @@ def test_shape_only_launch(case, where):
                            for t in got)
     assert [(t.shape, t.dtype) for t in got] == \
         [(t.shape, t.dtype) for t in want]
-    assert {k: counts[k] - before[k] for k in counts} == {
-        k: int(k == name) for k in counts}
+    assert counts == before            # the counters count kernels that ran
     assert [r["name"] for r in recs] == [name]
     assert recs[0]["bytes_read"] > 0 and recs[0]["bytes_written"] > 0
     assert (recs[0]["flops"] > 0) == (name != "ss_convert")
-    counts.update(before)
