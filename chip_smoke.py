@@ -336,7 +336,14 @@ Phases (any failure exits non-zero before the result line):
      same gates; then ReplicaSet(n_replicas=2, tp=2) in four processes
      serving 8 greedy requests at mxint8: every process returns every
      request, homes rid % 2, the set's stats summed, the streams equal to a
-     single-process ReplicaSet(2)'s up to near ties (as 22);
+     single-process ReplicaSet(2)'s up to near ties (as 22); and the
+     sequence-parallel residual: qwen3-4b at MESH_LAYERS layers, (1, 2),
+     f32, the forward and backward with ``seq_sharding`` against the same
+     two processes with it off: loss, grad norm and every gradient leaf's
+     shard in both processes (the gathered tree) bit-identical, B7
+     launches equal, rank 0's peak allocation rise over the forward and
+     backward below the flag-off one by SP_SAVING_TOL of (tp - 1) / tp of
+     the saved group inputs (both printed);
  24. tensor-parallel training of every other family, two processes sharing
      the card over gloo (a correctness run, not a sharded speed), each at
      its published widths, f32, direct MXINT QAT at mxint4, batch 2 x seq
@@ -361,8 +368,10 @@ Phases (any failure exits non-zero before the result line):
      warm-up cell) the same way, every kernel's launches equal, the
      card's peak taken over the step alone; meanwhile one production
      cell, qwen3-4b train_4k on the 16 x 16 mesh over a fake world of 256
-     ranks, traced on this host by ``python -m repro_torch.launch.dryrun``
-     in a process of its own (``meta`` tensors) and its record printed;
+     ranks, at ``baseline`` and at ``sp`` (the sequence-parallel residual;
+     its temp bytes below the baseline's), traced on this host by
+     ``python -m repro_torch.launch.dryrun`` in a process of its own
+     (``meta`` tensors) and both records printed;
      the default process group as it was before the phase.
 ``--layers N`` serves qwen3-4b at N of its 36 layers in phases 8a-12 and
 in the modes that run them alone; the default is QWEN3_LAYERS (20), cut
@@ -510,6 +519,10 @@ MESH_GRAD = (2560, 9728)
 # within this of one process's (relative), each gathered gradient leaf
 # within this times its max|g|.
 MESH_TRAIN_TOL = 1e-3
+# Phase 23's sequence-parallel case: rank 0's peak allocation rise over the
+# forward and backward falls, against the flag off, by (tp - 1) / tp of the
+# saved group inputs within this share of that amount.
+SP_SAVING_TOL = 0.25
 # The dry-run phase (25): a trace's argument + temp bytes within this of
 # the card's peak allocation over the real step (relative): the caching
 # allocator rounds every block up to 512 bytes (the train step's gap was
@@ -517,6 +530,8 @@ MESH_TRAIN_TOL = 1e-3
 # behind 4 rows.
 DRYRUN_MEM_TOL = 0.005
 DRYRUN_DECODE = 1024
+# phase 25's production cell is traced at these variants
+DRYRUN_VARIANTS = ("baseline", "sp")
 _SMI = [""]     # the card's name and power limit, as nvidia-smi gives them
 
 
@@ -4077,8 +4092,8 @@ def phase_train_long(seed: int):
     torch.cuda.empty_cache()
 
     mix = dataclasses.replace(get_config("mixtral-8x7b"), n_layers=1)
-    cq, ck, banded, band = _plan(LONG_SEQ, LONG_SEQ, True,
-                                 mix.sliding_window, mix.seq_chunk)
+    cq, ck, _, _, banded, band, _ = _plan(LONG_SEQ, LONG_SEQ, True,
+                                          mix.sliding_window, mix.seq_chunk)
     log(f"mixtral-8x7b 1 layer seq {LONG_SEQ}: flash_vjp chunks {cq} / "
         f"{ck}, banded={banded}, band {band} keys per query chunk (window "
         f"{mix.sliding_window}); about 1.71 B parameters x 16 B (f32 "
@@ -4122,9 +4137,9 @@ def phase_train_long(seed: int):
 # ---------------------------------------------------------------------------
 def _vlm_text_len(n: int) -> int:
     """The padded text length of an n-token llava prompt: 192 + 256 j, so
-    that S = 2880 + 192 + 256 j is a multiple of 256 (3072 = 3 x 1024, 3328
-    = 13 x 256) and the flash chunk rule splits the prompt into 1024- or
-    256-token blocks, not 64-token ones (2880 = 45 x 64)."""
+    S = 2880 + 192 + 256 j: 3072 = 3 x 1024 runs flash attention's
+    1024-wide chunks as they are; 3328, which 1024 does not divide, runs
+    them padded to 4096 (``models/flash_vjp.py::_plan``)."""
     p = 192
     while p < n:
         p += 256
@@ -5985,7 +6000,61 @@ def _mesh_train_work(rank: int, seed: int):
         out[name] = rec
         del batch, ref
         torch.cuda.empty_cache()
+    out["sp"] = _mesh_sp_work(seed, opt)
+    lap("sequence-parallel case")
     return out
+
+
+def _mesh_sp_work(seed: int, opt):
+    """Phase 23's sequence-parallel case in one process of two: qwen3-4b at
+    MESH_LAYERS layers, f32, the forward and backward of the sharded step
+    at (1, 2) with ``seq_sharding`` off, then on, from the same weights
+    and batch. Per setting: loss, grad norm, B7 launches, CUDA-event ms and
+    the peak allocation's rise over the step; whether every gradient leaf
+    of this process's shard is bit-identical between the two."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.formats import TRAIN_FORMATS_MXINT
+    from repro_torch.core.qat import QATConfig
+    from repro_torch.core.tree import flatten_paths
+    from repro_torch.kernels import fake_quant
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.packed_params import local_shard
+    from repro_torch.train.state import make_sharded_train_step
+
+    cfg = _mesh_train_cfg("qwen3-4b", MESH_LAYERS)
+    batch = _mesh_train_batch(cfg, TRAIN_BATCH, seed)
+    mesh = make_debug_mesh(1, MESH_TP)
+    rec, grads = {}, {}
+    for flag in (False, True):
+        api = make_model(dataclasses.replace(cfg, seq_sharding=flag),
+                         qat=QATConfig(formats=TRAIN_FORMATS_MXINT))
+        step, specs = make_sharded_train_step(api, mesh, opt, batch)
+        params = api.init_params(seed, device="cuda")
+        lp = local_shard(params, specs.params, mesh)
+        del params
+        torch.cuda.empty_cache()
+        lb = step.shard_batch(batch)
+        fake_quant.reset_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (loss, g), ms = _timed(lambda: step.loss_and_grads(lp, lb, 1))
+        rise = torch.cuda.max_memory_allocated() - base
+        grads[flag] = dict(flatten_paths(g))
+        rec[flag] = dict(loss=float(loss),
+                         grad_norm=float(step.global_norm(g)), ms=ms,
+                         rise=rise,
+                         fake_quant=fake_quant.launches["fake_quant"])
+        del lp, lb, step, g
+        torch.cuda.empty_cache()
+    rec["same"] = grads[False].keys() == grads[True].keys() and all(
+        torch.equal(v, grads[True][k]) for k, v in grads[False].items())
+    rec["saved_inputs"] = cfg.n_groups * TRAIN_BATCH * TRAIN_SEQ * \
+        cfg.d_model * 4
+    return rec
 
 
 def _mesh_train_rank(rank: int, port: int, seed: int, q) -> None:
@@ -6097,6 +6166,41 @@ def _spawn(target, world: int, seed: int, what: str):
     return [got[r][1] for r in range(world)]
 
 
+def _check_sp(ranks) -> None:
+    """Phase 23's sequence-parallel gates (``_mesh_sp_work``'s records):
+    bit identity and equal B7 launches in every process, and rank 0's peak
+    rise below the flag-off one by about (tp - 1) / tp of the saved group
+    inputs."""
+    for r, out in enumerate(ranks):
+        rec = out["sp"]
+        off, on = rec[False], rec[True]
+        log(f"mesh train qwen3-4b (1, 2) seq_sharding rank {r}: loss "
+            f"{on['loss']!r} (off {off['loss']!r}), grad norm "
+            f"{on['grad_norm']!r} (off {off['grad_norm']!r}); every "
+            f"gradient leaf of this shard bit-identical: {rec['same']}; "
+            f"forward + backward {on['ms']:.1f} ms (off {off['ms']:.1f}; "
+            f"gloo on one card, not a speed); peak allocation rise "
+            f"{on['rise']} B (off {off['rise']} B); B7 launches "
+            f"{on['fake_quant']} (off {off['fake_quant']})")
+        if (on["loss"], on["grad_norm"]) != (off["loss"], off["grad_norm"]) \
+                or not rec["same"]:
+            fail(f"mesh train seq_sharding rank {r}: not bit-identical to "
+                 "the flag off")
+        if on["fake_quant"] != off["fake_quant"]:
+            fail(f"mesh train seq_sharding rank {r}: B7 launches "
+                 f"{on['fake_quant']} against {off['fake_quant']}")
+    rec = ranks[0]["sp"]
+    want = rec["saved_inputs"] * (MESH_TP - 1) / MESH_TP
+    drop = rec[False]["rise"] - rec[True]["rise"]
+    log(f"mesh train seq_sharding rank 0: the peak rise falls by {drop} B; "
+        f"(tp - 1) / tp of the saved group inputs is {want:.0f} B "
+        f"({drop / want:.4f} of it; gate {1 - SP_SAVING_TOL:.2f}-"
+        f"{1 + SP_SAVING_TOL:.2f})")
+    if not abs(drop - want) <= SP_SAVING_TOL * want:
+        fail(f"mesh train seq_sharding: the peak rise fell by {drop} B, "
+             f"not about {want:.0f} B")
+
+
 def phase_mesh_train(seed: int):
     """Phase 23: the sharded training step (FSDP and tensor parallelism)
     and a ReplicaSet of tp = 2 on the one card, processes over gloo.
@@ -6172,6 +6276,7 @@ def phase_mesh_train(seed: int):
                 fail(f"mesh train {name} {shape}: {cmp} "
                      f"{worst['worst_leaf']} differs by "
                      f"{worst['worst']:.3g} of its max")
+    _check_sp(ranks)
     log(f"mesh train: {time.perf_counter() - t_phase:.1f} s")
 
     # ---- ReplicaSet(2, tp=2): four processes against one process's set
@@ -6237,10 +6342,11 @@ MESH_FAMILY = (
     ("llava-next-mistral-7b", dict(n_layers=1)),
     ("seamless-m4t-large-v2", dict(n_layers=1, enc_layers=1)))
 MESH_FAMILY_ROWS, MESH_FAMILY_FRAMES = 2, 1024
-# llava's text behind its 2,880 image positions: 3,072 positions in all, a
-# multiple of its seq_chunk (1,024), so the flash backward runs 1,024-wide
-# chunks (2,880 + 512 = 3,392 would halve them to 64: 53 x 53 blocks)
-MESH_FAMILY_VLM_TEXT = 192
+# llava's text behind its 2,880 image positions: 3,392 positions in all,
+# which its seq_chunk (1,024) does not divide, so flash attention runs its
+# padded plan (4 chunks of 1,024, the causally empty pairs skipped; the
+# reference's rule would halve the chunk to 64: 53 x 53 blocks)
+MESH_FAMILY_VLM_TEXT = 512
 
 
 def _mesh_family_cfg(name: str):
@@ -6475,10 +6581,11 @@ def phase_dryrun(seed: int, src: str) -> None:
     against the trace of the same step on fake ``cuda`` tensors: FLOPs and
     B7 launches equal, argument + temp bytes within DRYRUN_MEM_TOL of the
     card's peak over the step; a w4 decode step the same way, every
-    kernel's launches equal. Then the record of one production cell on a
-    fake world of 256 ranks, which the dry run's CLI traced on this host
-    beside the card's phases (``start_dryrun_cell``; the whole run starts
-    it before phase 21). Nothing here counts toward the kernels' record:
+    kernel's launches equal. Then the records of one production cell on a
+    fake world of 256 ranks at each of DRYRUN_VARIANTS, which the dry run's
+    CLI traced on this host beside the card's phases
+    (``start_dryrun_cell``; the whole run starts it before phase 21); the
+    ``sp`` cell's temp bytes below the baseline's. Nothing here counts toward the kernels' record:
     the real steps are comparisons, the traces launch nothing."""
     import torch
     import torch.distributed as dist
@@ -6494,33 +6601,44 @@ def phase_dryrun(seed: int, src: str) -> None:
     _dryrun_card_steps(cfg, mesh)
     t0 = time.perf_counter()
     cell = _DRYRUN_CELL
+    recs = {}
     try:
         rc = cell["proc"].wait(timeout=600)
-        path = os.path.join(cell["out_dir"],
-                            "qwen3-4b__train_4k__16x16__baseline.json")
-        if rc != 0 or not os.path.exists(path):
-            with open(os.path.join(cell["out_dir"], "log")) as f:
-                fail(f"dry run CLI ({' '.join(cell['cmd'][1:])}) exited "
-                     f"{rc}: {f.read()[-2000:]}")
-        with open(path) as f:
-            rec = json.load(f)
+        for variant in DRYRUN_VARIANTS:
+            path = os.path.join(
+                cell["out_dir"], f"qwen3-4b__train_4k__16x16__{variant}.json")
+            if rc != 0 or not os.path.exists(path):
+                with open(os.path.join(cell["out_dir"], "log")) as f:
+                    fail(f"dry run CLI ({' '.join(cell['cmd'][1:])}) exited "
+                         f"{rc}: {f.read()[-2000:]}")
+            with open(path) as f:
+                recs[variant] = json.load(f)
     finally:
         _stop_dryrun_cell()
     now = dist.is_available() and dist.is_initialized()
     if now != was:
         fail(f"dry run: the default process group was {was} before the "
              f"phase and is {now} after it")
-    log("dry run production cell: " + json.dumps(rec))
-    mem = rec.get("memory", {})
-    log(f"dry run production cell qwen3-4b train_4k 16x16: {rec['status']}"
-        f", traced in {rec.get('compile_s', 0):.1f} s beside the card's "
-        f"phases, {time.perf_counter() - t0:.1f} s waited for; per rank "
-        f"argument {mem.get('argument_size_in_bytes', 0) / 2**30:.2f} GiB "
-        f"+ temp {mem.get('temp_size_in_bytes', 0) / 2**30:.2f} GiB")
-    if rec["status"] != "ok" or rec["n_devices"] != 256 or \
-            rec["launches"] != {"fake_quant": _n_proj_leaves(cfg)}:
-        fail(f"dry run production cell: {rec.get('status')}, launches "
-             f"{rec.get('launches')}")
+    for variant, rec in recs.items():
+        log(f"dry run production cell ({variant}): " + json.dumps(rec))
+        mem = rec.get("memory", {})
+        log(f"dry run production cell qwen3-4b train_4k 16x16 {variant}: "
+            f"{rec['status']}, traced in {rec.get('compile_s', 0):.1f} s "
+            f"beside the card's phases; per rank argument "
+            f"{mem.get('argument_size_in_bytes', 0) / 2**30:.2f} GiB + temp "
+            f"{mem.get('temp_size_in_bytes', 0) / 2**30:.2f} GiB; "
+            f"all-gather {rec.get('collectives', {}).get('all-gather', 0)} "
+            "B a rank")
+        if rec["status"] != "ok" or rec["n_devices"] != 256 or \
+                rec["launches"] != {"fake_quant": _n_proj_leaves(cfg)}:
+            fail(f"dry run production cell {variant}: {rec.get('status')}, "
+                 f"launches {rec.get('launches')}")
+    log(f"dry run production cells: {time.perf_counter() - t0:.1f} s "
+        "waited for")
+    temp = {v: r["memory"]["temp_size_in_bytes"] for v, r in recs.items()}
+    if not temp["sp"] < temp["baseline"]:
+        fail(f"dry run production cell: temp at sp {temp['sp']} B, not "
+             f"below the baseline's {temp['baseline']} B")
     log(f"dry run phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -6530,15 +6648,16 @@ _DRYRUN_CELL: dict = {}     # phase 25's production-cell trace, running
 def start_dryrun_cell(src: str) -> None:
     """Start phase 25's production cell: ``python -m
     repro_torch.launch.dryrun`` traces qwen3-4b train_4k on the 16 x 16 mesh
-    over a fake world of 256 ranks on ``meta`` tensors, in a process of
+    over a fake world of 256 ranks on ``meta`` tensors at each of
+    DRYRUN_VARIANTS, in turn, in a process of
     its own that sees no card. It is host work only, so it runs beside the
     card's phases; it is stopped at exit, whatever happens."""
     if _DRYRUN_CELL:
         return
     out_dir = tempfile.mkdtemp(prefix="dryrun_cell_")
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-           "qwen3-4b", "--shape", "train_4k", "--mesh", "single", "--out",
-           out_dir]
+           "qwen3-4b", "--shape", "train_4k", "--mesh", "single",
+           "--variant", ",".join(DRYRUN_VARIANTS), "--out", out_dir]
     with open(os.path.join(out_dir, "log"), "w") as out:
         proc = subprocess.Popen(
             cmd, env=dict(os.environ, PYTHONPATH=os.path.abspath(src),

@@ -71,7 +71,10 @@ port's explicit tensor parallelism does not.
 Variants (the reference's, mapped to the port's mechanisms):
 
 - ``baseline``: the defaults (flash_vjp, remat); ``novjp``:
-  ``flash_vjp=False``; ``inner`` / ``inner_mb4`` / ``inner_mb8``:
+  ``flash_vjp=False``; ``sp`` / ``sp_mb4``: ``seq_sharding=True`` (the
+  residual stream between layer groups sequence-parallel over ``model``,
+  so each group's saved input is 1 / 16 of the sequence) with 1 / 4
+  microbatches; ``inner`` / ``inner_mb4`` / ``inner_mb8``:
   ``remat_inner=True`` with 1 / 4 / 8 microbatches;
 - ``w16tp`` / ``w8tp`` / ``w4tp``: weights stationary (the rules' ``fsdp``
   emptied, so no gather over the data axes), bf16 / packed MXINT8 / packed
@@ -82,16 +85,14 @@ Variants (the reference's, mapped to the port's mechanisms):
   builds it, and B1 / B2 run in the step; the port packs prefill cells
   too, where the reference packs only decode cells;
 - ``w8scan`` / ``w4scan``: the same step as ``w8tp`` / ``w4tp`` (the port
-  always dequantizes per layer at the point of use; the record says so);
-- ``sp`` / ``sp_mb4`` raise ``ValueError``: their sequence-parallel
-  residual saves need the reference's ``shard_act``, which has no
-  counterpart (``sharding/rules.py``; ROADMAP A.10.3).
+  always dequantizes per layer at the point of use; the record says so).
 
 ``_compat.compiled_cost`` has no counterpart: it flattens JAX's
 list-of-dicts ``cost_analysis()``, and torch has nothing of the kind; the
 record's flat ``flops`` / ``bytes_accessed`` are its role.
 
-``main`` takes the reference's flags and writes
+``main`` takes the reference's flags (``--variant`` also a comma-separated
+list, traced in turn) and writes
 ``{arch}__{shape}__{mesh}__{variant}.json`` under ``--out`` cell by cell,
 skipping a file that exists (``--force`` redoes it), so a sweep resumes. A
 failing cell is recorded (``"error"`` with the trace), not raised; so is
@@ -160,9 +161,8 @@ MEMORY_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
 _LAUNCH_MODULES = (mx_matmul, paged_attention, mx_quantize, ss_convert,
                    fake_quant)
 # ``main`` stops a cell's trace after this many seconds and records the
-# cell as an error: every cell of the sweep traces within 300 s on a CPU
-# host but llava's, whose 2,880 + 4,096 positions halve flash attention's
-# chunk to 64 and trace for hours (ROADMAP C.15).
+# cell as an error (a guard: every cell of the sweep traces within it on a
+# CPU host).
 TRACE_LIMIT_S = 900
 # (deadline on time.monotonic(), its seconds) of the trace under
 # ``_time_limit``, which every op dispatched under a ``MemoryTracker``
@@ -462,14 +462,12 @@ def variant_setup(cfg: ModelConfig, variant: str,
     reference variant, as the port's mechanisms give it."""
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
-    if variant in ("sp", "sp_mb4"):
-        raise ValueError(
-            f"variant {variant!r} saves the residual stream sequence-"
-            "parallel through the reference's shard_act, which has no "
-            "counterpart in the port (sharding/rules.py; ROADMAP A.10.3)")
     microbatch, bits, note = 1, None, None
     if variant == "novjp":
         cfg = dataclasses.replace(cfg, flash_vjp=False)
+    elif variant.startswith("sp"):
+        cfg = dataclasses.replace(cfg, seq_sharding=True)
+        microbatch = 4 if variant == "sp_mb4" else 1
     elif variant.startswith("inner"):
         cfg = dataclasses.replace(cfg, remat_inner=True)
         microbatch = {"inner": 1, "inner_mb4": 4, "inner_mb8": 8}[variant]
@@ -742,7 +740,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", default="all")
     ap.add_argument("--mesh", default="both",
                     choices=["single", "multi", "both"])
-    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--variant", default="baseline",
+                    help="one of VARIANTS, or several, comma-separated")
     ap.add_argument("--out", default="out/dryrun")
     ap.add_argument("--force", action="store_true")
     args = ap.parse_args(argv)
@@ -752,30 +751,33 @@ def main(argv=None) -> int:
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     os.makedirs(args.out, exist_ok=True)
-    for arch in archs:
-        for shape in shapes:
-            for mp in meshes:
-                tag = mesh_tag(mp)
-                path = os.path.join(
-                    args.out, f"{arch}__{shape}__{tag}__{args.variant}.json")
-                if os.path.exists(path) and not args.force:
-                    print(f"skip (exists): {path}")
-                    continue
-                print(f"=== {arch} x {shape} x {tag} ===", flush=True)
-                try:
-                    with _time_limit(TRACE_LIMIT_S):
-                        rec = lower_cell(arch, shape, mp,
-                                         variant=args.variant)
-                except Exception as e:  # record failures: they are bugs
-                    rec = {"status": "error", "arch": arch, "shape": shape,
-                           "mesh": tag, "variant": args.variant,
-                           "error": f"{type(e).__name__}: {e}",
-                           "trace": traceback.format_exc()[-2000:]}
-                with open(path, "w") as f:
-                    json.dump(rec, f, indent=1)
-                print(json.dumps({k: v for k, v in rec.items()
-                                  if k != "trace"})[:600], flush=True)
+    for variant in args.variant.split(","):
+        for arch in archs:
+            for shape in shapes:
+                for mp in meshes:
+                    _main_cell(args, arch, shape, mp, variant)
     return 0
+
+
+def _main_cell(args, arch: str, shape: str, multi_pod: bool,
+               variant: str) -> None:
+    tag = mesh_tag(multi_pod)
+    path = os.path.join(args.out, f"{arch}__{shape}__{tag}__{variant}.json")
+    if os.path.exists(path) and not args.force:
+        print(f"skip (exists): {path}")
+        return
+    print(f"=== {arch} x {shape} x {tag} x {variant} ===", flush=True)
+    try:
+        with _time_limit(TRACE_LIMIT_S):
+            rec = lower_cell(arch, shape, multi_pod, variant=variant)
+    except Exception as e:  # record failures: they are bugs
+        rec = {"status": "error", "arch": arch, "shape": shape, "mesh": tag,
+               "variant": variant, "error": f"{type(e).__name__}: {e}",
+               "trace": traceback.format_exc()[-2000:]}
+    with open(path, "w") as f:
+        json.dump(rec, f, indent=1)
+    print(json.dumps({k: v for k, v in rec.items() if k != "trace"})[:600],
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,11 @@ every process holds alike carries its whole gradient in every process): an
 all-reduce of partial sums has the identity backward, ``copy_in`` (a
 replicated value entering sharded work) the identity forward and an
 all-reduce backward, and the all-gather's backward takes this process's
-slice. ``torch.distributed.nn``'s collectives sum in their backward, which
+slice. The sequence-parallel residual (``ModelConfig.seq_sharding``) adds
+a pair along the sequence: ``gather_seq`` (all-gather forward, this
+process's slice backward) and ``cut_seq`` (the slice forward, in storage
+of its own, and an all-gather of the gradient's slices backward).
+``torch.distributed.nn``'s collectives sum in their backward, which
 on a loss every process computes alike multiplies gradients by the group's
 size. ``DataParallel`` is the same group object for the batch axes of a
 sharded training step: the loss's masked sums and the MoE balance
@@ -64,7 +68,10 @@ class ModelConfig:
     ``"dense"`` family). Training runs the O(S)-memory flash backward
     (``flash_vjp``) and recomputes each layer group in the backward
     (``remat``; ``remat_inner`` also each layer of a group), the JAX
-    package's defaults."""
+    package's defaults. ``seq_sharding``: under tensor parallelism each
+    process keeps only its slice of the sequence of the residual stream
+    between layer groups, so a group's saved input is 1 / tp of it
+    (Megatron-SP's saving; ``models/transformer.py::forward_hidden``)."""
 
     name: str
     family: str                     # dense | moe | hybrid | ssm | encdec | vlm
@@ -106,6 +113,7 @@ class ModelConfig:
     scan_group: int = 1             # layers per stacked group
     seq_chunk: int = 1024           # flash-attention / loss chunking
     flash_vjp: bool = True          # flash attention with an O(S) backward
+    seq_sharding: bool = False      # sequence-parallel residual stream (SP)
     remat: bool = True              # recompute each group in the backward
     remat_inner: bool = False       # also each layer inside a group
 
@@ -200,6 +208,46 @@ class _GatherLast(torch.autograd.Function):
         return g[..., lo:lo + ctx.n], None, None, None, None
 
 
+def _gather_seq(x: torch.Tensor, group, size: int) -> torch.Tensor:
+    """Every process's ``x`` concatenated along axis 1 in rank order."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=1)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The whole sequence from every process's slice forward; this
+    process's slice of the (replicated) gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        ctx.n, ctx.rank = x.shape[1], rank
+        return _gather_seq(x, group, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        lo = ctx.rank * ctx.n
+        return g[:, lo:lo + ctx.n], None, None, None
+
+
+class _CutSeq(torch.autograd.Function):
+    """This process's slice of a replicated sequence forward, copied into
+    storage of its own (a view would keep the whole sequence alive);
+    backward, the gradient's slices all-gathered into the whole one."""
+
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        ctx.group, ctx.size = group, size
+        n = x.shape[1] // size
+        return x[:, rank * n:(rank + 1) * n].clone(
+            memory_format=torch.contiguous_format)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_seq(g, ctx.group, ctx.size), None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardDims:
     """What one process of a tensor-parallel group holds of each dim the
@@ -276,6 +324,20 @@ class TensorParallel:
         channels), so the backward sums the processes' gradients first."""
         return self._run(lambda x: _GatherLast.apply(
             x, self.group, self.size, self.rank, per_rank), y)
+
+    def gather_seq(self, y: torch.Tensor) -> torch.Tensor:
+        """Every shard's slice of the sequence (axis 1) of ``y``
+        concatenated in rank order: no arithmetic. Its backward takes this
+        shard's slice of the gradient."""
+        return self._run(lambda x: _GatherSeq.apply(
+            x, self.group, self.size, self.rank), y)
+
+    def cut_seq(self, y: torch.Tensor) -> torch.Tensor:
+        """This shard's slice of the sequence (axis 1) of ``y``, which
+        every shard holds alike, in storage of its own. Its backward
+        all-gathers the gradient's slices."""
+        return self._run(lambda x: _CutSeq.apply(
+            x, self.group, self.size, self.rank), y)
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` (replicated over the group) as the input of sharded work:

@@ -396,7 +396,12 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
     the cache inside ``attention_block``. Training (no cache, grad enabled)
     under ``cfg.remat`` recomputes each layer group's body in the backward
     (and, with ``remat_inner`` and ``scan_group > 1``, each layer inside
-    it), keeping only the group inputs. Returns the final-norm hidden states
+    it), keeping only the group inputs. With ``cfg.seq_sharding`` under
+    tensor parallelism (``_seq_parallel``) the residual stream between
+    groups is this process's slice of the sequence: cut before the first
+    group and at the end of each, gathered at the start of each and after
+    the last, so a group's saved input is 1 / tp of the sequence (the
+    reference's ``seq_sp`` residual). Returns the final-norm hidden states
     (B, S, d) and the layers' summed MoE aux loss.
     """
     block_table = cache.get("block_table") if cache is not None else None
@@ -415,24 +420,46 @@ def forward_hidden(ctx: QuantCtx, params, cfg: ModelConfig, x, positions,
 
     layers = [layer_fn(j) for j in range(cfg.scan_group)]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    sp = _seq_parallel(ctx, cfg, x.shape[1])
+    if sp is not None:
+        x = sp.cut_seq(x)
     for g in range(cfg.n_groups):
         slices = [None if cache is None else
                   {k: t[g] for k, t in cache["blocks"][j].items()}
                   for j in range(cfg.scan_group)]
 
         def group_body(xv, aux, g=g, slices=slices):
+            if sp is not None:
+                xv = sp.gather_seq(xv)
             for j in range(cfg.scan_group):
                 p = _group_params(blocks[j], g)
                 xv, a = layers[j](xv, p, slices[j])
                 if a is not None:
                     aux = aux + a
+            if sp is not None:
+                xv = sp.cut_seq(xv)
             return xv, aux
 
         if remat:
             x, aux = checkpoint(group_body, x, aux, use_reentrant=False)
         else:
             x, aux = group_body(x, aux)
+    if sp is not None:
+        x = sp.gather_seq(x)
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _seq_parallel(ctx: QuantCtx, cfg: ModelConfig,
+                  s: int) -> Optional[TensorParallel]:
+    """The group the residual stream's sequence is sharded over between
+    layer groups, or None: ``cfg.seq_sharding`` under tensor parallelism
+    over more than one process, at a length above 1 that the group's size
+    divides (the reference resolves ``seq_sp`` to ``model`` only there)."""
+    tp = ctx.tp
+    if not cfg.seq_sharding or tp is None or tp.size <= 1 or s <= 1 \
+            or s % tp.size:
+        return None
+    return tp
 
 
 def _embed(params, cfg: ModelConfig, tokens, tp=None):

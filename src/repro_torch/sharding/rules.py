@@ -19,7 +19,11 @@ port's ``launch/mesh.py::Mesh``, or a JAX mesh.
 ``shard_act`` has no counterpart: the reference hands activations to GSPMD
 with sharding constraints, and the port's tensor-parallel path is explicit
 collectives instead (``models/common.py::TensorParallel``), so nothing
-reads an activation's logical axes. ``param_shardings`` becomes
+reads an activation's logical axes. The one constraint that changes what
+a process holds, ``seq_sp`` on the residual stream between layer groups
+(``ModelConfig.seq_sharding``), is the explicit cut and gather of
+``models/transformer.py::forward_hidden`` over the ``model`` group.
+``param_shardings`` becomes
 ``param_specs``: specs over the port's nested trees, which
 ``serve/packed_params.py::local_shard`` slices to a process's shard.
 """

@@ -303,10 +303,11 @@ def replica_set_worker(rank, arch, path, prompts, max_new, fmt, n_replicas,
                             for s in st["replicas"]]}
 
 
-def dryrun_cells_worker(rank, cells):
+def dryrun_cells_worker(rank, cells, variant="baseline"):
     """The dry run's record (``launch/dryrun.py::trace_cell``) of each
-    ``(arch, kind, seq, batch)`` on real CPU tensors (zeros) on the (1, 2)
-    mesh of this group: its collectives in order, FLOPs and memory."""
+    ``(arch, kind, seq, batch)`` at ``variant`` on real CPU tensors (zeros)
+    on the (1, 2) mesh of this group: its collectives in order, FLOPs and
+    memory."""
     from repro_torch.configs import get_reduced
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.launch.dryrun import trace_cell
@@ -315,7 +316,7 @@ def dryrun_cells_worker(rank, cells):
     out = []
     for arch, kind, seq, batch in cells:
         rec = trace_cell(get_reduced(arch), ShapeSpec(kind, seq, batch, kind),
-                         mesh, device="cpu", fake=False)
+                         mesh, variant, device="cpu", fake=False)
         out.append({k: rec[k] for k in ("collective_records", "flops",
                                         "memory")})
     return out

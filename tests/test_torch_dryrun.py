@@ -17,12 +17,14 @@ reference's (``repro/launch/dryrun.py``) and against real steps.
   and the three int32 scalars are set aside;
 - ``make_production_mesh`` inside ``fake_world`` and outside it; every cell
   leaves ``torch.distributed`` as it found it; the dense configs whose
-  dims 16 does not cut are refused by name; ``sp`` raises;
+  dims 16 does not cut are refused by name; ``sp`` / ``sp_mb4`` trace a
+  production cell with ``seq_sharding`` and their microbatches;
 - each kernel's shape-only branch on fake ``cuda`` and ``meta`` tensors:
   the plain version's shapes and dtypes, one launch recorded and no
   launch counter bumped; a CPU tensor still takes the plain version; a
   ``meta`` trace's launches are its records'.
 """
+import dataclasses
 import json
 import math
 
@@ -246,20 +248,40 @@ def test_dense_configs_refused_at_16(arch, dim):
         assert f"'{dim}'" in rec["reason"] and "size 16" in rec["reason"]
 
 
-def test_sp_variants_raise():
-    for variant in ("sp", "sp_mb4"):
-        with pytest.raises(ValueError, match="shard_act"):
-            dryrun.lower_cell("qwen3-4b", "train_4k", False, variant=variant)
+def test_sp_variants_trace_with_the_flag_and_microbatch(monkeypatch):
+    """``lower_cell`` at ``sp`` / ``sp_mb4`` on the 16 x 16 fake world:
+    ``ok``, the step built with ``seq_sharding`` and 1 / 4 microbatches
+    (qwen3-4b at its published widths, cut to 2 layers to keep the trace
+    short)."""
+    built = []
+    real = dryrun.make_sharded_train_step
+
+    def recording(api, mesh, opt, shapes, microbatch=1):
+        built.append((api.cfg.seq_sharding, microbatch))
+        return real(api, mesh, opt, shapes, microbatch=microbatch)
+
+    monkeypatch.setattr(dryrun, "make_sharded_train_step", recording)
+    monkeypatch.setattr(dryrun, "get_config", lambda arch: dataclasses
+                        .replace(get_config(arch), n_layers=2))
+    for variant, mb in (("sp", 1), ("sp_mb4", 4)):
+        rec = dryrun.lower_cell("qwen3-4b", "train_4k", False,
+                                variant=variant)
         assert not dist.is_initialized()
+        assert rec["status"] == "ok", rec
+        assert rec["variant"] == variant
+        assert built.pop() == (True, mb)
+        assert rec["collectives"]["all-gather"] > 0
     with pytest.raises(ValueError, match="unknown variant"):
         dryrun.variant_setup(get_config("qwen3-4b"), "w2", None)
 
 
 def test_variant_mapping():
     cfg = get_config("qwen3-4b")
-    got = {v: dryrun.variant_setup(cfg, v, None)
-           for v in dryrun.VARIANTS if not v.startswith("sp")}
+    got = {v: dryrun.variant_setup(cfg, v, None) for v in dryrun.VARIANTS}
     assert got["novjp"][0].flash_vjp is False
+    assert {v for v in got if got[v][0].seq_sharding} == {"sp", "sp_mb4"}
+    assert [got[v][1] for v in ("baseline", "sp", "sp_mb4")] == [1, 1, 4]
+    assert got["sp"][2:] == got["sp_mb4"][2:] == (None, None, None)
     assert [got[v][1] for v in ("inner", "inner_mb4", "inner_mb8")] == \
         [1, 4, 8]
     assert all(got[v][0].remat_inner for v in ("inner", "inner_mb8"))

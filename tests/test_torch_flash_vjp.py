@@ -4,9 +4,15 @@ JAX package.
 
 - ``flash_attention_vjp`` values and (dq, dk, dv) against
   ``repro.models.flash_vjp.flash_attention_vjp`` on the same inputs:
-  window None and 24, chunk 16 and 32, G = 2, seq 64, and 96 at chunk 64
-  (``_chunk_len`` halves it to 32); rtol 2e-5, atol 2e-5, the reference's
-  own tolerance (``tests/test_attention.py``);
+  window None and 24, chunk 16 and 32, G = 2, seq 64, and lengths the
+  chunk does not divide, where the reference halves the chunk and the
+  port pads to a multiple of it (96, 200 at 64; 97 at 32); rtol 2e-5,
+  atol 2e-5, the reference's own tolerance (``tests/test_attention.py``);
+- ``layers.flash_attention`` without causality, Sq != Skv, neither a
+  multiple of the chunk (the padded keys masked), against JAX's;
+- the causal skip of kv chunks past a q chunk is bit-exact against the
+  full walk, and a length the chunk divides (or at most the chunk) keeps
+  the reference's plan with no padding;
 - what the forward saves for the backward has O(S) elements, never
   Sq x Skv (``torch.autograd.graph.saved_tensors_hooks``), in the function
   and in a model's training loss, where autograd through
@@ -37,12 +43,15 @@ from repro.core.qat import QATConfig as JQAT
 from repro.models import get_model as jget_model
 from repro.models.flash_vjp import _chunk_len as jchunk_len
 from repro.models.flash_vjp import flash_attention_vjp as jflash
+from repro.models.layers import flash_attention as jflash_plain
 from repro_torch.configs import get_reduced
 from repro_torch.core.qat import QATConfig
 from repro_torch.core.tree import flatten_paths
 from repro_torch.interop import params_from_numpy
+from repro_torch.models import flash_vjp as FV
 from repro_torch.models import transformer as T
 from repro_torch.models.flash_vjp import _chunk_len, flash_attention_vjp
+from repro_torch.models.layers import flash_attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -56,7 +65,8 @@ def _qkv(sq, seed=0, b=2, h=4, hkv=2, d=16):
     return q, k, v, ct
 
 
-@pytest.mark.parametrize("sq,chunk", [(64, 16), (64, 32), (96, 64)])
+@pytest.mark.parametrize("sq,chunk", [(64, 16), (64, 32), (96, 64),
+                                      (200, 64), (97, 32)])
 @pytest.mark.parametrize("window", [None, 24])
 def test_values_and_grads_match_jax(sq, chunk, window):
     q, k, v, ct = _qkv(sq)
@@ -70,6 +80,64 @@ def test_values_and_grads_match_jax(sq, chunk, window):
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
     for t, j in zip((tq, tk, tv), jgrads):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(j), **TOL)
+
+
+def test_flash_attention_not_causal_pads_and_masks_keys():
+    """The encoder-decoder's cross attention: Sq 100 over Skv 70 at chunk
+    32, both padded (to 128 / 96); the padded keys must be masked."""
+    rng = np.random.default_rng(5)
+    q = rng.standard_normal((2, 100, 4, 16)).astype(np.float32)
+    k = rng.standard_normal((2, 70, 2, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 70, 2, 16)).astype(np.float32)
+    assert FV._plan(100, 70, False, None, 32)[:4] == (32, 32, 128, 96)
+    want = jflash_plain(q, k, v, causal=False, chunk=32)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=False, chunk=32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _values_and_grads(sq, chunk, window, causal=True):
+    q, k, v, ct = _qkv(sq)
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    out = flash_attention_vjp(tq, tk, tv, causal=causal, window=window,
+                              chunk=chunk)
+    (out * torch.from_numpy(ct)).sum().backward()
+    return [out.detach(), tq.grad, tk.grad, tv.grad]
+
+
+@pytest.mark.parametrize("sq,chunk", [(64, 16), (64, 32), (96, 64),
+                                      (200, 64), (97, 32)])
+@pytest.mark.parametrize("window", [None, 24])
+def test_causal_skip_is_bit_exact(monkeypatch, sq, chunk, window):
+    """Skipping the kv chunks that causality masks whole changes no bit of
+    the values or the gradients (the skipped blocks add exact zeros)."""
+    skip = _values_and_grads(sq, chunk, window)
+    monkeypatch.setattr(FV, "SKIP_MASKED_CHUNKS", False)
+    full = _values_and_grads(sq, chunk, window)
+    for a, b in zip(skip, full):
+        assert torch.equal(a, b)
+
+
+def test_plan_pads_only_where_the_chunk_does_not_divide():
+    """Where ``chunk`` divides S or S <= ``chunk`` the plan is the
+    reference's (``_chunk_len``, no padding): every served bucket and
+    published training length keeps its numerics. Elsewhere the chunk
+    stays whole and S is padded up to a multiple of it."""
+    for s, chunk in ((64, 16), (64, 64), (40, 64), (4096, 1024),
+                     (32768, 1024), (1, 1024), (7, 1024)):
+        cq, ck, sq_p, skv_p, banded, band, kv_len = FV._plan(
+            s, s, True, None, chunk)
+        assert (cq, ck, sq_p, skv_p, kv_len) == (
+            _chunk_len(s, chunk), _chunk_len(s, chunk), s, s, None)
+    assert FV._plan(6976, 6976, True, None, 1024)[:4] == (1024, 1024, 7168,
+                                                          7168)
+    assert FV._plan(35648, 35648, True, 4096, 1024)[:6] == (
+        1024, 1024, 35840, 35840, True, 5120)
+    assert FV._plan(96, 96, False, None, 64)[6] == 96
+    # causal: 4 chunks of 16 walk 1, 2, 3, 4 kv chunks
+    assert [FV._live_chunks(qi, 16, 16, 4, True) for qi in range(4)] == \
+        [1, 2, 3, 4]
+    assert FV._live_chunks(0, 16, 16, 4, False) == 4
 
 
 def test_chunk_len_halves_like_the_reference():

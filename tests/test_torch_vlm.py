@@ -6,7 +6,10 @@ The same numpy weights and ``vision_embeds`` in both, float32:
 - ``train_loss`` with a batch carrying ``vision_embeds`` (the loss over the
   text positions only) and every gradient, under direct MF-QAT at mxint4:
   rtol 1e-4 on the loss, rtol 1e-4 and atol 1e-6 * max|g| per leaf
-  (``tests/test_torch_train.py``'s);
+  (``tests/test_torch_train.py``'s); and at 24 + 77 positions, which the
+  chunk of 64 does not divide (the reference halves its chunk to 1, the
+  port pads to 128 and skips the causally empty pairs), at the same
+  tolerances;
 - ``prefill`` with and without ``lengths`` (``cache_len`` counts the
   prefix), then three ``serve_step``s, on the dense cache and on the paged
   one (pages of 8, the gather read path and B3's plain version), on the
@@ -86,14 +89,17 @@ def test_config_and_cache_carry_the_prefix():
                           page_size=8)["block_table"].shape == (2, 8)
 
 
-def test_train_loss_and_grads_match_jax(served):
+def _train_loss_and_grads(served, text_len):
+    """(port loss, port gradients by path, JAX loss, JAX gradients, the
+    port's api, params and batch) of reduced llava at mxint4 over a batch
+    of two rows of ``text_len`` tokens behind the 24-token prefix."""
     jqat = JQAT(formats=TRAIN_FORMATS_MXINT)
     japi = jget_model(jreduced(ARCH), jqat)
     params = served[1]
     tapi = make_model(get_reduced(ARCH),
                       qat=QATConfig(formats=TRAIN_FORMATS_MXINT))
     rng = np.random.default_rng(3)
-    tokens = rng.integers(0, 512, size=(2, 40)).astype(np.int32)
+    tokens = rng.integers(0, 512, size=(2, text_len)).astype(np.int32)
     batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1),
              "vision_embeds": _embeds(2)}
     loss_j, grads_j = jax.jit(jax.value_and_grad(
@@ -104,19 +110,40 @@ def test_train_loss_and_grads_match_jax(served):
     loss_t, _ = tapi.train_loss(
         tparams, {k: torch.from_numpy(v) for k, v in batch.items()}, 1)
     grads_t = torch.autograd.grad(loss_t, [p for _, p in leaves])
-    np.testing.assert_allclose(loss_t.item(), float(loss_j), rtol=1e-4)
-    want = _flat(grads_j)
-    assert set(want) == {k for k, _ in leaves}
-    for (k, _), g in zip(leaves, grads_t):
+    return (loss_t, {k: g for (k, _), g in zip(leaves, grads_t)},
+            float(loss_j), _flat(grads_j), tapi, tparams, batch)
+
+
+def _check_grads(loss_t, grads_t, loss_j, want):
+    np.testing.assert_allclose(loss_t.item(), loss_j, rtol=1e-4)
+    assert set(want) == set(grads_t)
+    for k, g in grads_t.items():
         np.testing.assert_allclose(
             g.numpy(), want[k], rtol=1e-4,
             atol=1e-6 * float(np.abs(want[k]).max()), err_msg=k)
+
+
+def test_train_loss_and_grads_match_jax(served):
+    loss_t, grads_t, loss_j, want, tapi, tparams, batch = \
+        _train_loss_and_grads(served, 40)
+    _check_grads(loss_t, grads_t, loss_j, want)
     # the prefix moves the loss: it is not dropped before the stack
     with torch.no_grad():
         other, _ = tapi.train_loss(
             tparams, {k: torch.from_numpy(v) for k, v in
                       dict(batch, vision_embeds=_embeds(2, 9)).items()}, 1)
     assert other.item() != loss_t.item()
+
+
+def test_train_at_a_length_the_chunk_does_not_divide_matches_jax(served):
+    """24 + 77 = 101 positions: the reference's flash attention halves its
+    chunk of 64 down to 1 (101 is odd), the port's pads to 128 and walks
+    two chunks of 64, so the sums run in another order; the tolerances
+    stay the same."""
+    from repro_torch.models.flash_vjp import _plan
+    assert _plan(V + 77, V + 77, True, None, 64)[:4] == (64, 64, 128, 128)
+    loss_t, grads_t, loss_j, want, *_ = _train_loss_and_grads(served, 77)
+    _check_grads(loss_t, grads_t, loss_j, want)
 
 
 @pytest.mark.parametrize("fmt", ["bf16", "mxint8"])
